@@ -7,6 +7,7 @@ JAX, is computed in torch here.
 """
 
 from dataclasses import dataclass, field, replace
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -35,37 +36,75 @@ def cartesian_components(l: int) -> list[tuple[int, int, int]]:
     ]
 
 
+def _poly_times(poly: dict, shift: tuple, scale: float) -> dict:
+    """``scale * x^a y^b z^c * poly`` for ``shift = (a, b, c)``; a
+    polynomial is a dict from monomial powers to coefficients."""
+    return {tuple(p + s for p, s in zip(powers, shift)): scale * coeff
+            for powers, coeff in poly.items()}
+
+
+def _poly_sum(*polys: dict) -> dict:
+    out: dict = {}
+    for poly in polys:
+        for powers, coeff in poly.items():
+            out[powers] = out.get(powers, 0.0) + coeff
+    return out
+
+
+@lru_cache(maxsize=None)
+def _solid_harmonics(l: int) -> tuple:
+    """Real regular solid harmonics S_lm, m = -l..l, as polynomials, by the
+    recursion of Helgaker, Jorgensen and Olsen (Molecular
+    Electronic-Structure Theory, eqs. 6.4.70-6.4.73):
+
+        S_{l+1,l+1}  = c_l (x S_ll - (1 - d_l0) y S_{l,-l})
+        S_{l+1,-l-1} = c_l (y S_ll + (1 - d_l0) x S_{l,-l})
+        S_{l+1,m}    = ((2l+1) z S_lm - sqrt((l+m)(l-m)) r^2 S_{l-1,m})
+                       / sqrt((l+m+1)(l-m+1)),   |m| <= l
+
+    with c_l = sqrt(2^d_l0 (2l+1) / (2l+2)). The coefficients are exact, so
+    no fit and no special-function library is needed at any l.
+    """
+    if l == 0:
+        return ({(0, 0, 0): 1.0},)
+    k = l - 1
+    prev = _solid_harmonics(k)
+    prev2 = _solid_harmonics(k - 1) if k >= 1 else ()
+    top, bottom = prev[2 * k], prev[0]  # S_kk, S_{k,-k}
+    c = np.sqrt((2.0 if k == 0 else 1.0) * (2 * k + 1) / (2 * k + 2))
+    other = 0.0 if k == 0 else 1.0
+    middle = []
+    for m in range(-k, k + 1):
+        poly = _poly_times(prev[m + k], (0, 0, 1), 2 * k + 1.0)
+        if abs(m) < k:  # S_{k-1,m} exists
+            scale = -np.sqrt((k + m) * (k - m))
+            poly = _poly_sum(poly, *(_poly_times(prev2[m + k - 1], sq, scale)
+                                     for sq in ((2, 0, 0), (0, 2, 0), (0, 0, 2))))
+        middle.append(_poly_times(poly, (0, 0, 0),
+                                  1.0 / np.sqrt((k + m + 1) * (k - m + 1))))
+    plus = _poly_sum(_poly_times(top, (1, 0, 0), c),
+                     _poly_times(bottom, (0, 1, 0), -other * c))
+    minus = _poly_sum(_poly_times(top, (0, 1, 0), c),
+                      _poly_times(bottom, (1, 0, 0), other * c))
+    return (minus, *middle, plus)
+
+
 def _solid_harmonic_table(l: int) -> np.ndarray:
     """Real solid harmonics in terms of unnormalised cartesian monomials.
 
     Returns ``(ncart, nsph)`` with sph columns ordered m = -l..l
-    (s; p: m=-1,0,1 -> y,z,x; d: xy, yz, z2, xz, x2-y2). Column scale is
-    arbitrary — each AO column is renormalised numerically in
-    :func:`_normalise_shell`. The port's basis sets stop at d shells; the
-    reference's generic-l fit comes with the cc-pVDZ tables.
+    (s; p: m=-1,0,1 -> y,z,x; d: xy, yz, 3z^2-r^2, xz, x^2-y^2), the same
+    columns as ``nbed_tpu``'s tables up to l = 2. Above that the reference
+    fits scipy's spherical harmonics; this table spans the same space with
+    another sign and scale convention, which no fitted or contracted
+    quantity sees. Column scale is arbitrary — each AO column is
+    renormalised numerically in :func:`_normalise_shell`.
     """
-    cart = cartesian_components(l)
-    idx = {c: i for i, c in enumerate(cart)}
-    if l > 2:
-        raise NotImplementedError(
-            f"l={l} shells are not ported yet (ROADMAP queue 1 item 14: basis tables)")
-    if l == 0:
-        cols = [{(0, 0, 0): 1.0}]
-    elif l == 1:
-        # m = -1, 0, +1  ->  y, z, x
-        cols = [{(0, 1, 0): 1.0}, {(0, 0, 1): 1.0}, {(1, 0, 0): 1.0}]
-    else:
-        s3 = np.sqrt(3.0)
-        cols = [
-            {(1, 1, 0): s3},                                     # xy
-            {(0, 1, 1): s3},                                     # yz
-            {(0, 0, 2): 1.0, (2, 0, 0): -0.5, (0, 2, 0): -0.5},  # 3z^2-r^2
-            {(1, 0, 1): s3},                                     # xz
-            {(2, 0, 0): s3 / 2, (0, 2, 0): -s3 / 2},
-        ]
-    out = np.zeros((len(cart), len(cols)))
-    for m, col in enumerate(cols):
-        for powers, coeff in col.items():
+    idx = {c: i for i, c in enumerate(cartesian_components(l))}
+    polys = _solid_harmonics(l)
+    out = np.zeros((len(idx), len(polys)))
+    for m, poly in enumerate(polys):
+        for powers, coeff in poly.items():
             out[idx[powers], m] = coeff
     return out
 

@@ -53,7 +53,6 @@ _NOT_PORTED = {
     "run_rpa_emb": "ROADMAP queue 1 item 11 (solvers off the main path: RPA)",
     "taper_qubits": "ROADMAP queue 1 item 11 (qubit mappings and tapering)",
     "warmup_f32": "ROADMAP queue 1 item 9 (mixed-precision modes)",
-    "density_fitting": "ROADMAP queue 1 item 7 (density fitting)",
     "mm_coords": "ROADMAP queue 1 item 8 (QM/MM point charges)",
     "mm_charges": "ROADMAP queue 1 item 8 (QM/MM point charges)",
     "mm_radii": "ROADMAP queue 1 item 8 (QM/MM point charges)",
@@ -178,11 +177,7 @@ class NbedConfig:
         defaults = {f.name: f.default for f in dataclasses.fields(NbedConfig)}
         for name, item in _NOT_PORTED.items():
             value = getattr(self, name)
-            if name == "density_fitting":
-                off = value in (None, False)
-            else:
-                off = value == defaults[name]
-            if not off:
+            if value != defaults[name]:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported to nbed_tpu_torch yet: {item}."
                 )

@@ -1,21 +1,22 @@
-"""Grid XC evaluation (port of the table path of ``nbed_tpu/dft/xc.py``).
+"""Grid XC evaluation (port of ``nbed_tpu/dft/xc.py``).
 
 The potential matrices are derived from the energy-density closure by
 ``torch.autograd.grad`` (the reference uses ``jax.value_and_grad``), so the
 closed forms in :mod:`.functionals` are the single source of truth. The
 per-call cost is a handful of (G, nao) x (nao, nao) products, taken over
-grid chunks with the (exc, vxc) sums accumulated across them.
+grid chunks with the (exc, vxc) sums accumulated across them. The table
+path keeps the AO tables of the whole grid; the streaming path evaluates
+them per chunk, for grids whose tables would outgrow the memory budget.
 
-Not ported: the streaming path that re-evaluates AOs per chunk for grids
-whose AO table does not fit, and the tau path of meta-GGAs (ROADMAP queue
-1 item 8).
+Not ported: the tau path of meta-GGAs (ROADMAP queue 1 item 8).
 """
 
 import torch
 
+from ..grids import eval_aos
 from .functionals import resolve_functional
 
-__all__ = ["make_xc_fn"]
+__all__ = ["make_xc_fn", "make_xc_fn_streaming"]
 
 # density cut below which grid points are masked out of the XC math: the
 # reference's float64 CPU value (xc.py:24-34)
@@ -77,6 +78,30 @@ def make_xc_fn(ao, ao_grad, weights, xc_name: str, chunk: int = 131072):
         for g0 in range(0, n_points, chunk):
             sl = slice(g0, g0 + chunk)
             exc_c, v_c = one_chunk(ao[sl], ao_grad[:, sl], weights[sl], dm)
+            exc = exc + exc_c
+            v = v + v_c
+        return exc, v
+
+    return xc_fn
+
+
+def make_xc_fn_streaming(mol, points, weights, xc_name: str, chunk: int = 32768):
+    """``xc_fn(dm) -> (exc, vxc (2, nao, nao))`` that evaluates the AO values
+    and gradients per grid chunk: O(chunk * nao) memory instead of
+    O(G * nao) (``nbed_tpu/dft/xc.py:148-188``). The last chunk is short
+    where the reference pads with far-away points; the sums are the same."""
+    terms = resolve_functional(xc_name)[0]
+    one_chunk = _chunk_math(terms)
+    n_points = points.shape[0]
+
+    def xc_fn(dm):
+        exc = torch.zeros((), dtype=points.dtype, device=points.device)
+        v = torch.zeros((2,) + tuple(dm.shape[-2:]), dtype=points.dtype,
+                        device=points.device)
+        for g0 in range(0, n_points, chunk):
+            sl = slice(g0, g0 + chunk)
+            ao_c, grad_c = eval_aos(mol, points[sl])
+            exc_c, v_c = one_chunk(ao_c, grad_c, weights[sl], dm)
             exc = exc + exc_c
             v = v + v_c
         return exc, v

@@ -45,8 +45,8 @@ class NbedDriver:
     ``embedded_scf``, ``classical_energy`` and ``timings``.
     """
 
-    # exact O(nao^4) ERIs above this AO count; the reference then turns on
-    # density fitting, which the port does not have yet
+    # exact O(nao^4) ERIs above this AO count would dominate memory; the
+    # driver then defaults to density fitting (config.density_fitting=None)
     _DF_NAO_THRESHOLD = 96
 
     def __init__(self, config: NbedConfig, device="cuda"):
@@ -60,21 +60,34 @@ class NbedDriver:
     @cached_property
     def _mol(self):
         cfg = self.config
-        mol = build_molecule(cfg.geometry, cfg.basis, charge=cfg.charge,
-                             spin=cfg.spin, unit=cfg.unit)
-        if cfg.density_fitting is None and mol.nao >= self._DF_NAO_THRESHOLD:
-            raise NotImplementedError(
-                f"nao={mol.nao} >= {self._DF_NAO_THRESHOLD} needs density "
-                "fitting, which is not ported yet: ROADMAP queue 1 item 7.")
-        return mol
+        return build_molecule(cfg.geometry, cfg.basis, charge=cfg.charge,
+                              spin=cfg.spin, unit=cfg.unit)
 
-    def _engine(self, xc, max_cycle) -> SCFEngine:
+    @cached_property
+    def _use_df(self) -> bool:
+        """``config.density_fitting``, or, where it is None, nao >= 96
+        (``nbed_tpu/driver.py:90-100``)."""
+        if self.config.density_fitting is not None:
+            return self.config.density_fitting
+        auto = self._mol.nao >= self._DF_NAO_THRESHOLD
+        if auto:
+            logger.info("nao=%d >= %d: enabling density fitting (override with "
+                        "density_fitting=False).", self._mol.nao,
+                        self._DF_NAO_THRESHOLD)
+        return auto
+
+    def _engine(self, xc, max_cycle, df_b=None) -> SCFEngine:
         return SCFEngine(self._mol, xc=xc, conv_tol=self.config.convergence,
-                         max_cycle=max_cycle, device=self.device)
+                         max_cycle=max_cycle, device=self.device,
+                         density_fitting=self._use_df, df_b=df_b,
+                         max_memory_mb=float(self.config.max_ram_memory))
 
     @cached_property
     def _hf_engine(self) -> SCFEngine:
-        return self._engine(None, self.config.max_hf_cycles)
+        # one DF factor for both engines: it depends only on the molecule
+        # and the auxiliary basis (the reference builds it twice)
+        df_b = self._ks_engine.df_factor() if self._use_df else None
+        return self._engine(None, self.config.max_hf_cycles, df_b)
 
     @cached_property
     def _ks_engine(self) -> SCFEngine:

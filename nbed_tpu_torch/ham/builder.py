@@ -1,5 +1,4 @@
-"""Second-quantised molecular Hamiltonian (port of the exact-ERI branch of
-``nbed_tpu/ham/builder.py``).
+"""Second-quantised molecular Hamiltonian (port of ``nbed_tpu/ham/builder.py``).
 
 ``HamiltonianBuilder.build()`` returns ``(constant, h1, 0.5*h2)`` in
 interleaved spin-orbital form (even = alpha, odd = beta), OpenFermion's
@@ -8,9 +7,10 @@ InteractionOperator convention:
     H = constant + sum_pq h1[p,q] a+_p a_q
                + sum_pqrs (0.5*h2)[p,q,r,s] a+_p a+_q a_r a_s.
 
-``h1`` and ``h2`` are float64 tensors on the solution's device. Not ported:
-the density-fitted branch and frozen-orbital reduction (ROADMAP queue 1
-items 7 and 11).
+``h1`` and ``h2`` are float64 tensors on the solution's device. With a
+density-fitted engine the MO two-body blocks come from the DF factor, with
+no O(nao^4) tensor. Not ported: frozen-orbital reduction (ROADMAP queue 1
+item 11).
 """
 
 import torch
@@ -22,6 +22,15 @@ __all__ = ["HamiltonianBuilder", "EQ_TOLERANCE"]
 
 # OpenFermion's default coefficient truncation threshold.
 EQ_TOLERANCE = 1e-8
+
+
+def _df_mo_factor(b, c):
+    """MO DF factor as a (k*k, naux) matrix, row (i, j) = (C^T B_P C)[i, j]
+    for the (nao, naux, nao) factor ``b`` and MO coefficients ``c``."""
+    nao, naux, k = b.shape[0], b.shape[1], c.shape[1]
+    x = (b.reshape(nao * naux, nao) @ c).reshape(nao, naux * k)  # [a, (P, j)]
+    y = (c.T @ x).reshape(k, naux, k)  # [i, P, j]
+    return y.permute(0, 2, 1).reshape(k * k, naux)
 
 
 class HamiltonianBuilder:
@@ -47,12 +56,17 @@ class HamiltonianBuilder:
             raise HamiltonianBuilderError(
                 "Must localize the same number of alpha and beta orbitals.")
         ca, cb = c[0], c[1]
-        eri_ao = self.scf.engine.eri
-        blocks = []
-        for c1, c2 in ((ca, ca), (cb, cb), (ca, cb), (cb, ca)):
-            chem = ao_to_mo_eri(eri_ao, c1, c1, c2, c2)
-            blocks.append(chem.permute(0, 2, 3, 1))  # chemist -> physicist
-        return torch.stack(blocks)
+        engine = self.scf.engine
+        if engine.density_fitting:
+            b = engine.df_factor()
+            ba, bb = _df_mo_factor(b, ca), _df_mo_factor(b, cb)
+            chem = (x @ y.T for x, y in ((ba, ba), (bb, bb), (ba, bb), (bb, ba)))
+        else:
+            chem = (ao_to_mo_eri(engine.eri, c1, c1, c2, c2)
+                    for c1, c2 in ((ca, ca), (cb, cb), (ca, cb), (cb, ca)))
+        k = ca.shape[1]
+        # chemist -> physicist
+        return torch.stack([t.reshape(k, k, k, k).permute(0, 2, 3, 1) for t in chem])
 
     @staticmethod
     def _spinorb_from_spatial(one_body, two_body):

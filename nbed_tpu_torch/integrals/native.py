@@ -1,19 +1,26 @@
 """ctypes binding of the port's own build of the C++ McMurchie-Davidson
 integral engine (``nbed_tpu/native/md_integrals.cpp``).
 
-Host code, not a kernel: S, T, V and the ERI tensor are made on the CPU in
-float64 and moved to the device by the SCF engine, the same division of
-labour as ``nbed_tpu.native`` (``nbed_tpu/native/__init__.py:143-253``).
+Host code, not a kernel: S, T, V, the ERI tensor and the density-fitting
+integrals are made on the CPU in float64 and moved to the device by the SCF
+engine, the same division of labour as ``nbed_tpu.native``
+(``nbed_tpu/native/__init__.py:143-253``). The three-centre integrals, the
+one host cost that grows with the molecule, run in blocks of auxiliary
+shells on a thread per core: ctypes releases the interpreter lock and the
+engine keeps its scratch in ``thread_local`` storage.
 """
 
 import ctypes
+import os
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 from functools import lru_cache
 
 import numpy as np
 
 from .._reference_files import native_integrals_library
 
-__all__ = ["one_electron", "eri"]
+__all__ = ["one_electron", "eri", "eri_3c", "eri_2c"]
 
 _DPTR = ctypes.POINTER(ctypes.c_double)
 _IPTR = ctypes.POINTER(ctypes.c_int32)
@@ -31,6 +38,15 @@ def _lib():
         ctypes.c_int, _IPTR, _DPTR, _DPTR, _DPTR, _DPTR, _DPTR, ctypes.c_double,
     ]
     lib.nbed_eri.restype = None
+    lib.nbed_eri_3c.argtypes = [
+        ctypes.c_int, _IPTR, _DPTR, _DPTR, _DPTR, _DPTR,
+        ctypes.c_int, _IPTR, _DPTR, _DPTR, _DPTR, _DPTR, ctypes.c_double,
+    ]
+    lib.nbed_eri_3c.restype = None
+    lib.nbed_eri_2c.argtypes = [
+        ctypes.c_int, _IPTR, _DPTR, _DPTR, _DPTR, _DPTR, _DPTR, ctypes.c_double,
+    ]
+    lib.nbed_eri_2c.restype = None
     return lib
 
 
@@ -86,5 +102,71 @@ def eri(mol, coords=None):
     _lib().nbed_eri(
         len(mol.shells), meta.ctypes.data_as(_IPTR),
         _dp(exps), _dp(coefs), _dp(c2s), _dp(coords), _dp(out), 0.0,
+    )
+    return out
+
+
+def _eri_3c_block(mol, aux, coords, omega):
+    """(nao, nao, aux.nao) for one block of auxiliary shells."""
+    meta, exps, coefs, c2s = _pack(mol)
+    ameta, aexps, acoefs, ac2s = _pack(aux)
+    out = np.zeros((mol.nao, mol.nao, aux.nao))
+    _lib().nbed_eri_3c(
+        len(mol.shells), meta.ctypes.data_as(_IPTR),
+        _dp(exps), _dp(coefs), _dp(c2s), _dp(coords),
+        len(aux.shells), ameta.ctypes.data_as(_IPTR),
+        _dp(aexps), _dp(acoefs), _dp(ac2s), _dp(out), float(omega),
+    )
+    return out
+
+
+def _aux_blocks(aux, n_blocks: int):
+    """Split ``aux`` into up to ``n_blocks`` molecules of consecutive shells
+    with about equal cartesian work each, AO offsets renumbered from 0.
+    Returns ``[(first aux AO, block molecule), ...]``."""
+    work = np.cumsum([(sh.l + 1) * (sh.l + 2) // 2 for sh in aux.shells])
+    cuts = np.searchsorted(work, work[-1] * np.arange(1, n_blocks) / n_blocks)
+    blocks = []
+    for lo, hi in zip([0, *cuts], [*cuts, len(aux.shells)]):
+        if hi <= lo:
+            continue
+        first = aux.shells[lo].ao_offset
+        shells = tuple(replace(sh, ao_offset=sh.ao_offset - first)
+                       for sh in aux.shells[lo:hi])
+        blocks.append((first, replace(aux, shells=shells)))
+    return blocks
+
+
+def eri_3c(mol, aux, coords=None, omega: float = 0.0):
+    """Three-centre DF integrals (ab|P): (nao, nao, naux) float64.
+
+    ``omega > 0`` evaluates the long-range erf(omega*r12)/r12 kernel. The
+    auxiliary shells are split into blocks evaluated on one thread per
+    available core; each integral is computed exactly as in one call."""
+    coords = _coords(mol, coords)
+    n_threads = len(os.sched_getaffinity(0))
+    out = np.empty((mol.nao, mol.nao, aux.nao))
+
+    def fill(block):
+        # each worker copies its block into place and drops it, so at most
+        # one block per thread is alive beside ``out``
+        first, blk = block
+        out[:, :, first:first + blk.nao] = _eri_3c_block(mol, blk, coords, omega)
+
+    with ThreadPoolExecutor(max_workers=n_threads) as pool:
+        list(pool.map(fill, _aux_blocks(aux, 4 * n_threads)))
+    return out
+
+
+def eri_2c(aux, coords=None, omega: float = 0.0):
+    """Two-centre Coulomb metric (P|Q): (naux, naux) float64.
+
+    ``omega > 0`` evaluates the long-range erf(omega*r12)/r12 kernel."""
+    ameta, aexps, acoefs, ac2s = _pack(aux)
+    coords = _coords(aux, coords)
+    out = np.zeros((aux.nao, aux.nao))
+    _lib().nbed_eri_2c(
+        len(aux.shells), ameta.ctypes.data_as(_IPTR),
+        _dp(aexps), _dp(acoefs), _dp(ac2s), _dp(coords), _dp(out), float(omega),
     )
     return out

@@ -41,19 +41,27 @@ def solution_from_reference(sol, device="cuda") -> SCFSolution:
     """Port :class:`SCFSolution` on ``device`` carrying an unrestricted
     ``nbed_tpu`` solution: its MO coefficients, energies and occupations,
     total energy, embedding potential and Huzinaga operator, on an engine
-    whose S, hcore and ERIs are the reference engine's. The Fock matrix is
-    rebuilt by the port (``get_fock``) from that state."""
-
-    engine = SCFEngine(molecule_from_reference(sol.mol), xc=sol.engine.xc,
-                       device=device)
+    whose S, hcore and ERIs are the reference engine's. A density-fitted
+    engine carries the reference's DF factor (as (nao, naux, nao)),
+    ``df_beta`` and ``max_memory_mb`` instead of the ERIs. The Fock matrix
+    is rebuilt by the port (``get_fock``) from that state."""
+    ref = sol.engine
+    density_fitting = bool(ref.density_fitting)
 
     def tensor(a):
         return None if a is None else torch.as_tensor(np.array(a), dtype=DTYPE,
-                                                      device=engine.device)
+                                                      device=device)
 
-    engine.s = tensor(sol.engine.s)
-    engine.hcore = tensor(sol.engine.hcore)
-    engine.eri = tensor(sol.engine.eri)
+    engine = SCFEngine(
+        molecule_from_reference(sol.mol), xc=ref.xc, device=device,
+        density_fitting=density_fitting,
+        df_b=(tensor(np.moveaxis(np.asarray(ref._df_b), -1, 1))
+              if density_fitting else None),
+        df_beta=float(ref.df_beta), max_memory_mb=float(ref.max_memory_mb))
+    engine.s = tensor(ref.s)
+    engine.hcore = tensor(ref.hcore)
+    if not density_fitting:
+        engine.eri = tensor(ref.eri)
     mo_coeff = tensor(sol.mo_coeff)
     if mo_coeff.ndim != 3:
         raise ValueError("solution_from_reference takes unrestricted solutions")

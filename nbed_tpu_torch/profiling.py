@@ -1,4 +1,5 @@
-"""Per-stage wall times of the embedding pipeline."""
+"""Per-stage wall times of the embedding pipeline, and the device busy/idle
+share of one call."""
 
 import contextlib
 import logging
@@ -8,7 +9,40 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["StageTimer"]
+__all__ = ["StageTimer", "device_profile"]
+
+
+def device_profile(fn):
+    """Run ``fn()`` once under ``torch.profiler``; return (its result, summary).
+
+    The summary holds ``wall_s``, the host wall time of the call with the
+    device synchronised at its end; ``device_busy_s``, the self device time
+    of every device event (kernels and copies) summed; ``device_idle_share``
+    = 1 - busy / wall; ``device_events``, their number; and ``top``, the
+    twelve events with the most device time as [name, count, ms]. The sum
+    is the busy time where the work runs on one stream, as the port's does.
+    Without a CUDA device only host activity is recorded and the device is
+    idle.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    return out, {
+        "wall_s": wall, "device_busy_s": busy, "device_idle_share": 1.0 - busy / wall,
+        "device_events": sum(e.count for e in dev),
+        "top": [[e.key, e.count, e.self_device_time_total / 1e3] for e in dev[:12]],
+    }
 
 
 class StageTimer:

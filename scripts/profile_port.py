@@ -1,0 +1,88 @@
+"""Where the time goes in one nbed_tpu_torch embedding on a CUDA card.
+
+    python3 scripts/profile_port.py [water|acetonitrile|pfoa]    (default pfoa)
+
+Runs the configuration of that name from ``chip_smoke.CONFIGS`` once cold,
+then profiles a second ``nbed()`` call in the same process (SAD atoms and,
+with density fitting, the DF factor recomputed; kernels already built) and
+the global SCF alone at the built engine, each with
+``nbed_tpu_torch.profiling.device_profile``: host wall time, device busy
+time (self device time of every kernel and copy, summed), device idle share
+and event count. With density fitting it also times the three-centre
+integrals on every core of the process's affinity mask and on one core, in
+the same process. Prints the card's name and power limit first, then one
+labelled JSON object per measurement.
+"""
+
+import json
+import os
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import CONFIGS, card_line  # noqa: E402
+from nbed_tpu_torch import nbed  # noqa: E402
+from nbed_tpu_torch.chem.basis.auxiliary import make_auxiliary_molecule  # noqa: E402
+from nbed_tpu_torch.integrals import native  # noqa: E402
+from nbed_tpu_torch.ops import jk  # noqa: E402
+from nbed_tpu_torch.profiling import device_profile  # noqa: E402
+from nbed_tpu_torch.scf.engine import _atomic_density  # noqa: E402
+
+
+def show(label, obj):
+    print(label, json.dumps(obj), flush=True)
+
+
+def timed_eri_3c(mol, aux, cpus) -> float:
+    """Seconds of ``native.eri_3c`` with the process pinned to ``cpus``
+    (it runs one thread per core of the affinity mask)."""
+    saved = os.sched_getaffinity(0)
+    os.sched_setaffinity(0, cpus)
+    try:
+        t0 = time.perf_counter()
+        native.eri_3c(mol, aux)
+        return time.perf_counter() - t0
+    finally:
+        os.sched_setaffinity(0, saved)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_port.py: torch.cuda.is_available() is False")
+    name = sys.argv[1] if len(sys.argv) > 1 else "pfoa"
+    config = CONFIGS[name]
+    print(card_line(), flush=True)
+    jk.build_kernels()
+
+    t0 = time.perf_counter()
+    driver = nbed(**config, device="cuda")
+    show("cold", {"wall_s": time.perf_counter() - t0, "stages_s": driver.timings})
+
+    _atomic_density.cache_clear()
+    driver, summary = device_profile(lambda: nbed(**config, device="cuda"))
+    show("embed_profiled", {**summary, "stages_s": driver.timings,
+                            "df_build_s": driver._ks_engine.df_timings})
+
+    eng = driver._ks_engine
+    t0 = time.perf_counter()
+    eng.kernel()
+    torch.cuda.synchronize()
+    show("global_scf_unprofiled", {"wall_s": time.perf_counter() - t0})
+    _, summary = device_profile(eng.kernel)
+    show("global_scf_profiled", summary)
+
+    if eng.density_fitting:
+        aux = make_auxiliary_molecule(eng.mol, beta=eng.df_beta)
+        cpus = os.sched_getaffinity(0)
+        show("eri_3c_s", {"naux": aux.nao,
+                          f"{len(cpus)}_threads": timed_eri_3c(eng.mol, aux, cpus),
+                          "1_thread": timed_eri_3c(eng.mol, aux, {min(cpus)})})
+
+
+if __name__ == "__main__":
+    main()

@@ -72,7 +72,7 @@ def test_invalid_values_raise(bad, water_xyz):
 @pytest.mark.parametrize("field,value", [
     ("run_dft_in_dft", True), ("run_vqe_emb", True), ("run_cis_emb", 2),
     ("run_rpa_emb", 1), ("taper_qubits", True), ("warmup_f32", True),
-    ("density_fitting", True), ("localization", "pm"),
+    ("localization", "pm"),
     ("virtual_localization", "pao"), ("mm_charges", [0.1]),
 ])
 def test_unported_features_raise_naming_roadmap(field, value, water_xyz):
@@ -80,3 +80,13 @@ def test_unported_features_raise_naming_roadmap(field, value, water_xyz):
                           xc_functional="b3lyp", **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cfg.require_ported()
+
+
+@pytest.mark.parametrize("value", [True, False, None])
+def test_density_fitting_is_accepted(value, water_xyz):
+    """density_fitting is ported: every value passes require_ported (None
+    lets the driver decide from nao)."""
+    cfg = port.NbedConfig(geometry=water_xyz, n_active_atoms=1, basis="STO-3G",
+                          xc_functional="b3lyp", density_fitting=value)
+    cfg.require_ported()
+    assert cfg.density_fitting is value

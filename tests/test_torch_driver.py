@@ -14,6 +14,7 @@ import torch
 
 from nbed_tpu_torch import NbedConfig, nbed
 from nbed_tpu_torch.driver import NbedDriver
+from nbed_tpu_torch.profiling import device_profile
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -21,6 +22,10 @@ REPO = Path(__file__).resolve().parent.parent
 E_UKS = -75.3091447400438
 E_CCSD = -75.1285849238916
 E_FCI = -75.12858550813999
+# DF against exact embedded FCI on water, the fitting error of the default
+# auto-auxiliary basis: 1.7e-6 measured on the CPU, held to the 1e-5 of the
+# embedded oracles
+DF_FCI_GAP = 1e-5
 
 # nbed_tpu on the PRA notebook acetonitrile config (the command that made
 # them is in chip_smoke.py)
@@ -118,6 +123,16 @@ def test_save_writes_scalar_results(port_driver, tmp_path):
     assert saved["huzinaga"]["classical_energy"] == port_driver.huzinaga["classical_energy"]
 
 
+def test_device_profile_of_host_work():
+    """Work that stays on the host: its result passes through, its wall
+    time is positive, and no device event is counted."""
+    out, summary = device_profile(lambda: torch.ones(64, 64) @ torch.ones(64, 64))
+    assert torch.equal(out, torch.full((64, 64), 64.0))
+    assert summary["wall_s"] > 0
+    assert summary["device_busy_s"] == 0 and summary["device_events"] == 0
+    assert summary["device_idle_share"] == 1.0 and summary["top"] == []
+
+
 def test_unported_config_raises_before_running(nbed_config):
     cfg = NbedConfig(**nbed_config.model_dump(mode="json"))
     cfg.run_dft_in_dft = True
@@ -134,6 +149,12 @@ def test_slice_imports_neither_jax_nor_pydantic():
                  n_active_atoms=1, basis="STO-3G", xc_functional="b3lyp",
                  projector="mu", run_ccsd_emb=True, run_fci_emb=True, device="cpu")
         assert abs(d.mu["e_fci"] - ({E_FCI})) < 1e-5, d.mu["e_fci"]
+        df = nbed(geometry={str(REPO / "tests/molecules/water.xyz")!r},
+                  n_active_atoms=1, basis="STO-3G", xc_functional="b3lyp",
+                  projector="mu", run_ccsd_emb=True, run_fci_emb=True,
+                  density_fitting=True, device="cpu")
+        assert df._use_df and df._hf_engine.df_b is df._ks_engine.df_b
+        assert abs(df.mu["e_fci"] - d.mu["e_fci"]) < {DF_FCI_GAP}, df.mu["e_fci"]
         leaked = [m for m in ("jax", "jaxlib", "pydantic", "nbed_tpu") if m in sys.modules]
         assert not leaked, leaked
         print("clean")

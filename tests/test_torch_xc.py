@@ -6,13 +6,15 @@ import pytest
 import torch
 
 from nbed_tpu.dft.xc import make_xc_fn as ref_make_xc_fn
+from nbed_tpu.dft.xc import make_xc_fn_streaming as ref_make_xc_fn_streaming
 from nbed_tpu.grids import build_grid as ref_build_grid
 from nbed_tpu.grids import eval_aos as ref_eval_aos
 from nbed_tpu.grids.lebedev import lebedev_grid as ref_lebedev_grid
-from nbed_tpu_torch.dft import make_xc_fn, resolve_functional
+from nbed_tpu_torch.dft import make_xc_fn, make_xc_fn_streaming, resolve_functional
 from nbed_tpu_torch.grids import build_grid, eval_aos
 from nbed_tpu_torch.grids.lebedev import LEBEDEV_PARAMS, lebedev_grid
 from nbed_tpu_torch.interop import molecule_from_reference
+from nbed_tpu_torch.scf import SCFEngine
 
 
 @pytest.fixture(scope="module")
@@ -76,6 +78,41 @@ def test_chunked_xc_equals_single_chunk(grids, ao_tables, water_uhf):
     e2, v2 = make_xc_fn(ao, grad, w, "b3lyp", chunk=4096)(dm)
     assert abs(float(e1) - float(e2)) < 1e-11
     torch.testing.assert_close(v1, v2, rtol=0, atol=1e-11)
+
+
+def test_streaming_xc_matches_table_and_reference(water_molecule, grids, ao_tables,
+                                                  water_uhf):
+    """Streaming XC with a chunk that leaves a short last chunk, against the
+    port's table XC and nbed_tpu's streaming XC (which pads instead)."""
+    (ref_pts, ref_w), (pts, w) = grids
+    (_, _), (ao, grad) = ao_tables
+    dm = water_uhf.make_rdm1()
+    chunk = 1000
+    assert pts.shape[0] % chunk != 0
+    exc_ref, vxc_ref = ref_make_xc_fn_streaming(
+        water_molecule, jnp.asarray(water_molecule.coords), jnp.asarray(ref_pts),
+        jnp.asarray(ref_w), "b3lyp", chunk=chunk)(jnp.asarray(dm))
+    exc, vxc = make_xc_fn_streaming(molecule_from_reference(water_molecule), pts, w,
+                                    "b3lyp", chunk=chunk)(torch.tensor(dm))
+    exc_t, vxc_t = make_xc_fn(ao, grad, w, "b3lyp")(torch.tensor(dm))
+    assert abs(float(exc) - float(exc_t)) < 1e-10
+    torch.testing.assert_close(vxc, vxc_t, rtol=0, atol=1e-10)
+    assert abs(float(exc) - float(exc_ref)) < 1e-10
+    np.testing.assert_allclose(vxc.numpy(), np.asarray(vxc_ref), rtol=0, atol=1e-10)
+
+
+def test_engine_streams_xc_above_table_limit(water_molecule, water_uhf):
+    """A zero memory budget puts the engine on streaming XC (the switch of
+    nbed_tpu/scf/engine.py:386-398); its veff equals the table path's."""
+    mol = molecule_from_reference(water_molecule)
+    table = SCFEngine(mol, xc="b3lyp", device="cpu")
+    stream = SCFEngine(mol, xc="b3lyp", device="cpu", max_memory_mb=0.0)
+    assert table._grid[0].shape[0] * mol.nao <= table._XC_TABLE_LIMIT
+    assert stream._grid[0].shape[0] * mol.nao > stream._XC_TABLE_LIMIT
+    dm = torch.tensor(water_uhf.make_rdm1())
+    v_table, v_stream = table.get_veff(dm), stream.get_veff(dm)
+    assert abs(float(v_table.exc) - float(v_stream.exc)) < 1e-10
+    torch.testing.assert_close(v_table.matrix, v_stream.matrix, rtol=0, atol=1e-10)
 
 
 @pytest.mark.parametrize("name", ["pbe", "wb97x", "m06"])
