@@ -1,14 +1,22 @@
 """Smoke run of nbed_tpu_torch on one CUDA card.
 
 Builds the port's kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, then drives the embedding
+against its plain PyTorch version on the card (the fused J/K kernel also on
+CAM-B3LYP's range-separated exchange operator), then drives the embedding
 pipeline end to end through ``nbed_tpu_torch.nbed(..., device="cuda")`` on
-water (both projectors, CCSD and FCI), on the acetonitrile configuration of
-the PRA 109, 022418 notebook (28-qubit embedded register) and on pfoa
-(C8HF15O2, 126 AOs, where density fitting switches itself on), and checks
-the energies against the reference values. On pfoa's converged global
-density it also holds streaming XC against table XC and the chunked DF
-exchange against the unchunked one, and times DF J, DF K and both XC paths.
+water (both projectors, CCSD and FCI) and on the acetonitrile configuration
+of the PRA 109, 022418 notebook (28-qubit embedded register).
+
+The functional surface follows: water's global UKS for every registered
+functional, a composition string and B2PLYP's PT2 term; ROHF and ROKS of
+the methyl radical; water embedded beside a TIP3P water of MM charges; the
+acetonitrile configuration with CAM-B3LYP (exact ERIs, folded exchange
+through the fused kernel); and pfoa (C8HF15O2, 126 AOs, where density
+fitting switches itself on) with wB97X, whose DF route builds a second,
+long-range factor. Last comes pfoa with B3LYP; on its converged global
+density the script also holds streaming XC against table XC and the
+chunked DF exchange against the unchunked one, and times DF J, DF K and
+both XC paths. Every energy is checked against the reference values.
 
     python3 chip_smoke.py
 
@@ -34,6 +42,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 MOLECULES = Path(__file__).resolve().parent / "tests" / "molecules"
 WATER = MOLECULES / "water.xyz"
 PFOA = MOLECULES / "pfoa.xyz"
+METHYL = MOLECULES / "methyl_radical.xyz"
 
 # acetonitrile exactly as in scripts/qubit_reduction.py (the notebook input)
 ACETONITRILE = """6
@@ -72,6 +81,47 @@ E_UKS_PFOA = -1925.6431337201911
 E_RHF_PFOA = -1924.6777805286401
 E_CLASSICAL_PFOA = -1581.701690045898
 E_CCSD_PFOA = -1924.6909046358996
+# nbed_tpu on the same pfoa config with xc_functional='wb97x' (the same
+# command with that one change; 390 s on the development host's CPU)
+E_UKS_PFOA_WB97X = -1923.966896517335
+E_RHF_PFOA_WB97X = -1922.9938095727239
+E_CLASSICAL_PFOA_WB97X = -1579.8907780051159
+E_CCSD_PFOA_WB97X = -1923.0074018645487
+# nbed_tpu, water/STO-3G global UKS of every registered functional and of
+# one composition string, from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python -c "from nbed_tpu.chem import
+#   build_molecule; from nbed_tpu.scf.engine import SCFEngine; mol =
+#   build_molecule(open('tests/molecules/water.xyz').read(), 'sto-3g');
+#   print(SCFEngine(mol, xc=NAME, **WATER_SCF).kernel().e_tot)"
+# and, for B2PLYP, nbed_tpu.solvers.run_double_hybrid of that solution
+WATER_SCF = dict(conv_tol=1e-9, dm_conv_tol=1e-7, max_cycle=100)
+COMPOSITION = "0.25*HF + 0.75*PBE, PBE"
+E_WATER = {
+    "b2gpplyp": -75.16876905139277, "b2plyp": -75.19605821116586,
+    "b3lyp": -75.3091448156704, "b3lyp5": -75.2718529416598,
+    "blyp": -75.27355414131857, "camb3lyp": -75.27651129206019,
+    "hf": -74.96099960308739, "lcblyp": -75.13156528260443,
+    "lda": -74.72858356085497, "pbe": -74.64894147268018,
+    "pbe0": -74.81294460685496, "pw92": -74.72565834359791,
+    "scan": -75.29136854906154, "scan0": -75.28859970884325,
+    "svwn": -74.72858356085497, "tpss": -75.32293726424626,
+    "tpssh": -75.32113489427081, "wb97": -75.29774409315307,
+    "wb97x": -75.25030270029812, COMPOSITION: -74.81294460685496,
+}
+E_B2PLYP_DH_WATER = -75.2077787408571
+# nbed_tpu, methyl radical/STO-3G (spin 1) with rohf=True: ROHF at
+# conv_tol=1e-10, dm_conv_tol=1e-8 and ROKS (xc='b3lyp') at WATER_SCF, the
+# settings of tests/test_rohf.py, max_cycle=100
+ROHF_SCF = dict(conv_tol=1e-10, dm_conv_tol=1e-8, max_cycle=100)
+E_ROHF_METHYL = -37.6723280856005
+E_ROKS_METHYL = -37.94155764249537
+# nbed_tpu's NbedDriver on CONFIGS["water_qmmm"] and
+# CONFIGS["acetonitrile_camb3lyp"] (the commands above with those configs)
+E_UKS_QMMM = -75.3172751129991
+E_RHF_QMMM = -75.13101779540804
+E_CCSD_QMMM = -75.13566086596478
+E_RHF_PRA_CAM = -130.51789932942617
+E_CCSD_PRA_CAM = -130.67543341307274
 
 # the nbed() arguments of each pipeline phase (scripts/profile_port.py
 # profiles the same configurations)
@@ -88,6 +138,15 @@ CONFIGS = {
                  xc_functional="b3lyp", projector="mu", localization="spade",
                  convergence=1e-6, run_ccsd_emb=True),
 }
+# water in the field of a TIP3P water (O -0.834, H +0.417; Jorgensen et al.,
+# JCP 79, 926 (1983)), O-O 2.9 angstrom, Gaussian radii as given
+CONFIGS["water_qmmm"] = dict(
+    geometry=str(WATER), n_active_atoms=1, basis="STO-3G", xc_functional="b3lyp",
+    projector="mu", localization="spade", convergence=1e-6, run_ccsd_emb=True,
+    mm_coords=[[0.0, 0.0, 3.0], [0.0, 0.0, 2.0428], [0.9266, 0.0, 3.2397]],
+    mm_charges=[-0.834, 0.417, 0.417], mm_radii=[0.8, 0.4, 0.4])
+CONFIGS["acetonitrile_camb3lyp"] = {**CONFIGS["acetonitrile"], "xc_functional": "camb3lyp"}
+CONFIGS["pfoa_wb97x"] = {**CONFIGS["pfoa"], "xc_functional": "wb97x"}
 
 # kernel-vs-plain tolerances, as in tests/test_ops.py:25-26 for float32
 TOLERANCES = {torch.float64: (1e-12, 1e-10), torch.float32: (1e-5, 1e-4)}
@@ -118,23 +177,30 @@ def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 def jk_cases():
     """(label, g_j, g_k, dm) in float64 on the card: the real ERI
-    supermatrices of water and acetonitrile STO-3G and of pfoa's SAD atoms
-    (C, F, O: M = 25; H: M = 1, the shapes of pfoa's launches), and seeded
-    random symmetric ones at nao = 64."""
+    supermatrices of water and acetonitrile STO-3G, acetonitrile's
+    CAM-B3LYP exchange operator 0.19 (ik|jl) + 0.46 (ik|jl)_LR(0.33), the
+    methyl radical's (M = 64, the shape of its ROHF/ROKS launches), the
+    supermatrices of pfoa's SAD atoms (C, F, O: M = 25; H: M = 1, the shapes
+    of pfoa's launches), and seeded random symmetric ones at nao = 64."""
     from nbed_tpu_torch.chem import build_molecule
     from nbed_tpu_torch.scf import SCFEngine
 
     rng = np.random.default_rng(11)
     cases = []
-    atoms = tuple((f"pfoa SAD {el}", f"1\n\n{el} 0.0 0.0 0.0") for el in "CFOH")
-    for label, xyz in (("water", WATER.read_text()), ("acetonitrile", ACETONITRILE),
-                       *atoms):
-        eng = SCFEngine(build_molecule(xyz, "sto-3g"), device="cuda")
+    atoms = tuple((f"pfoa SAD {el}", f"1\n\n{el} 0.0 0.0 0.0", 0) for el in "CFOH")
+    for label, xyz, spin in (("water", WATER.read_text(), 0),
+                             ("acetonitrile", ACETONITRILE, 0),
+                             ("methyl radical", METHYL.read_text(), 1), *atoms):
+        eng = SCFEngine(build_molecule(xyz, "sto-3g", spin=spin), device="cuda")
         n = eng.mol.nao
         dm = rng.standard_normal((2, n, n))
         dm = 0.5 * (dm + dm.swapaxes(-1, -2))
         cases.append((label, eng.eri_j, eng.eri_k,
                       torch.tensor(dm, dtype=torch.float64, device="cuda")))
+        if label == "acetonitrile":
+            cam = SCFEngine(eng.mol, xc="camb3lyp", device="cuda")
+            cases.append(("acetonitrile camb3lyp folded K", cam.eri_j, cam.eri_k,
+                          cases[-1][3]))
     n = 64
     m = n * n
     g = rng.standard_normal((2, m, m))
@@ -177,6 +243,14 @@ def check_kernels() -> list:
     return rows
 
 
+def _gate(label, pairs, tol):
+    """Raise unless every (key, ours, reference) pair is finite and within
+    ``tol``."""
+    for key, ours, ref in pairs:
+        if not np.isfinite(ours) or abs(ours - ref) > tol:
+            raise RuntimeError(f"{label} {key} {ours} vs reference {ref} (tol {tol})")
+
+
 def run_water():
     from nbed_tpu_torch import nbed
 
@@ -184,12 +258,10 @@ def run_water():
     driver = nbed(**CONFIGS["water"], device="cuda")
     wall = time.perf_counter() - t0
     e_uks = driver._global_ks.e_tot
-    if abs(e_uks - E_UKS_WATER) > 2e-7:
-        raise RuntimeError(f"water global UKS {e_uks} vs oracle {E_UKS_WATER}")
+    _gate("water", [("global UKS", e_uks, E_UKS_WATER)], 2e-7)
     for name, res in (("mu", driver.mu), ("huzinaga", driver.huzinaga)):
-        for key, oracle in (("e_ccsd", E_CCSD_WATER), ("e_fci", E_FCI_WATER)):
-            if not np.isfinite(res[key]) or abs(res[key] - oracle) > 1e-5:
-                raise RuntimeError(f"water {name} {key} {res[key]} vs oracle {oracle}")
+        _gate(f"water {name}", [("e_ccsd", res["e_ccsd"], E_CCSD_WATER),
+                                ("e_fci", res["e_fci"], E_FCI_WATER)], 1e-5)
         _, h1, h2 = res["second_quantised"]
         k = h1.shape[0]
         if tuple(h2.shape) != (k, k, k, k) or not torch.isfinite(h2).all():
@@ -225,12 +297,10 @@ def run_pfoa():
     qubits = res["second_quantised"][1].shape[0]
     if qubits != 78:
         raise RuntimeError(f"pfoa embedded register {qubits} spin orbitals, expected 78")
-    for key, ours, ref in (("e_uks", driver._global_ks.e_tot, E_UKS_PFOA),
-                           ("e_rhf", res["e_rhf"], E_RHF_PFOA),
-                           ("classical_energy", res["classical_energy"], E_CLASSICAL_PFOA),
-                           ("e_ccsd", res["e_ccsd"], E_CCSD_PFOA)):
-        if not np.isfinite(ours) or abs(ours - ref) > 1e-6:
-            raise RuntimeError(f"pfoa {key} {ours} vs nbed_tpu {ref}")
+    _gate("pfoa", [("e_uks", driver._global_ks.e_tot, E_UKS_PFOA),
+                   ("e_rhf", res["e_rhf"], E_RHF_PFOA),
+                   ("classical_energy", res["classical_energy"], E_CLASSICAL_PFOA),
+                   ("e_ccsd", res["e_ccsd"], E_CCSD_PFOA)], 1e-6)
     b = ks.df_b
     print("pfoa", json.dumps({
         "wall_s": wall, "nao": ks.mol.nao, "naux": b.shape[1],
@@ -294,12 +364,141 @@ def run_acetonitrile():
     qubits = res["second_quantised"][1].shape[0]
     if qubits != 28:
         raise RuntimeError(f"acetonitrile embedded register {qubits} qubits, expected 28")
-    for key, ref in (("e_rhf", E_RHF_PRA), ("e_ccsd", E_CCSD_PRA)):
-        if not np.isfinite(res[key]) or abs(res[key] - ref) > 1e-6:
-            raise RuntimeError(f"acetonitrile {key} {res[key]} vs nbed_tpu {ref}")
+    _gate("acetonitrile", [("e_rhf", res["e_rhf"], E_RHF_PRA),
+                           ("e_ccsd", res["e_ccsd"], E_CCSD_PRA)], 1e-6)
     print("acetonitrile", json.dumps({
         "wall_s": wall, "qubits": qubits, "e_rhf": res["e_rhf"],
         "e_ccsd": res["e_ccsd"], "stages_s": driver.timings}), flush=True)
+    return driver
+
+
+def run_water_functionals():
+    """Global UKS of water on the card for every registered functional and
+    a composition string, each against nbed_tpu's CPU energy within 1e-7,
+    and B2PLYP's double-hybrid total through run_double_hybrid."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.dft.functionals import FUNCTIONALS
+    from nbed_tpu_torch.scf import SCFEngine
+    from nbed_tpu_torch.solvers import run_double_hybrid
+
+    mol = build_molecule(WATER.read_text(), "sto-3g")
+    energies, seconds = {}, {}
+    for name in [*sorted(FUNCTIONALS), COMPOSITION]:
+        t0 = time.perf_counter()
+        sol = SCFEngine(mol, xc=name, device="cuda", **WATER_SCF).kernel()
+        seconds[name] = time.perf_counter() - t0
+        if not sol.converged:
+            raise RuntimeError(f"water {name}: SCF did not converge")
+        energies[name] = sol.e_tot
+        if name == "b2plyp":
+            energies["b2plyp+pt2"] = run_double_hybrid(sol)[0]
+    _gate("water", [(k, energies[k], E_WATER[k]) for k in E_WATER]
+          + [("b2plyp+pt2", energies["b2plyp+pt2"], E_B2PLYP_DH_WATER)], 1e-7)
+    print("water_functionals", json.dumps({
+        "e_tot": energies, "max_abs_dev": max(
+            abs(energies[k] - E_WATER[k]) for k in E_WATER),
+        "scf_s": seconds}), flush=True)
+
+
+def run_methyl_rohf():
+    """ROHF and ROKS (B3LYP) of the methyl radical against nbed_tpu within
+    1e-7, spin-pure (<S^2> = 0.75) with shared spatial orbitals."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.scf import SCFEngine
+
+    mol = build_molecule(METHYL.read_text(), "sto-3g", spin=1)
+    out = {}
+    for label, xc, kw, ref in (("rohf", None, ROHF_SCF, E_ROHF_METHYL),
+                               ("roks", "b3lyp", WATER_SCF, E_ROKS_METHYL)):
+        sol = SCFEngine(mol, xc=xc, rohf=True, device="cuda", **kw).kernel()
+        s2 = sol.spin_square()[0]
+        # the spins' orbitals agree column by column up to sign
+        c_a, c_b = sol.mo_coeff
+        split = float(torch.max(torch.minimum(torch.abs(c_a - c_b).amax(0),
+                                              torch.abs(c_a + c_b).amax(0))))
+        if not sol.converged or abs(s2 - 0.75) > 1e-10 or split > 1e-10:
+            raise RuntimeError(f"methyl {label}: converged {sol.converged}, "
+                               f"<S^2> {s2}, or the spins' orbitals differ")
+        _gate(f"methyl {label}", [("e_tot", sol.e_tot, ref)], 1e-7)
+        out[label] = {"e_tot": sol.e_tot, "s2": s2}
+    print("methyl_rohf", json.dumps(out), flush=True)
+
+
+def run_water_qmmm():
+    from nbed_tpu_torch import nbed
+
+    t0 = time.perf_counter()
+    driver = nbed(**CONFIGS["water_qmmm"], device="cuda")
+    wall = time.perf_counter() - t0
+    if not driver.run_qmmm or driver._mol.mm_coords is None:
+        raise RuntimeError("water_qmmm ran without its MM charges")
+    res = driver.mu
+    _gate("water_qmmm", [("e_uks", driver._global_ks.e_tot, E_UKS_QMMM),
+                         ("e_rhf", res["e_rhf"], E_RHF_QMMM),
+                         ("e_ccsd", res["e_ccsd"], E_CCSD_QMMM)], 1e-6)
+    print("water_qmmm", json.dumps({
+        "wall_s": wall, "e_uks": driver._global_ks.e_tot, "e_rhf": res["e_rhf"],
+        "e_ccsd": res["e_ccsd"], "stages_s": driver.timings}), flush=True)
+    return driver
+
+
+def run_acetonitrile_camb3lyp():
+    """The PRA config with CAM-B3LYP: exact ERIs, the folded exchange
+    operator through the fused kernel."""
+    from nbed_tpu_torch import nbed
+
+    t0 = time.perf_counter()
+    driver = nbed(**CONFIGS["acetonitrile_camb3lyp"], device="cuda")
+    wall = time.perf_counter() - t0
+    ks = driver._ks_engine
+    if ks.density_fitting or ks._rsh is None or ks.hyb != 1.0:
+        raise RuntimeError("acetonitrile CAM-B3LYP is not on the folded exact route")
+    res = driver.huzinaga
+    qubits = res["second_quantised"][1].shape[0]
+    if qubits != 28:
+        raise RuntimeError(f"acetonitrile CAM-B3LYP register {qubits} qubits, expected 28")
+    _gate("acetonitrile_camb3lyp", [("e_rhf", res["e_rhf"], E_RHF_PRA_CAM),
+                                    ("e_ccsd", res["e_ccsd"], E_CCSD_PRA_CAM)], 1e-6)
+    print("acetonitrile_camb3lyp", json.dumps({
+        "wall_s": wall, "qubits": qubits, "e_uks": driver._global_ks.e_tot,
+        "e_rhf": res["e_rhf"], "e_ccsd": res["e_ccsd"],
+        "stages_s": driver.timings}), flush=True)
+    return driver
+
+
+def run_pfoa_wb97x():
+    """pfoa with wB97X: DF on by itself, the KS engine's ordinary and
+    long-range factors, the HF engine sharing only the ordinary one."""
+    from nbed_tpu_torch import nbed
+
+    t0 = time.perf_counter()
+    driver = nbed(**CONFIGS["pfoa_wb97x"], device="cuda")
+    wall = time.perf_counter() - t0
+    ks, hf = driver._ks_engine, driver._hf_engine
+    if not (driver._use_df and ks.density_fitting and ks.df_b_lr is not None):
+        raise RuntimeError("pfoa wB97X did not build both DF factors")
+    if hf.df_b is not ks.df_b or hf.df_b_lr is not None:
+        raise RuntimeError("pfoa wB97X: the HF engine must share only the ordinary factor")
+    res = driver.mu
+    if not (driver._global_ks.converged and res["scf"].converged):
+        raise RuntimeError("pfoa wB97X: global UKS or embedded SCF did not converge")
+    qubits = res["second_quantised"][1].shape[0]
+    if qubits != 78:
+        raise RuntimeError(f"pfoa wB97X register {qubits} spin orbitals, expected 78")
+    _gate("pfoa_wb97x", [
+        ("e_uks", driver._global_ks.e_tot, E_UKS_PFOA_WB97X),
+        ("e_rhf", res["e_rhf"], E_RHF_PFOA_WB97X),
+        ("classical_energy", res["classical_energy"], E_CLASSICAL_PFOA_WB97X),
+        ("e_ccsd", res["e_ccsd"], E_CCSD_PFOA_WB97X)], 1e-6)
+    dm = driver._global_ks.make_rdm1()
+    print("pfoa_wb97x", json.dumps({
+        "wall_s": wall, "naux": ks.df_b.shape[1], "naux_lr": ks.df_b_lr.shape[1],
+        "df_build_s": ks.df_timings, "df_lr_build_s": ks.df_lr_timings,
+        "qubits": qubits, "e_uks": driver._global_ks.e_tot, "e_rhf": res["e_rhf"],
+        "classical_energy": res["classical_energy"], "e_ccsd": res["e_ccsd"],
+        "df_k_folded_ms": median_ms(lambda: ks._df_k(dm), reps=20),
+        "xc_table_ms": median_ms(lambda: ks.xc_fn(dm), reps=5, warmup=1),
+        "stages_s": driver.timings}), flush=True)
     return driver
 
 
@@ -329,7 +528,11 @@ def main():
     # launch counts set to 0 just before it and read just after
     per_phase, peak_gb = {}, {}
     for name, run in (("water", run_water), ("acetonitrile", run_acetonitrile),
-                      ("pfoa", run_pfoa)):
+                      ("water_functionals", run_water_functionals),
+                      ("methyl_rohf", run_methyl_rohf), ("water_qmmm", run_water_qmmm),
+                      ("acetonitrile_camb3lyp", run_acetonitrile_camb3lyp),
+                      ("pfoa_wb97x", run_pfoa_wb97x), ("pfoa", run_pfoa)):
+        driver = None  # the previous pipeline's memory is not this one's peak
         _atomic_density.cache_clear()
         torch.cuda.reset_peak_memory_stats()
         jk.LAUNCHES.clear()

@@ -185,6 +185,9 @@ class Molecule:
     charge: int = 0
     spin: int = 0  # n_alpha - n_beta
     nelec_override: tuple | None = None  # embedded-subsystem electron counts
+    mm_coords: np.ndarray | None = None  # (nmm, 3) bohr
+    mm_charges: np.ndarray | None = None
+    mm_radii: np.ndarray | None = None  # Gaussian widths, as given (not converted)
 
     @property
     def natm(self) -> int:
@@ -230,14 +233,22 @@ class Molecule:
         return out
 
     def energy_nuc(self, coords=None) -> float:
-        """Nuclear repulsion energy."""
+        """Nuclear repulsion, plus the nuclei's interaction with the MM
+        charges taken as bare point charges (radii only smear the
+        electronic term, as in the reference)."""
         r = torch.as_tensor(self.coords if coords is None else coords, dtype=DTYPE)
         z = torch.tensor(self.atom_charges, dtype=DTYPE)
         eye = torch.eye(self.natm, dtype=DTYPE)
         diff = r[:, None, :] - r[None, :, :]
         dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + eye)
         pair = z[:, None] * z[None, :] / dist
-        return float(0.5 * torch.sum(pair * (1.0 - eye)))
+        e = 0.5 * torch.sum(pair * (1.0 - eye))
+        if self.mm_coords is not None:
+            d_mm = torch.linalg.norm(
+                r[:, None, :] - torch.as_tensor(self.mm_coords, dtype=DTYPE)[None], dim=-1)
+            e = e + torch.sum(z[:, None] * torch.as_tensor(self.mm_charges, dtype=DTYPE)[None]
+                              / d_mm)
+        return float(e)
 
 
 def parse_xyz(text: str, unit: str = "angstrom"):
@@ -263,8 +274,14 @@ def build_molecule(
     charge: int = 0,
     spin: int = 0,
     unit: str = "angstrom",
+    mm_coords=None,
+    mm_charges=None,
+    mm_radii=None,
 ) -> Molecule:
-    """Build a :class:`Molecule` from an XYZ string (reference driver.py:87-104)."""
+    """Build a :class:`Molecule` from an XYZ string (reference driver.py:87-104).
+
+    MM charges: ``mm_coords`` are in ``unit`` like the geometry;
+    ``mm_radii`` are taken as given, unconverted, as the reference does."""
     symbols, coords = parse_xyz(geometry, unit)
     shells = []
     ao_offset = 0
@@ -284,6 +301,7 @@ def build_molecule(
                 )
             )
             ao_offset += 2 * l + 1
+    to_bohr = ANGSTROM_TO_BOHR if unit.lower().startswith("a") else 1.0
     return Molecule(
         symbols=symbols,
         atom_charges=tuple(float(SYMBOL_TO_Z[s]) for s in symbols),
@@ -292,4 +310,8 @@ def build_molecule(
         shells=tuple(shells),
         charge=charge,
         spin=spin,
+        mm_coords=None if mm_coords is None else
+        np.asarray(mm_coords, dtype=np.float64) * to_bohr,
+        mm_charges=None if mm_charges is None else np.asarray(mm_charges, float),
+        mm_radii=None if mm_radii is None else np.asarray(mm_radii, float),
     )

@@ -53,9 +53,6 @@ _NOT_PORTED = {
     "run_rpa_emb": "ROADMAP queue 1 item 11 (solvers off the main path: RPA)",
     "taper_qubits": "ROADMAP queue 1 item 11 (qubit mappings and tapering)",
     "warmup_f32": "ROADMAP queue 1 item 9 (mixed-precision modes)",
-    "mm_coords": "ROADMAP queue 1 item 8 (QM/MM point charges)",
-    "mm_charges": "ROADMAP queue 1 item 8 (QM/MM point charges)",
-    "mm_radii": "ROADMAP queue 1 item 8 (QM/MM point charges)",
 }
 _LOCALIZER_ITEM = "ROADMAP queue 1 item 10 (PM/Boys/IBO/PAO localizers)"
 

@@ -7,8 +7,6 @@ per-call cost is a handful of (G, nao) x (nao, nao) products, taken over
 grid chunks with the (exc, vxc) sums accumulated across them. The table
 path keeps the AO tables of the whole grid; the streaming path evaluates
 them per chunk, for grids whose tables would outgrow the memory budget.
-
-Not ported: the tau path of meta-GGAs (ROADMAP queue 1 item 8).
 """
 
 import torch
@@ -24,9 +22,18 @@ _MASK_THRESH = 1e-11
 
 
 def _chunk_math(terms):
-    """Per-chunk energy + potential contributions from AO tables."""
+    """Per-chunk energy + potential contributions from AO tables.
 
-    def e_density(ra, rb, gaa, gab, gbb):
+    When a term is tau-dependent (``fn.needs_tau``, the meta-GGAs) the chunk
+    also builds the per-spin kinetic-energy density
+    tau_s = 1/2 sum_d (grad_d phi) D_s (grad_d phi), takes ``v_tau`` by
+    autograd with the other five inputs and adds
+    V_tau[pq] = 1/2 sum_g v_tau(g) grad phi_p . grad phi_q to each spin's V
+    (``nbed_tpu/dft/xc.py:72-93``).
+    """
+    needs_tau = any(getattr(fn, "needs_tau", False) for _, fn in terms)
+
+    def e_density(ra, rb, gaa, gab, gbb, ta=None, tb=None):
         mask = (ra + rb) > _MASK_THRESH
 
         def safe(x):
@@ -34,8 +41,10 @@ def _chunk_math(terms):
 
         out = 0.0
         for coef, fn in terms:
-            out = out + coef * fn(safe(ra), safe(rb), safe(gaa), safe(gab),
-                                  safe(gbb))
+            args = [safe(ra), safe(rb), safe(gaa), safe(gab), safe(gbb)]
+            if getattr(fn, "needs_tau", False):
+                args += [safe(ta), safe(tb)]
+            out = out + coef * fn(*args)
         return torch.where(mask, out, torch.zeros_like(out))
 
     def one_chunk(ao_c, grad_c, w_c, dm):
@@ -45,20 +54,30 @@ def _chunk_math(terms):
         gaa = torch.einsum("dg,dg->g", grho[0], grho[0])
         gbb = torch.einsum("dg,dg->g", grho[1], grho[1])
         gab = torch.einsum("dg,dg->g", grho[0], grho[1])
-        inputs = [t.detach().requires_grad_(True)
-                  for t in (rho[0], rho[1], gaa, gab, gbb)]
+        base = [rho[0], rho[1], gaa, gab, gbb]
+        if needs_tau:
+            grad_d = torch.einsum("dgp,spq->sdgq", grad_c, dm)  # (2, 3, C, nao)
+            tau = 0.5 * torch.einsum("sdgq,dgq->sg", grad_d, grad_c)
+            del grad_d
+            base += [tau[0], tau[1]]
+        inputs = [t.detach().requires_grad_(True) for t in base]
         with torch.enable_grad():
             exc = torch.sum(w_c * e_density(*inputs))
-            vra, vrb, vgaa, vgab, vgbb = torch.autograd.grad(exc, inputs)
+            vra, vrb, vgaa, vgab, vgbb, *v_tau = torch.autograd.grad(
+                exc, inputs, allow_unused=True, materialize_grads=True)
+        vta, vtb = v_tau if needs_tau else (None, None)
 
-        def vmat(vr, vg_ss, vg_ab, grho_s, grho_t):
+        def vmat(vr, vg_ss, vg_ab, grho_s, grho_t, vt):
             m = torch.einsum("g,gp,gq->pq", vr, ao_c, ao_c)
             vec = 2.0 * vg_ss[None, :] * grho_s + vg_ab[None, :] * grho_t
             half = torch.einsum("dg,dgp,gq->pq", vec, grad_c, ao_c)
-            return m + half + half.T
+            out = m + half + half.T
+            if needs_tau:
+                out = out + 0.5 * torch.einsum("g,dgp,dgq->pq", vt, grad_c, grad_c)
+            return out
 
-        va = vmat(vra, vgaa, vgab, grho[0], grho[1])
-        vb = vmat(vrb, vgbb, vgab, grho[1], grho[0])
+        va = vmat(vra, vgaa, vgab, grho[0], grho[1], vta)
+        vb = vmat(vrb, vgbb, vgab, grho[1], grho[0], vtb)
         return exc.detach(), torch.stack([va, vb])
 
     return one_chunk
@@ -66,8 +85,11 @@ def _chunk_math(terms):
 
 def make_xc_fn(ao, ao_grad, weights, xc_name: str, chunk: int = 131072):
     """``xc_fn(dm) -> (exc, vxc (2, nao, nao))`` from precomputed AO tables
-    (``ao`` (G, nao), ``ao_grad`` (3, G, nao), ``weights`` (G,))."""
+    (``ao`` (G, nao), ``ao_grad`` (3, G, nao), ``weights`` (G,)), or None
+    for a functional with no grid terms (``hf``)."""
     terms = resolve_functional(xc_name)[0]
+    if not terms:
+        return None
     one_chunk = _chunk_math(terms)
     n_points = ao.shape[0]
 
@@ -89,8 +111,11 @@ def make_xc_fn_streaming(mol, points, weights, xc_name: str, chunk: int = 32768)
     """``xc_fn(dm) -> (exc, vxc (2, nao, nao))`` that evaluates the AO values
     and gradients per grid chunk: O(chunk * nao) memory instead of
     O(G * nao) (``nbed_tpu/dft/xc.py:148-188``). The last chunk is short
-    where the reference pads with far-away points; the sums are the same."""
+    where the reference pads with far-away points; the sums are the same.
+    None for a functional with no grid terms."""
     terms = resolve_functional(xc_name)[0]
+    if not terms:
+        return None
     one_chunk = _chunk_math(terms)
     n_points = points.shape[0]
 

@@ -8,10 +8,10 @@ The result-dict keys are the reference's. Like the reference, the driver
 always runs unrestricted.
 
 The deliberate deviations of ``nbed_tpu`` from upstream Nbed are kept: the
-Huzinaga environment ranking by diag(C^T P C) and the per-spin environment
-deletion. Not ported: DFT-in-DFT, CIS/RPA/VQE, tapering, PAO and the
-Jacobi-sweep localizers (``NbedConfig.require_ported`` names the ROADMAP
-items).
+Huzinaga environment ranking by diag(C^T P C), the per-spin environment
+deletion, and QM/MM only when all three MM fields are set. Not ported:
+DFT-in-DFT, CIS/RPA/VQE, tapering, PAO and the Jacobi-sweep localizers
+(``NbedConfig.require_ported`` names the ROADMAP items).
 """
 
 import json
@@ -24,6 +24,7 @@ import torch
 from ._device import resolve_device
 from .chem import build_molecule
 from .config import NbedConfig, ProjectorTypes, VirtualLocalizerTypes
+from .dft.functionals import pt2_coefficient
 from .exceptions import NbedDriverError
 from .ham.builder import HamiltonianBuilder
 from .localizers import ConcentricLocalizer, LocalizedSystem, SPADELocalizer
@@ -55,13 +56,19 @@ class NbedDriver:
         self.device = resolve_device(device)
         self.mu: dict | None = None
         self.huzinaga: dict | None = None
+        # all three MM fields or none: with one of them missing the run has
+        # no MM charges (nbed_tpu/driver.py:67-69)
+        self.run_qmmm = None not in [config.mm_charges, config.mm_coords,
+                                     config.mm_radii]
 
     # ------------------------------------------------------------ engines
     @cached_property
     def _mol(self):
         cfg = self.config
+        mm = dict(mm_coords=cfg.mm_coords, mm_charges=cfg.mm_charges,
+                  mm_radii=cfg.mm_radii) if self.run_qmmm else {}
         return build_molecule(cfg.geometry, cfg.basis, charge=cfg.charge,
-                              spin=cfg.spin, unit=cfg.unit)
+                              spin=cfg.spin, unit=cfg.unit, **mm)
 
     @cached_property
     def _use_df(self) -> bool:
@@ -85,12 +92,22 @@ class NbedDriver:
     @cached_property
     def _hf_engine(self) -> SCFEngine:
         # one DF factor for both engines: it depends only on the molecule
-        # and the auxiliary basis (the reference builds it twice)
+        # and the auxiliary basis (the reference builds it twice). The KS
+        # engine's long-range factor stays with it: HF has no range
+        # separation
         df_b = self._ks_engine.df_factor() if self._use_df else None
         return self._engine(None, self.config.max_hf_cycles, df_b)
 
     @cached_property
     def _ks_engine(self) -> SCFEngine:
+        if pt2_coefficient(self.config.xc_functional):
+            logger.warning(
+                "xc_functional=%s is a double hybrid: the embedding driver "
+                "uses only its SCF (hybrid-GGA) part for subsystem-DFT and "
+                "the embedding potential; the PT2 term is a post-SCF total-"
+                "energy correction (solvers.run_double_hybrid), not part of "
+                "v_emb.", self.config.xc_functional,
+            )
         return self._engine(self.config.xc_functional, self.config.max_dft_cycles)
 
     @cached_property

@@ -75,33 +75,45 @@ def _coords(mol, coords):
 
 
 def one_electron(mol, coords=None):
-    """(S, T, V) as float64 numpy arrays (nao, nao); no MM point charges
-    (QM/MM is ROADMAP queue 1 item 8)."""
+    """(S, T, V) as float64 numpy arrays (nao, nao). V includes the
+    molecule's MM charges when it has them: point charges, or Gaussian
+    charges of exponent 1/mm_radii**2 when radii are given
+    (``nbed_tpu/native/__init__.py:166-196``)."""
     meta, exps, coefs, c2s = _pack(mol)
     coords = _coords(mol, coords)
     charges = np.asarray(mol.atom_charges, dtype=np.float64)
     nao = mol.nao
     s, t, v = (np.zeros((nao, nao)) for _ in range(3))
-    no_centers, no_charges = np.zeros((1, 3)), np.zeros(1)
+    if mol.mm_coords is not None:
+        n_extra = len(mol.mm_charges)
+        centers = np.ascontiguousarray(mol.mm_coords, dtype=np.float64)
+        q = np.ascontiguousarray(mol.mm_charges, dtype=np.float64)
+        etas = (None if mol.mm_radii is None else
+                np.ascontiguousarray(1.0 / np.asarray(mol.mm_radii, dtype=np.float64) ** 2))
+    else:
+        n_extra, centers, q, etas = 0, np.zeros((1, 3)), np.zeros(1), None
     _lib().nbed_one_electron(
         len(mol.shells), meta.ctypes.data_as(_IPTR),
         _dp(exps), _dp(coefs), _dp(c2s), _dp(coords),
         mol.natm, _dp(charges),
-        0, _dp(no_centers), _dp(no_charges), ctypes.cast(None, _DPTR),
+        n_extra, _dp(centers), _dp(q),
+        ctypes.cast(None, _DPTR) if etas is None else _dp(etas),
         _dp(s), _dp(t), _dp(v),
     )
     return s, t, v
 
 
-def eri(mol, coords=None):
-    """Full (nao, nao, nao, nao) ERI tensor in chemist notation, float64."""
+def eri(mol, coords=None, omega: float = 0.0):
+    """Full (nao, nao, nao, nao) ERI tensor in chemist notation, float64.
+    ``omega > 0`` evaluates the long-range erf(omega*r12)/r12 kernel of
+    range-separated exchange."""
     meta, exps, coefs, c2s = _pack(mol)
     coords = _coords(mol, coords)
     nao = mol.nao
     out = np.zeros((nao, nao, nao, nao))
     _lib().nbed_eri(
         len(mol.shells), meta.ctypes.data_as(_IPTR),
-        _dp(exps), _dp(coefs), _dp(c2s), _dp(coords), _dp(out), 0.0,
+        _dp(exps), _dp(coefs), _dp(c2s), _dp(coords), _dp(out), float(omega),
     )
     return out
 

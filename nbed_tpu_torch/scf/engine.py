@@ -11,12 +11,19 @@ torch GEMMs, as they are XLA in the reference. :class:`SCFSolution` is the
 result the embedding driver edits (environment deletion, virtual
 localization).
 
+Range-separated hybrids fold their exact exchange hyb*K + beta*K_LR(omega)
+into the exchange operator and report ``hyb`` 1.0, as the reference does
+(``engine.py:322-338, 439-452``): on the exact route ``eri_k`` is the folded
+supermatrix the fused kernel reads; on the DF route K is built from the
+ordinary factor and a second factor fitted in the long-range metric. MM
+charges of a QM/MM molecule are in the host V, so in ``hcore``;
+``rohf=True`` runs ROHF/ROKS through Roothaan's effective Fock.
+
 One memory budget, ``max_memory_mb`` (the config's ``max_ram_memory``),
 bounds the two large intermediates as in the reference: the auxiliary
 chunk of the DF exchange and the switch from AO-table XC to streaming XC.
 
-Not ported: range-separated hybrids and their long-range DF factor
-(ROADMAP queue 1 item 8), the mixed-precision modes (item 9) and the
+Not ported: the mixed-precision modes (ROADMAP queue 1 item 9) and the
 TPU-only compiled-program machinery.
 """
 
@@ -61,11 +68,14 @@ def _spinify(dm):
 
 
 def df_b_factor(mol, beta: float = 1.8, device="cuda",
-                timings: Optional[dict] = None):
+                timings: Optional[dict] = None, omega: float = 0.0):
     """Metric-folded DF factor with (ab|cd) ~ sum_P B[a,P,b] B[c,P,d], as a
     float64 (nao, nkeep, nao) tensor on ``device`` (``nbed_tpu``'s
     ``df_b_factor``, ``engine.py:54-82``, stores the same numbers as
-    (nao, nao, naux)).
+    (nao, nao, naux)). ``omega > 0`` fits in the long-range
+    erf(omega*r12)/r12 metric, three-centre integrals and metric alike: the
+    factor of a range-separated hybrid's long-range exchange, with its own
+    ``eigh`` and keep rule.
 
     The 3-centre and 2-centre integrals over the automatic auxiliary basis
     and the metric ``eigh`` run on the host in float64 with the reference's
@@ -81,9 +91,9 @@ def df_b_factor(mol, beta: float = 1.8, device="cuda",
     timings = {} if timings is None else timings
     aux = make_auxiliary_molecule(mol, beta=beta)
     t0 = time.perf_counter()
-    b3 = native.eri_3c(mol, aux)
+    b3 = native.eri_3c(mol, aux, omega=omega)
     t1 = time.perf_counter()
-    m2 = native.eri_2c(aux)
+    m2 = native.eri_2c(aux, omega=omega)
     t2 = time.perf_counter()
     w, v = np.linalg.eigh(m2)
     keep = w > 1e-10 * w.max()
@@ -171,9 +181,12 @@ class SCFEngine:
           exact ERI supermatrices.
         df_b: a DF factor to use (from :func:`df_b_factor` for this
           molecule and ``df_beta``), so engines of one molecule share one;
-          built at first use when None.
+          built at first use when None. A range-separated hybrid also
+          builds ``df_b_lr``, its long-range factor, at first use.
         max_memory_mb: memory budget scaling the DF-exchange chunk and the
           table/streaming XC switch from their 4000-MB calibration.
+        rohf: restricted open shell (ROHF, or ROKS with ``xc``): both spins
+          share spatial orbitals through Roothaan's effective Fock.
     """
 
     mol: Molecule
@@ -186,9 +199,12 @@ class SCFEngine:
     density_fitting: bool = False
     df_beta: float = 1.8  # even-tempered auxiliary-basis ratio
     df_b: Optional[torch.Tensor] = field(default=None, repr=False)
+    df_b_lr: Optional[torch.Tensor] = field(default=None, repr=False)
     max_memory_mb: float = 4000.0
-    # seconds of each part of this engine's factor build (df_b_factor)
+    rohf: bool = False
+    # seconds of each part of this engine's factor builds (df_b_factor)
     df_timings: dict = field(default_factory=dict, init=False, repr=False)
+    df_lr_timings: dict = field(default_factory=dict, init=False, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -210,12 +226,18 @@ class SCFEngine:
 
     @cached_property
     def hcore(self):
-        _, t, v = self._native_1e
+        _, t, v = self._native_1e  # V includes the MM charges
         return self._tensor(t + v)
 
     @cached_property
     def eri(self):
         return self._tensor(native.eri(self.mol, self.coords))
+
+    @cached_property
+    def eri_lr(self):
+        """Long-range erf(omega*r12)/r12 AO ERIs of a range-separated hybrid."""
+        _, omega = self._rsh
+        return self._tensor(native.eri(self.mol, self.coords, omega=omega))
 
     @cached_property
     def eri_j(self):
@@ -224,9 +246,16 @@ class SCFEngine:
 
     @cached_property
     def eri_k(self):
-        """Exchange supermatrix (ik|jl)."""
+        """Exchange supermatrix (ik|jl); for a range-separated hybrid the
+        folded hyb*(ik|jl) + beta*(ik|jl)_LR(omega), which every consumer
+        pairs with the reported ``hyb`` of 1.0."""
         n = self.mol.nao
-        return self.eri.permute(0, 2, 1, 3).reshape(n * n, n * n).contiguous()
+        k = self.eri.permute(0, 2, 1, 3).reshape(n * n, n * n)
+        if self._rsh is None:
+            return k.contiguous()
+        beta, _ = self._rsh
+        k_lr = self.eri_lr.permute(0, 2, 1, 3).reshape(n * n, n * n)
+        return (self._xc_meta[1] * k + beta * k_lr).contiguous()
 
     def df_factor(self):
         """The DF factor B (nao, naux, nao), built on first use."""
@@ -234,6 +263,15 @@ class SCFEngine:
             self.df_b = df_b_factor(self.mol, self.df_beta, self.device,
                                     timings=self.df_timings)
         return self.df_b
+
+    def df_factor_lr(self):
+        """The long-range DF factor of a range-separated hybrid, built on
+        first use (``nbed_tpu/scf/engine.py:588-594``)."""
+        if self.df_b_lr is None:
+            self.df_b_lr = df_b_factor(self.mol, self.df_beta, self.device,
+                                       timings=self.df_lr_timings,
+                                       omega=self._rsh[1])
+        return self.df_b_lr
 
     @property
     def _df_chunk_elems(self) -> int:
@@ -253,12 +291,27 @@ class SCFEngine:
         return build_grid(self.mol, self.device)
 
     @cached_property
+    def _xc_meta(self):
+        """(terms, hyb, rsh) of the functional; HF when xc is None."""
+        if self.xc is None:
+            return [], 1.0, None
+        return resolve_functional(self.xc)
+
+    @property
+    def _rsh(self):
+        """(beta, omega) of a range-separated hybrid, else None."""
+        return self._xc_meta[2]
+
+    @cached_property
     def _xc(self):
         """(xc_fn or None, hyb): the AO-table quadrature, or the streaming
-        one above :attr:`_XC_TABLE_LIMIT`."""
-        if self.xc is None:
-            return None, 1.0
-        _, hyb, _ = resolve_functional(self.xc)
+        one above :attr:`_XC_TABLE_LIMIT`. Under range separation hyb is
+        1.0: the exchange weights are folded into K."""
+        terms, hyb, rsh = self._xc_meta
+        if rsh is not None:
+            hyb = 1.0
+        if not terms:
+            return None, hyb
         points, weights = self._grid
         if points.shape[0] * self.mol.nao > self._XC_TABLE_LIMIT:
             return make_xc_fn_streaming(self.mol, points, weights, self.xc), hyb
@@ -290,13 +343,25 @@ class SCFEngine:
 
     def get_jk(self, dm):
         """(J (n, n), K (2, n, n)) of a density: density-fitted, or exact
-        through the fused kernel."""
+        through the fused kernel. Under range separation K is the folded
+        hyb*K + beta*K_LR on both routes."""
         dm = _spinify(dm)
-        if self.density_fitting:
-            b, chunk = self.df_factor(), self._df_chunk_elems
-            return _df_j(b, dm[0] + dm[1]), torch.stack(
-                [_df_k_spin(b, dm[0], chunk), _df_k_spin(b, dm[1], chunk)])
-        return fused_jk(self.eri_j, self.eri_k, dm.contiguous())
+        if not self.density_fitting:
+            return fused_jk(self.eri_j, self.eri_k, dm.contiguous())
+        return _df_j(self.df_factor(), dm[0] + dm[1]), self._df_k(dm)
+
+    def _df_k(self, dm):
+        """(2, n, n) DF exchange of a spin density pair, folded under range
+        separation (``nbed_tpu/scf/engine.py:596-607``)."""
+        chunk = self._df_chunk_elems
+
+        def k_of(b):
+            return torch.stack([_df_k_spin(b, dm[0], chunk), _df_k_spin(b, dm[1], chunk)])
+
+        k = k_of(self.df_factor())
+        if self._rsh is None:
+            return k
+        return self._xc_meta[1] * k + self._rsh[0] * k_of(self.df_factor_lr())
 
     def get_j(self, dm):
         return self.get_jk(dm)[0]
@@ -362,7 +427,7 @@ class SCFEngine:
             conv_tol=self.conv_tol if conv_tol is None else conv_tol,
             dm_conv_tol=self.dm_conv_tol if dm_conv_tol is None else dm_conv_tol,
             max_cycle=self.max_cycle if max_cycle is None else max_cycle,
-            level_shift=level_shift,
+            level_shift=level_shift, rohf=self.rohf,
         )
         if not res.converged:
             logger.warning("SCF has NOT converged (%s cycles).", res.n_iter)

@@ -7,9 +7,13 @@ scalars back to the host each cycle. One J/K build per cycle goes through
 the ``jk_fn`` hook (the engine passes the fused J/K kernel of
 :mod:`nbed_tpu_torch.ops.jk`).
 
+``rohf=True`` runs ROHF/ROKS: Roothaan's single effective Fock replaces the
+per-spin pair before the DIIS error and the diagonalisation, so both spins
+share spatial orbitals; energies still come from the per-spin Fock.
+
 Not ported: the TPU-only Newton refinement of ``eigh`` (a no-op off the TPU,
-``hf.py:63-66``), the incremental/f32 mixed-precision branches, ROHF and
-the forward-mode tangent polish (ROADMAP queue 1 items 8 and 9).
+``hf.py:63-66``), the incremental/f32 mixed-precision branches and the
+forward-mode tangent polish (ROADMAP queue 1 item 9).
 """
 
 from dataclasses import dataclass
@@ -62,6 +66,23 @@ def huzinaga_operator(fock, dm_occ_s, dm_virt_s):
     return huz + huz_virt
 
 
+def roothaan_effective(f, dm, s):
+    """Roothaan's effective Fock for ROHF/ROKS, stacked on the spin axis
+    (``nbed_tpu/scf/hf.py:232-247``). Projector form with closed = beta
+    occupied, open = alpha minus beta, virtual = alpha unoccupied: the
+    diagonal blocks couple through (Fa+Fb)/2, closed-open through Fb,
+    open-virtual through Fa, closed-virtual through (Fa+Fb)/2."""
+    n = s.shape[-1]
+    fc = 0.5 * (f[0] + f[1])
+    pc = dm[1] @ s
+    po = (dm[0] - dm[1]) @ s
+    pv = torch.eye(n, dtype=f.dtype, device=f.device) - dm[0] @ s
+    feff = (0.5 * (pc.T @ fc @ pc + po.T @ fc @ po + pv.T @ fc @ pv)
+            + po.T @ f[1] @ pc + po.T @ f[0] @ pv + pv.T @ fc @ pc)
+    feff = feff + feff.T
+    return torch.stack([feff, feff])
+
+
 def _diis_extrapolate(hist_f, hist_e, nfill: int):
     """Pulay extrapolation over the filled slots of the ring buffer, with the
     reference's eigh pseudo-inverse and relative cut (``hf.py:260-292``)."""
@@ -100,7 +121,7 @@ def run_scf(
     dm_conv_tol: float = 1e-6,
     max_cycle: int = 50,
     level_shift: float = 0.0,  # virtual-orbital level shift (Ha)
-    rohf: bool = False,
+    rohf: bool = False,  # restricted open shell: shared spatial orbitals
 ) -> SCFResult:
     """Run SCF to convergence.
 
@@ -109,9 +130,6 @@ def run_scf(
     Huzinaga term enters the one-body energy in full, ``v_emb`` is part of
     the core Hamiltonian).
     """
-    if rohf:
-        raise NotImplementedError(
-            "ROHF/ROKS is not ported yet: ROADMAP queue 1 item 8.")
     n = s.shape[-1]
     if hcore.ndim == 2:
         hcore = torch.stack([hcore, hcore])
@@ -182,6 +200,11 @@ def run_scf(
     cycle = 0
     while cycle < max_cycle and not conv:
         f, _, e_cur = fock_and_energy(dm)
+        if rohf:
+            # the per-spin error of F_eff covers every coupling block:
+            # D_beta tests closed-open and closed-virtual, D_alpha
+            # open-virtual
+            f = roothaan_effective(f, dm, s)
         fds = torch.einsum("sij,sjk,kl->sil", f, dm, s)
         err = torch.einsum("pi,spq,qj->sij", x, fds - fds.transpose(-1, -2), x)
         slot = cycle % m

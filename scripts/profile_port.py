@@ -1,8 +1,10 @@
 """Where the time goes in one nbed_tpu_torch embedding on a CUDA card.
 
-    python3 scripts/profile_port.py [water|acetonitrile|pfoa]    (default pfoa)
+    python3 scripts/profile_port.py [NAME]    (default pfoa)
 
-Runs the configuration of that name from ``chip_smoke.CONFIGS`` once cold,
+NAME is a key of ``chip_smoke.CONFIGS``: water, acetonitrile, pfoa,
+water_qmmm, acetonitrile_camb3lyp or pfoa_wb97x. Runs that configuration
+once cold,
 then profiles a second ``nbed()`` call in the same process (SAD atoms and,
 with density fitting, the DF factor recomputed; kernels already built) and
 the global SCF alone at the built engine, each with
@@ -10,7 +12,9 @@ the global SCF alone at the built engine, each with
 time (self device time of every kernel and copy, summed), device idle share
 and event count. With density fitting it also times the three-centre
 integrals on every core of the process's affinity mask and on one core, in
-the same process. Prints the card's name and power limit first, then one
+the same process, and reports the seconds of each DF factor's build (the
+long-range one too, under range separation) with their share of the
+profiled call. Prints the card's name and power limit first, then one
 labelled JSON object per measurement.
 """
 
@@ -65,8 +69,13 @@ def main():
 
     _atomic_density.cache_clear()
     driver, summary = device_profile(lambda: nbed(**config, device="cuda"))
-    show("embed_profiled", {**summary, "stages_s": driver.timings,
-                            "df_build_s": driver._ks_engine.df_timings})
+    ks = driver._ks_engine
+    factor_s = {"df_build_s": ks.df_timings, "df_lr_build_s": ks.df_lr_timings}
+    host_s = sum(t[k] for t in factor_s.values() for k in ("eri_3c", "eri_2c", "eigh")
+                 if k in t)
+    show("embed_profiled", {**summary, "stages_s": driver.timings, **factor_s,
+                            "df_factors_host_s": host_s,
+                            "df_factors_host_share": host_s / summary["wall_s"]})
 
     eng = driver._ks_engine
     t0 = time.perf_counter()

@@ -73,7 +73,7 @@ def test_invalid_values_raise(bad, water_xyz):
     ("run_dft_in_dft", True), ("run_vqe_emb", True), ("run_cis_emb", 2),
     ("run_rpa_emb", 1), ("taper_qubits", True), ("warmup_f32", True),
     ("localization", "pm"),
-    ("virtual_localization", "pao"), ("mm_charges", [0.1]),
+    ("virtual_localization", "pao"),
 ])
 def test_unported_features_raise_naming_roadmap(field, value, water_xyz):
     cfg = port.NbedConfig(geometry=water_xyz, n_active_atoms=1, basis="STO-3G",
@@ -90,3 +90,16 @@ def test_density_fitting_is_accepted(value, water_xyz):
                           xc_functional="b3lyp", density_fitting=value)
     cfg.require_ported()
     assert cfg.density_fitting is value
+
+
+@pytest.mark.parametrize("fields", [
+    {"mm_charges": [0.1]},
+    {"mm_coords": [[0.0, 0.0, 3.0]], "mm_charges": [-0.5], "mm_radii": [0.8]},
+])
+def test_mm_fields_are_accepted(fields, water_xyz):
+    """QM/MM is ported: MM fields pass require_ported, with or without the
+    other two (an incomplete set runs without MM, as in nbed_tpu)."""
+    cfg = port.NbedConfig(geometry=water_xyz, n_active_atoms=1, basis="STO-3G",
+                          xc_functional="b3lyp", **fields)
+    cfg.require_ported()
+    assert cfg.as_dict() == ref.NbedConfig(**cfg.as_dict()).model_dump(mode="json")

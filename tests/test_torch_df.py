@@ -33,6 +33,10 @@ from nbed_tpu_torch.interop import molecule_from_reference, solution_from_refere
 from nbed_tpu_torch.scf import SCFEngine
 from nbed_tpu_torch.scf.engine import _df_k_spin, df_b_factor
 
+# one torch thread per test process: under pytest-xdist the OpenMP threads
+# of several workers spin on the same cores and slow every worker many-fold
+torch.set_num_threads(1)
+
 MOLECULES = Path(__file__).parent / "molecules"
 # exact (non-DF) water oracles, UHF and UKS/B3LYP (tests/test_driver.py:18,31)
 E_UHF = -74.96099960129165

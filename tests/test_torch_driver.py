@@ -16,6 +16,10 @@ from nbed_tpu_torch import NbedConfig, nbed
 from nbed_tpu_torch.driver import NbedDriver
 from nbed_tpu_torch.profiling import device_profile
 
+# one torch thread per test process: under pytest-xdist the OpenMP threads
+# of several workers spin on the same cores and slow every worker many-fold
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 # BASELINE.md oracles (tests/test_driver.py:18,70,97)

@@ -11,6 +11,10 @@ from nbed_tpu_torch.integrals import ao_to_mo_eri
 from nbed_tpu_torch.interop import molecule_from_reference
 from nbed_tpu_torch.scf import SCFEngine
 
+# one torch thread per test process: under pytest-xdist the OpenMP threads
+# of several workers spin on the same cores and slow every worker many-fold
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def engines(water_xyz, water_molecule):

@@ -17,6 +17,10 @@ from nbed_tpu.scf.engine import SCFEngine as RefEngine
 from nbed_tpu_torch.interop import solution_from_reference
 from nbed_tpu_torch.localizers import ConcentricLocalizer, SPADELocalizer, check_values
 
+# one torch thread per test process: under pytest-xdist the OpenMP threads
+# of several workers spin on the same cores and slow every worker many-fold
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def uks631g(water_xyz):

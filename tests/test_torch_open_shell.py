@@ -6,10 +6,15 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from nbed_tpu.config import NbedConfig as RefConfig
 from nbed_tpu.driver import NbedDriver as RefDriver
 from nbed_tpu_torch import nbed
+
+# one torch thread per test process: under pytest-xdist the OpenMP threads
+# of several workers spin on the same cores and slow every worker many-fold
+torch.set_num_threads(1)
 
 KW = dict(n_active_atoms=1, basis="STO-3G", xc_functional="b3lyp", spin=1,
           localization="spade", convergence=1e-6, run_ccsd_emb=True,

@@ -9,6 +9,10 @@ from nbed_tpu.scf.hf import run_scf as ref_run_scf
 from nbed_tpu_torch.interop import molecule_from_reference
 from nbed_tpu_torch.scf import SCFEngine, run_scf
 
+# one torch thread per test process: under pytest-xdist the OpenMP threads
+# of several workers spin on the same cores and slow every worker many-fold
+torch.set_num_threads(1)
+
 E_UHF = -74.96099960129165  # BASELINE.md:17
 
 

@@ -1,10 +1,13 @@
-"""Grid and B3LYP XC quadrature of nbed_tpu_torch against nbed_tpu."""
+"""Grid and XC quadrature of nbed_tpu_torch against nbed_tpu: every
+registry functional, the meta-GGA tau path on the table and streaming
+routes, and the unknown-name errors."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from nbed_tpu.dft.functionals import FUNCTIONALS as REF_FUNCTIONALS
 from nbed_tpu.dft.xc import make_xc_fn as ref_make_xc_fn
 from nbed_tpu.dft.xc import make_xc_fn_streaming as ref_make_xc_fn_streaming
 from nbed_tpu.grids import build_grid as ref_build_grid
@@ -15,6 +18,10 @@ from nbed_tpu_torch.grids import build_grid, eval_aos
 from nbed_tpu_torch.grids.lebedev import LEBEDEV_PARAMS, lebedev_grid
 from nbed_tpu_torch.interop import molecule_from_reference
 from nbed_tpu_torch.scf import SCFEngine
+
+# one torch thread per test process: under pytest-xdist the OpenMP threads
+# of several workers spin on the same cores and slow every worker many-fold
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
@@ -54,10 +61,20 @@ def test_ao_tables_match_reference(ao_tables):
     np.testing.assert_allclose(grad.numpy(), np.asarray(ref_grad), rtol=0, atol=1e-12)
 
 
-@pytest.mark.parametrize("name", ["b3lyp", "b3lyp5"])
+# the composition strings of tests/test_xc_composition.py
+COMPOSITIONS = ["0.2*HF + 0.08*SLATER + 0.72*B88 + 0.81*LYP + 0.19*VWN_RPA",
+                "0.25*HF + 0.75*PBE, PBE",
+                "0.19*HF + 0.46*LR_HF(0.33) + 0.35*B88 + 0.46*SR_B88(0.33) "
+                "+ 0.19*VWN5 + 0.81*LYP",
+                "0.5*b3lyp + 0.5*blyp", "b88,"]
+
+
+@pytest.mark.parametrize("name", ["b3lyp", "b3lyp5"] + sorted(
+    set(REF_FUNCTIONALS) - {"b3lyp", "b3lyp5", "hf"}) + COMPOSITIONS)
 def test_xc_energy_and_potential_match_reference(grids, ao_tables, water_uhf, name):
-    """A seeded perturbation of the UHF density, spin-polarised so the VWN
-    spin interpolation and both spin channels are exercised."""
+    """A seeded perturbation of the UHF density, spin-polarised so the spin
+    interpolations and both spin channels are exercised; the meta-GGAs
+    through the tau path."""
     (_, ref_w), (_, w) = grids
     (ref_ao, ref_grad), (ao, grad) = ao_tables
     rng = np.random.default_rng(17)
@@ -115,7 +132,40 @@ def test_engine_streams_xc_above_table_limit(water_molecule, water_uhf):
     torch.testing.assert_close(v_table.matrix, v_stream.matrix, rtol=0, atol=1e-10)
 
 
-@pytest.mark.parametrize("name", ["pbe", "wb97x", "m06"])
+def test_tau_path_streaming_matches_table_and_reference(water_molecule, grids,
+                                                       ao_tables, water_uhf):
+    """TPSS (tau path) streaming with a short last chunk, against the port's
+    table XC and nbed_tpu's streaming XC."""
+    (ref_pts, ref_w), (pts, w) = grids
+    (_, _), (ao, grad) = ao_tables
+    dm = water_uhf.make_rdm1()
+    exc_ref, vxc_ref = ref_make_xc_fn_streaming(
+        water_molecule, jnp.asarray(water_molecule.coords), jnp.asarray(ref_pts),
+        jnp.asarray(ref_w), "tpss", chunk=1000)(jnp.asarray(dm))
+    exc, vxc = make_xc_fn_streaming(molecule_from_reference(water_molecule), pts, w,
+                                    "tpss", chunk=1000)(torch.tensor(dm))
+    exc_t, vxc_t = make_xc_fn(ao, grad, w, "tpss")(torch.tensor(dm))
+    assert abs(float(exc) - float(exc_t)) < 1e-10
+    torch.testing.assert_close(vxc, vxc_t, rtol=0, atol=1e-10)
+    assert abs(float(exc) - float(exc_ref)) < 1e-10
+    np.testing.assert_allclose(vxc.numpy(), np.asarray(vxc_ref), rtol=0, atol=1e-10)
+
+
+def test_hf_has_no_grid_terms(ao_tables, grids):
+    (ref_ao, ref_grad), (ao, grad) = ao_tables
+    (_, ref_w), (_, w) = grids
+    assert make_xc_fn(ao, grad, w, "hf") is None
+    assert ref_make_xc_fn(ref_ao, ref_grad, jnp.asarray(ref_w), "hf") is None
+
+
+@pytest.mark.parametrize("name", ["m06", "hse06", "revtpss", "b97d"])
 def test_unported_functionals_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Families without primitives in either package raise the reference's
+    KeyError and hint."""
+    from nbed_tpu.dft.functionals import resolve_functional as ref_resolve
+
+    with pytest.raises(KeyError) as ref_exc:
+        ref_resolve(name)
+    with pytest.raises(KeyError, match="Note: ") as exc:
         resolve_functional(name)
+    assert str(exc.value) == str(ref_exc.value)
