@@ -18,12 +18,22 @@ density the script also holds streaming XC against table XC and the
 chunked DF exchange against the unchunked one, and times DF J, DF K and
 both XC paths. Every energy is checked against the reference values.
 
+The mixed-precision and quantum phases follow the pipelines they extend:
+water and acetonitrile again with the float32 warm-up (the fused kernel's
+float32 entry), acetonitrile's global UKS with incremental float32 J/K, the
+PRA register mapped (JW, BK, parity) and Z2-tapered, water's embedded VQE
+and DFT-in-DFT check, one value-and-gradient of the VQE objective on a
+20-qubit acetonitrile register, and pfoa's DF-UKS with incremental float32
+J/K on the factor already built.
+
     python3 chip_smoke.py
 
 Every phase raises on failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
-power limit, and the one before that lists each kernel with its launches in
-the pipeline runs, its error against the plain version and both times.
+power limit, and the one before that lists each kernel (the fused J/K
+build's float64 and float32 entries) with its launches in the pipeline
+runs, its error against the plain version, its time beside the plain
+version's and one library call's, its self device time and its bound.
 Exits non-zero, printing no result, where CUDA is unavailable.
 """
 
@@ -122,6 +132,27 @@ E_RHF_QMMM = -75.13101779540804
 E_CCSD_QMMM = -75.13566086596478
 E_RHF_PRA_CAM = -130.51789932942617
 E_CCSD_PRA_CAM = -130.67543341307274
+# nbed_tpu's NbedDriver on CONFIGS["acetonitrile_taper"] with
+# qubit_mapping=M for M in jw, bk, parity (the commands above with that
+# config), reading d.huzinaga["tapered"]: its counts, sector, sum |c|^2
+# (Tr H^2 / 2^n, invariant under the MO rotations the two packages may
+# differ by), identity coefficient and sum |c| (not invariant: held loosely)
+TAPER_PRA = {
+    "jw": {"n_qubits_raw": 28, "n_qubits": 26, "n_terms_raw": 50399, "n_terms": 50399,
+           "n_symmetries": 2, "sector": [-1, -1], "abs_sum": 229.87272570940354},
+    "bk": {"n_qubits_raw": 28, "n_qubits": 26, "n_terms_raw": 50399, "n_terms": 50399,
+           "n_symmetries": 2, "sector": [-1, 1], "abs_sum": 229.87272570940348},
+    "parity": {"n_qubits_raw": 28, "n_qubits": 26, "n_terms_raw": 50399,
+               "n_terms": 50399, "n_symmetries": 2, "sector": [-1, 1],
+               "abs_sum": 229.8727257094035},
+}
+SQ_SUM_PRA = 8959.038268011253
+IDENTITY_PRA = -93.25715345113377
+# nbed_tpu's NbedDriver on CONFIGS["water_vqe"] with projector=P for P in
+# mu, huzinaga (the commands above), reading getattr(d, P)["e_vqe"] and
+# ["e_dft_in_dft"]
+E_VQE_WATER = {"mu": -75.1285919012455, "huzinaga": -75.12859115945318}
+E_DFT_IN_DFT_WATER = {"mu": -75.30914551752402, "huzinaga": -75.3091448156704}
 
 # the nbed() arguments of each pipeline phase (scripts/profile_port.py
 # profiles the same configurations)
@@ -147,6 +178,18 @@ CONFIGS["water_qmmm"] = dict(
     mm_charges=[-0.834, 0.417, 0.417], mm_radii=[0.8, 0.4, 0.4])
 CONFIGS["acetonitrile_camb3lyp"] = {**CONFIGS["acetonitrile"], "xc_functional": "camb3lyp"}
 CONFIGS["pfoa_wb97x"] = {**CONFIGS["pfoa"], "xc_functional": "wb97x"}
+CONFIGS["water_mixed"] = {**CONFIGS["water"], "warmup_f32": True}
+CONFIGS["acetonitrile_mixed"] = {**CONFIGS["acetonitrile"], "warmup_f32": True}
+CONFIGS["acetonitrile_taper"] = {**CONFIGS["acetonitrile"], "run_ccsd_emb": False,
+                                 "taper_qubits": True}
+CONFIGS["water_vqe"] = {**CONFIGS["water"], "run_ccsd_emb": False,
+                        "run_vqe_emb": True, "run_dft_in_dft": True}
+
+# the fused kernel's least time: each supermatrix read once (2 M^2 words)
+# at the H100's 3.35 TB/s, or its 6 M^2 operations at 67 TFLOP/s (the
+# data sheet's FP64 tensor-core rate and the FP32 rate), whichever is larger
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = 67e12
 
 # kernel-vs-plain tolerances, as in tests/test_ops.py:25-26 for float32
 TOLERANCES = {torch.float64: (1e-12, 1e-10), torch.float32: (1e-5, 1e-4)}
@@ -213,9 +256,23 @@ def jk_cases():
     return cases
 
 
+def jk_bound(m: int, dtype):
+    """(ms, "bytes" or "operations"): the least time of one J/K build at
+    M = nao^2, the larger of its bytes (each input read once, each output
+    written once) over the memory rate and its operations over the peak
+    rate, and which of the two it is."""
+    word = 8 if dtype == torch.float64 else 4
+    by_bytes = (2 * m * m + 2 * m + 3 * m) * word / HBM_BYTES_PER_S
+    by_ops = 6 * m * m / PEAK_FLOP_PER_S
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 def check_kernels() -> list:
-    """Kernel against plain version at every case and dtype; returns rows."""
+    """Kernel against plain version at every case and dtype, with the
+    library call's time and the kernel's self device time from
+    torch.profiler; returns rows."""
     from nbed_tpu_torch.ops.jk import fused_jk, fused_jk_reference
+    from nbed_tpu_torch.profiling import device_profile
 
     rows = []
     for label, gj64, gk64, dm64 in jk_cases():
@@ -233,11 +290,25 @@ def check_kernels() -> list:
                     and torch.allclose(k, k_ref, rtol=rtol, atol=atol)):
                 raise RuntimeError(f"fused_jk {label} {dtype}: max abs err {err} "
                                    f"exceeds rtol={rtol}, atol={atol}")
+            m = int(dm.shape[-1]) ** 2
             ms = median_ms(lambda: fused_jk(gj, gk, dm))
             plain_ms = median_ms(lambda: fused_jk_reference(gj, gk, dm))
-            row = {"case": label, "m": int(dm.shape[-1]) ** 2,
+            # one library call for the same function: a batched GEMM of
+            # [G_J, G_K] against [[D_a + D_b, 0], [D_a, D_b]]
+            g2 = torch.stack([gj, gk])
+            rhs = torch.zeros((2, m, 2), dtype=dtype, device="cuda")
+            rhs[0, :, 0] = (dm[0] + dm[1]).reshape(-1)
+            rhs[1] = dm.reshape(2, m).T
+            library_ms = median_ms(lambda: torch.bmm(g2, rhs))
+            del g2
+            _, prof = device_profile(lambda: [fused_jk(gj, gk, dm) for _ in range(20)])
+            kernel_us = next(ev[2] * 1e3 / ev[1] for ev in prof["top"]
+                             if "fused_jk_kernel" in ev[0])
+            row = {"case": label, "m": m,
                    "dtype": str(dtype).removeprefix("torch."),
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "kernel_device_us": kernel_us,
+                   **dict(zip(("bound_ms", "bound_by"), jk_bound(m, dtype)))}
             print("fused_jk", json.dumps(row), flush=True)
             rows.append(row)
     return rows
@@ -502,10 +573,248 @@ def run_pfoa_wb97x():
     return driver
 
 
+def pipeline_energies(driver) -> dict:
+    """The global UKS energy and each projector's embedded energies."""
+    out = {"e_uks": driver._global_ks.e_tot}
+    for name in ("mu", "huzinaga"):
+        res = getattr(driver, name)
+        for key in ("e_rhf", "e_ccsd", "e_fci", "classical_energy"):
+            if res is not None and key in res:
+                out[f"{name}.{key}"] = res[key]
+    return out
+
+
+def run_mixed(name: str, f64: dict):
+    """CONFIGS[name] with the float32 warm-up against the same pipeline's
+    float64 run: SCF and correlated energies within 1e-8 Ha, the
+    classical-energy partition (linear in the global density, which stops at
+    the config's 1e-6) within 1e-6. For acetonitrile also the global UKS
+    with incremental float32 J/K."""
+    from nbed_tpu_torch import nbed
+    from nbed_tpu_torch.scf import SCFEngine
+
+    t0 = time.perf_counter()
+    driver = nbed(**CONFIGS[f"{name}_mixed"], device="cuda")
+    wall = time.perf_counter() - t0
+    ks = driver._ks_engine
+    if not (ks.warmup_f32 and driver._hf_engine.warmup_f32):
+        raise RuntimeError(f"{name}_mixed: warmup_f32 did not reach both engines")
+    ours = pipeline_energies(driver)
+    _gate(f"{name}_mixed", [(k, ours[k], f64[k]) for k in ours
+                            if not k.endswith("classical_energy")], 1e-8)
+    _gate(f"{name}_mixed", [(k, ours[k], f64[k]) for k in ours
+                            if k.endswith("classical_energy")], 1e-6)
+    out = {"wall_s": wall, "dev_vs_f64": {k: ours[k] - f64[k] for k in ours},
+           "stages_s": driver.timings}
+    if name == "acetonitrile":
+        inc = SCFEngine(ks.mol, xc=ks.xc, conv_tol=ks.conv_tol, max_cycle=ks.max_cycle,
+                        incremental_jk="on", device="cuda")
+        t0 = time.perf_counter()
+        sol = inc.kernel()
+        out["incremental_s"] = time.perf_counter() - t0
+        _gate("acetonitrile incremental_jk", [("e_uks", sol.e_tot, f64["e_uks"])], 1e-8)
+        out["incremental_dev_vs_f64"] = sol.e_tot - f64["e_uks"]
+    print(f"{name}_mixed", json.dumps(out), flush=True)
+    return driver
+
+
+def run_acetonitrile_taper():
+    """The PRA register under JW, BK and parity, Z2-tapered in the HF
+    sector: counts, symmetries and sector exactly as nbed_tpu's; sum |c|^2
+    within 1e-8 and the identity coefficient within 1e-10; sum |c|, which
+    depends on the MO gauge, within 1e-4."""
+    from nbed_tpu_torch import nbed
+
+    out, driver = {}, None
+    for mapping, ref in TAPER_PRA.items():
+        driver = None
+        t0 = time.perf_counter()
+        driver = nbed(**CONFIGS["acetonitrile_taper"], qubit_mapping=mapping,
+                      device="cuda")
+        wall = time.perf_counter() - t0
+        res = driver.huzinaga
+        _gate(f"acetonitrile_taper {mapping}", [("e_rhf", res["e_rhf"], E_RHF_PRA)], 1e-6)
+        t = res["tapered"]
+        got = {k: t[k] for k in ("n_qubits_raw", "n_qubits", "n_terms_raw", "n_terms")}
+        got.update(n_symmetries=len(t["symmetries"]), sector=[int(x) for x in t["sector"]])
+        if got != {k: v for k, v in ref.items() if k != "abs_sum"}:
+            raise RuntimeError(f"acetonitrile_taper {mapping}: {got} vs reference {ref}")
+        coeffs = list(t["psum"].terms.values())
+        sums = {"abs_sum": float(sum(abs(c) for c in coeffs)),
+                "sq_sum": float(sum(abs(c) ** 2 for c in coeffs)),
+                "identity": complex(t["psum"].terms.get((0, 0), 0.0)).real}
+        _gate(f"acetonitrile_taper {mapping}", [
+            ("sum |c|^2", sums["sq_sum"], SQ_SUM_PRA)], 1e-8)
+        _gate(f"acetonitrile_taper {mapping}", [
+            ("identity", sums["identity"], IDENTITY_PRA)], 1e-10)
+        _gate(f"acetonitrile_taper {mapping}", [
+            ("sum |c|", sums["abs_sum"], ref["abs_sum"])], 1e-4)
+        out[mapping] = {**got, **sums, "abs_sum_dev": sums["abs_sum"] - ref["abs_sum"],
+                        "wall_s": wall, "post_embed_s": driver.timings["huzinaga_post_embed"]}
+    print("acetonitrile_taper", json.dumps(out), flush=True)
+    return driver
+
+
+def run_water_vqe():
+    """Water's embedded VQE on both projectors against the embedded FCI
+    (tests/test_vqe.py:91-101) and nbed_tpu's e_vqe, and the DFT-in-DFT
+    energies against nbed_tpu with the identities of
+    tests/test_driver.py:49-57."""
+    from nbed_tpu_torch import nbed
+
+    t0 = time.perf_counter()
+    driver = nbed(**CONFIGS["water_vqe"], device="cuda")
+    wall = time.perf_counter() - t0
+    e_ks = driver._global_ks.e_tot
+    out = {"wall_s": wall, "stages_s": driver.timings}
+    for name in ("mu", "huzinaga"):
+        res = getattr(driver, name)
+        vqe = res["vqe"]
+        if not (vqe.converged and res["e_vqe"] > res["e_fci"] - 1e-9
+                and res["e_vqe"] - res["e_fci"] < 2e-4):
+            raise RuntimeError(f"water {name} VQE: converged {vqe.converged}, e_vqe "
+                               f"{res['e_vqe']} against e_fci {res['e_fci']}")
+        _gate(f"water_vqe {name}", [("e_vqe", res["e_vqe"], E_VQE_WATER[name])], 1e-6)
+        _gate(f"water_vqe {name}", [("e_dft_in_dft", res["e_dft_in_dft"],
+                                     E_DFT_IN_DFT_WATER[name])], 1e-7)
+        _gate(f"water_vqe {name}", [("e_dft_in_dft vs global KS", res["e_dft_in_dft"],
+                                     e_ks)], 5e-6 if name == "mu" else 1e-8)
+        out[name] = {"e_vqe": res["e_vqe"], "e_fci": res["e_fci"],
+                     "e_dft_in_dft": res["e_dft_in_dft"], "n_qubits": vqe.n_qubits,
+                     "n_params": vqe.n_params, "n_strings": vqe.n_strings,
+                     "lbfgs_iterations": vqe.n_iterations}
+    _gate("water_vqe", [("mu vs huzinaga e_dft_in_dft", driver.mu["e_dft_in_dft"],
+                         driver.huzinaga["e_dft_in_dft"])], 5e-6)
+    print("water_vqe", json.dumps(out), flush=True)
+    return driver
+
+
+def run_vqe_20q(pra_scf, water_sq, water_nelec):
+    """One value-and-gradient of the VQE objective on the PRA Huzinaga SCF
+    cut to 10 MOs (20 qubits) at seeded amplitudes: at theta = 0 the energy
+    is <HF|H|HF> of the mapped sum; four gradient entries against central
+    differences; the adjoint sweep against plain autograd at water's
+    register."""
+    from nbed_tpu_torch.ham import HamiltonianBuilder, pauli_sum_to_sparse, reduce_virtuals
+    from nbed_tpu_torch.ham.qubit import _popcount
+    from nbed_tpu_torch.solvers import vqe
+
+    cuda = torch.device("cuda")
+    occ = pra_scf.mo_occ.cpu().numpy()
+    n_virt = occ.shape[-1] - 10
+    scf = reduce_virtuals(pra_scf, n_virt)
+    nelec = (int(occ[0].sum()), int(occ[1].sum()))
+    sq = HamiltonianBuilder(scf, 0.0).build()
+    t0 = time.perf_counter()
+    psum, prog, psi0, n_params = vqe._ansatz_setup(*sq, nelec, "jw", None, cuda)
+    setup_s = time.perf_counter() - t0
+    if psum.n_qubits != 20:
+        raise RuntimeError(f"vqe_20q register {psum.n_qubits} qubits, expected 20")
+    hf = int(torch.argmax(psi0))
+    e_hf = sum(c.real * (1 - 2 * (_popcount(hf & z) & 1))
+               for (x, z), c in psum.terms.items() if x == 0)
+    e0, _ = vqe._value_and_grad(np.zeros(n_params), psi0, prog)
+    _gate("vqe_20q", [("E(theta=0) vs <HF|H|HF>", e0, e_hf)], 1e-9)
+
+    thetas = 0.05 * np.random.default_rng(20).standard_normal(n_params)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e, g = vqe._value_and_grad(thetas, psi0, prog)
+    value_grad_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        e_fwd = float(vqe._energy(torch.as_tensor(thetas, device=cuda), psi0, prog))
+    energy_s = time.perf_counter() - t0
+    h = 1e-4
+    fd = {}
+    for i in np.argsort(-np.abs(g))[:4]:
+        plus, minus = thetas.copy(), thetas.copy()
+        plus[i] += h
+        minus[i] -= h
+        with torch.no_grad():
+            fd[int(i)] = (float(vqe._energy(torch.as_tensor(plus, device=cuda), psi0, prog))
+                          - float(vqe._energy(torch.as_tensor(minus, device=cuda),
+                                              psi0, prog))) / (2 * h)
+    rel = max(abs(g[i] - fd[i]) / abs(g[i]) for i in fd)
+    if not (np.isfinite(e) and abs(e - e_fwd) < 1e-10 and rel < 1e-6):
+        raise RuntimeError(f"vqe_20q: E {e} (forward {e_fwd}), gradient vs central "
+                           f"differences {rel} relative")
+
+    # adjoint against plain autograd at water's register
+    w_psum, w_prog, w_psi0, w_n = vqe._ansatz_setup(*water_sq, water_nelec, "jw", None, cuda)
+    theta = torch.tensor(0.1 * np.random.default_rng(3).standard_normal(w_n),
+                         device=cuda, requires_grad=True)
+    (g_adj,) = torch.autograd.grad(vqe._energy(theta, w_psi0, w_prog), theta)
+    h_dense = torch.tensor(pauli_sum_to_sparse(w_psum).toarray().real, device=cuda)
+    theta_p = theta.detach().clone().requires_grad_(True)
+    psi = vqe._sweep_plain(theta_p, w_psi0, w_prog)
+    (g_plain,) = torch.autograd.grad(psi @ h_dense @ psi, theta_p)
+    adj_err = float(torch.max(torch.abs(g_adj - g_plain)) / torch.max(torch.abs(g_plain)))
+    if not adj_err < 1e-9:
+        raise RuntimeError(f"vqe adjoint vs plain autograd at {w_psum.n_qubits} qubits: "
+                           f"max |dg| / max |g| {adj_err}")
+    print("vqe_20q", json.dumps({
+        "n_qubits": psum.n_qubits, "nelec": nelec, "n_params": n_params,
+        "n_strings": len(prog.strings), "n_terms": len(psum),
+        "n_hamiltonian_blocks": len(prog.blocks), "setup_s": setup_s,
+        "value_and_grad_s": value_grad_s, "energy_s": energy_s,
+        "peak_gb_value_and_grad": peak_gb, "e": e, "e_hf": e_hf,
+        "grad_vs_central_diff_rel": rel, "max_abs_grad": float(np.abs(g).max()),
+        "adjoint_vs_autograd": {"n_qubits": w_psum.n_qubits, "n_params": w_n,
+                                "max_rel_diff": adj_err}}), flush=True)
+
+
+def run_pfoa_incremental(driver):
+    """pfoa's global DF-UKS again with incremental float32 J/K, on the DF
+    factor the driver built: within 1e-8 Ha of its float64 energy. A
+    float64 rerun set up the same way (new engine: grid and AO tables
+    rebuilt, SAD atoms cached) is timed beside it."""
+    from nbed_tpu_torch.scf import SCFEngine
+
+    ks = driver._ks_engine
+    out = {}
+    for mode in ("off", "on"):
+        eng = SCFEngine(ks.mol, xc=ks.xc, conv_tol=ks.conv_tol, max_cycle=ks.max_cycle,
+                        density_fitting=True, df_b=ks.df_b, incremental_jk=mode,
+                        max_memory_mb=ks.max_memory_mb, device="cuda")
+        t0 = time.perf_counter()
+        sol = eng.kernel()
+        out[f"{mode}_s"] = time.perf_counter() - t0
+        if not sol.converged:
+            raise RuntimeError(f"pfoa DF-UKS (incremental_jk={mode}) did not converge")
+        _gate("pfoa_incremental", [(f"e_uks incremental_jk={mode}", sol.e_tot,
+                                    driver._global_ks.e_tot)], 1e-8)
+        out[f"{mode}_dev_vs_f64"] = sol.e_tot - driver._global_ks.e_tot
+    print("pfoa_incremental", json.dumps(out), flush=True)
+
+
+def build_all():
+    """Build the CUDA kernel library and the two host C++ libraries, each
+    compiler started at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nbed_tpu_torch._compile import native_integrals_library, qubit_terms_library
+    from nbed_tpu_torch.ops import jk
+
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futures = [pool.submit(f) for f in (jk.build_kernels, native_integrals_library,
+                                            qubit_terms_library)]
+        for f in futures:
+            f.result()
+
+
+# kernels each phase's path must launch (counted from 0 for each phase);
+# the DF and statevector phases have none: DF J/K and the VQE sweep are
+# plain torch, as they are XLA in the reference
+F64 = ("fused_jk_f64",)
+MIXED = ("fused_jk_f64", "fused_jk_f32")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False")
-    from nbed_tpu_torch._reference_files import native_integrals_library
     from nbed_tpu_torch.ops import jk
     from nbed_tpu_torch.scf.engine import _atomic_density
 
@@ -515,8 +824,7 @@ def main():
 
     phase_s = {}
     t0 = time.perf_counter()
-    jk.build_kernels()
-    native_integrals_library()
+    build_all()
     phase_s["build"] = time.perf_counter() - t0
     print(f"build_s {phase_s['build']:.3f}", flush=True)
 
@@ -526,12 +834,34 @@ def main():
 
     # each pipeline is a cold run (its atoms' SAD SCFs included), with the
     # launch counts set to 0 just before it and read just after
+    f64, keep = {}, {}
     per_phase, peak_gb = {}, {}
-    for name, run in (("water", run_water), ("acetonitrile", run_acetonitrile),
-                      ("water_functionals", run_water_functionals),
-                      ("methyl_rohf", run_methyl_rohf), ("water_qmmm", run_water_qmmm),
-                      ("acetonitrile_camb3lyp", run_acetonitrile_camb3lyp),
-                      ("pfoa_wb97x", run_pfoa_wb97x), ("pfoa", run_pfoa)):
+
+    def remember(name, driver):
+        if name in ("water", "acetonitrile"):
+            f64[name] = pipeline_energies(driver)
+        elif name == "acetonitrile_taper":
+            keep["pra_scf"] = driver.huzinaga["scf"]
+        elif name == "water_vqe":
+            occ = driver.mu["scf"].mo_occ.cpu().numpy()
+            keep["water"] = (driver.mu["second_quantised"],
+                             (int(occ[0].sum()), int(occ[1].sum())))
+
+    phases = (
+        ("water", run_water, F64),
+        ("water_mixed", lambda: run_mixed("water", f64["water"]), MIXED),
+        ("acetonitrile", run_acetonitrile, F64),
+        ("acetonitrile_mixed", lambda: run_mixed("acetonitrile", f64["acetonitrile"]),
+         MIXED),
+        ("acetonitrile_taper", run_acetonitrile_taper, F64),
+        ("water_vqe", run_water_vqe, F64),
+        ("vqe_20q", lambda: run_vqe_20q(keep.pop("pra_scf"), *keep.pop("water")), ()),
+        ("water_functionals", run_water_functionals, F64),
+        ("methyl_rohf", run_methyl_rohf, F64), ("water_qmmm", run_water_qmmm, F64),
+        ("acetonitrile_camb3lyp", run_acetonitrile_camb3lyp, F64),
+        ("pfoa_wb97x", run_pfoa_wb97x, F64), ("pfoa", run_pfoa, F64),
+    )
+    for name, run, needs in phases:
         driver = None  # the previous pipeline's memory is not this one's peak
         _atomic_density.cache_clear()
         torch.cuda.reset_peak_memory_stats()
@@ -539,32 +869,50 @@ def main():
         t0 = time.perf_counter()
         driver = run()
         phase_s[name] = time.perf_counter() - t0
-        per_phase[name] = jk.LAUNCHES["fused_jk"]
+        per_phase[name] = dict(jk.LAUNCHES)
         peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
-        if per_phase[name] == 0:
-            raise RuntimeError(f"the {name} pipeline ran without launching fused_jk")
-    launches = sum(per_phase.values())
-    print(f"fused_jk launches: {json.dumps(per_phase)}", flush=True)
+        missing = [k for k in needs if not jk.LAUNCHES[k]]
+        if missing:
+            raise RuntimeError(f"the {name} pipeline ran without launching {missing}")
+        remember(name, driver)
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     check_pfoa_df_and_xc(driver)  # the pfoa driver, run last
     phase_s["pfoa_df_xc_check"] = time.perf_counter() - t0
     peak_gb["pfoa_df_xc_check"] = torch.cuda.max_memory_allocated() / 1e9
+
+    torch.cuda.reset_peak_memory_stats()
+    jk.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    run_pfoa_incremental(driver)
+    phase_s["pfoa_incremental"] = time.perf_counter() - t0
+    per_phase["pfoa_incremental"] = dict(jk.LAUNCHES)
+    peak_gb["pfoa_incremental"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"fused_jk launches: {json.dumps(per_phase)}", flush=True)
     print("max_memory_allocated_gb", json.dumps(peak_gb), flush=True)
     print("phase_s", json.dumps(phase_s), flush=True)
 
-    main_row = next(r for r in rows
-                    if r["case"] == "acetonitrile" and r["dtype"] == "float64")
-    print(json.dumps({"kernels": [{
-        "name": "fused_jk", "route": "cuda",
-        "source": "nbed_tpu_torch/csrc/fused_jk.cu",
-        "replaces": "nbed_tpu/ops/pallas_jk.py:82",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float64"),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "m": main_row["m"], "dtype": "float64",
-    }]}))
+    kernels = []
+    for dtype in ("float64", "float32"):
+        name = f"fused_jk_{dtype[0]}{dtype[-2:]}"
+        # the main path's shape: acetonitrile's M = 324, in float32 the
+        # shape of acetonitrile_mixed's warm-up and incremental launches
+        main_row = next(r for r in rows if r["case"] == "acetonitrile"
+                        and r["dtype"] == dtype)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "nbed_tpu_torch/csrc/fused_jk.cu",
+            "replaces": "nbed_tpu/ops/pallas_jk.py:82",
+            "launches": sum(c.get(name, 0) for c in per_phase.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == dtype),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "kernel_device_us": main_row["kernel_device_us"],
+            "m": main_row["m"], "dtype": dtype,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

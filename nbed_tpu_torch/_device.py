@@ -1,8 +1,9 @@
 """Device and dtype policy shared by every entry point of the port."""
 
+import numpy as np
 import torch
 
-__all__ = ["DTYPE", "resolve_device"]
+__all__ = ["DTYPE", "resolve_device", "to_host"]
 
 # nbed_tpu runs with jax_enable_x64: quantum chemistry needs ~1e-10 in the
 # intermediate linear algebra to reach 1e-6 Ha end to end.
@@ -27,3 +28,9 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def to_host(a) -> np.ndarray:
+    """A tensor on any device, or an array, as a host numpy array (the
+    host solvers' input)."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)

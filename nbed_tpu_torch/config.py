@@ -45,15 +45,13 @@ class VirtualLocalizerTypes(Enum):
 # the reference's XYZ pattern (nbed_tpu/config.py:51-53)
 _XYZ_RE = re.compile("^\\d+\n\\s?\n(?:\\w(?:\\s+\\-?\\d\\.\\d+){3}\n?)*")
 
-# non-default values of these fields need code the port does not have yet
-_NOT_PORTED = {
-    "run_dft_in_dft": "ROADMAP queue 1 item 11 (DFT-in-DFT check)",
-    "run_vqe_emb": "ROADMAP queue 1 item 11 (solvers off the main path: VQE)",
-    "run_cis_emb": "ROADMAP queue 1 item 11 (solvers off the main path: CIS)",
-    "run_rpa_emb": "ROADMAP queue 1 item 11 (solvers off the main path: RPA)",
-    "taper_qubits": "ROADMAP queue 1 item 11 (qubit mappings and tapering)",
-    "warmup_f32": "ROADMAP queue 1 item 9 (mixed-precision modes)",
-}
+# non-default values of these fields need code the port does not have yet:
+# CIS/RPA report oscillator strengths, which need the torch one-electron
+# integrals (dipoles) of the next slice
+_ONE_ELECTRON_SLICE = ("ROADMAP queue 1 item 11, next slice: the torch one-electron "
+                       "integrals (dipole_integrals, overlap_cross) with item 10's "
+                       "localizers")
+_NOT_PORTED = {"run_cis_emb": _ONE_ELECTRON_SLICE, "run_rpa_emb": _ONE_ELECTRON_SLICE}
 _LOCALIZER_ITEM = "ROADMAP queue 1 item 10 (PM/Boys/IBO/PAO localizers)"
 
 

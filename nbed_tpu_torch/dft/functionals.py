@@ -59,6 +59,16 @@ def _safe(rho):
     return _max(rho, _TINY)
 
 
+def _clip_zeta(zeta):
+    """The spin polarisation clipped into (-1, 1): by 1e-15 as in the
+    reference, or by the dtype's epsilon where 1 - 1e-15 rounds to 1. In
+    float32 the reference's clip reaches |zeta| = 1, where (1 -+ zeta)^p has
+    an infinite derivative and the fully polarised PBE terms of TPSS
+    correlation give a NaN potential; float64 results are unchanged."""
+    margin = max(1e-15, torch.finfo(zeta.dtype).eps)
+    return _clip(zeta, -1.0 + margin, 1.0 - margin)
+
+
 # ----------------------------------------------------------------- exchange
 
 def slater_x(ra, rb, gaa, gab, gbb):
@@ -117,7 +127,7 @@ def _vwn_c(params):
 
     def fn(ra, rb, gaa, gab, gbb):
         rho = _safe(ra + rb)
-        zeta = _clip((ra - rb) / rho, -1.0 + 1e-15, 1.0 - 1e-15)
+        zeta = _clip_zeta((ra - rb) / rho)
         rs = (3.0 / (4.0 * np.pi * rho)) ** (1.0 / 3.0)
         x = torch.sqrt(rs)
         eps_p = _vwn_eps(x, params["P"])
@@ -188,7 +198,7 @@ def _pw92_eps(rs, zeta):
 
 def pw92_c(ra, rb, gaa, gab, gbb):
     rho = _safe(ra + rb)
-    zeta = _clip((ra - rb) / rho, -1.0 + 1e-15, 1.0 - 1e-15)
+    zeta = _clip_zeta((ra - rb) / rho)
     rs = (3.0 / (4.0 * np.pi * rho)) ** (1.0 / 3.0)
     return rho * _pw92_eps(rs, zeta)
 
@@ -263,7 +273,7 @@ def pbe_c(ra, rb, gaa, gab, gbb):
     gamma = (1.0 - np.log(2.0)) / np.pi**2
     beta = 0.06672455060314922
     rho = _safe(ra + rb)
-    zeta = _clip((ra - rb) / rho, -1.0 + 1e-15, 1.0 - 1e-15)
+    zeta = _clip_zeta((ra - rb) / rho)
     rs = (3.0 / (4.0 * np.pi * rho)) ** (1.0 / 3.0)
     eps = _pw92_eps(rs, zeta)
     phi = 0.5 * ((1.0 + zeta) ** (2.0 / 3.0) + (1.0 - zeta) ** (2.0 / 3.0))
@@ -342,7 +352,7 @@ def tpss_c(ra, rb, gaa, gab, gbb, ta, tb):
     z = _clip(tau_w / _max(tau, tau_w), 0.0, 1.0)
     z2 = z * z
 
-    zeta = _clip((ra - rb) / rho, -1.0 + 1e-15, 1.0 - 1e-15)
+    zeta = _clip_zeta((ra - rb) / rho)
     # |grad zeta|^2 = 4 (rb^2 gaa - 2 ra rb gab + ra^2 gbb) / rho^4, in the
     # reference's factoring; xi^2 = |grad zeta|^2 / (4 (3 pi^2)^{2/3} rho^{2/3})
     za, zb = ra / rho, rb / rho
@@ -378,9 +388,12 @@ tpss_c.needs_tau = True
 def _scan_interp(alpha, c1, c2, d):
     """SCAN's alpha interpolation f(alpha): exp(-c1 a/(1-a)) below a=1,
     -d exp(c2/(1-a)) above. Each branch's input is clamped so the branch
-    not taken stays finite under autograd."""
-    a_lt = _min(alpha, 1.0 - 1e-9)
-    a_gt = _max(alpha, 1.0 + 1e-9)
+    not taken stays finite under autograd: by 1e-9 as in the reference, or
+    by the dtype's epsilon where 1 -+ 1e-9 rounds to 1 (float32, whose
+    branches would otherwise divide by zero and give a NaN potential)."""
+    margin = max(1e-9, torch.finfo(alpha.dtype).eps)
+    a_lt = _min(alpha, 1.0 - margin)
+    a_gt = _max(alpha, 1.0 + margin)
     f_lt = torch.exp(-c1 * a_lt / (1.0 - a_lt))
     f_gt = -d * torch.exp(c2 / (1.0 - a_gt))
     return torch.where(alpha < 1.0, f_lt, f_gt)
@@ -441,7 +454,7 @@ def scan_c(ra, rb, gaa, gab, gbb, ta, tb):
 
     # the TOTAL density is floored, not each spin (one-electron limit)
     rho = _safe(ra + rb)
-    zeta = _clip((ra - rb) / rho, -1.0 + 1e-15, 1.0 - 1e-15)
+    zeta = _clip_zeta((ra - rb) / rho)
     rs = (3.0 / (4.0 * np.pi * rho)) ** (1.0 / 3.0)
     gnorm2 = _max(gaa + 2.0 * gab + gbb, 0.0)
     u = gnorm2 / (rho * rho)

@@ -7,6 +7,9 @@ per-call cost is a handful of (G, nao) x (nao, nao) products, taken over
 grid chunks with the (exc, vxc) sums accumulated across them. The table
 path keeps the AO tables of the whole grid; the streaming path evaluates
 them per chunk, for grids whose tables would outgrow the memory budget.
+Both work in the dtype of their tables: float64 on the main path, float32
+for the mixed-precision SCF's coarse cycles, with the density mask of each
+dtype (:func:`_mask_thresh`).
 """
 
 import torch
@@ -16,12 +19,16 @@ from .functionals import resolve_functional
 
 __all__ = ["make_xc_fn", "make_xc_fn_streaming"]
 
-# density cut below which grid points are masked out of the XC math: the
-# reference's float64 CPU value (xc.py:24-34)
-_MASK_THRESH = 1e-11
+def _mask_thresh(dtype) -> float:
+    """Density cut below which grid points are masked out of the XC math,
+    the reference's CPU values (``nbed_tpu/dft/xc.py:24-34``): 1e-11 in
+    float64, 3e-6 in float32, where GGA intermediates of thinner densities
+    leave float32's range. The reference's coarser mask for emulated
+    float64 exists only on the TPU and is not ported."""
+    return 1e-11 if dtype == torch.float64 else 3e-6
 
 
-def _chunk_math(terms):
+def _chunk_math(terms, thresh: float):
     """Per-chunk energy + potential contributions from AO tables.
 
     When a term is tau-dependent (``fn.needs_tau``, the meta-GGAs) the chunk
@@ -34,7 +41,7 @@ def _chunk_math(terms):
     needs_tau = any(getattr(fn, "needs_tau", False) for _, fn in terms)
 
     def e_density(ra, rb, gaa, gab, gbb, ta=None, tb=None):
-        mask = (ra + rb) > _MASK_THRESH
+        mask = (ra + rb) > thresh
 
         def safe(x):
             return torch.where(mask, x, torch.ones_like(x))
@@ -86,11 +93,12 @@ def _chunk_math(terms):
 def make_xc_fn(ao, ao_grad, weights, xc_name: str, chunk: int = 131072):
     """``xc_fn(dm) -> (exc, vxc (2, nao, nao))`` from precomputed AO tables
     (``ao`` (G, nao), ``ao_grad`` (3, G, nao), ``weights`` (G,)), or None
-    for a functional with no grid terms (``hf``)."""
+    for a functional with no grid terms (``hf``). It computes in the
+    tables' dtype and takes a density of that dtype."""
     terms = resolve_functional(xc_name)[0]
     if not terms:
         return None
-    one_chunk = _chunk_math(terms)
+    one_chunk = _chunk_math(terms, _mask_thresh(ao.dtype))
     n_points = ao.shape[0]
 
     def xc_fn(dm):
@@ -107,26 +115,31 @@ def make_xc_fn(ao, ao_grad, weights, xc_name: str, chunk: int = 131072):
     return xc_fn
 
 
-def make_xc_fn_streaming(mol, points, weights, xc_name: str, chunk: int = 32768):
+def make_xc_fn_streaming(mol, points, weights, xc_name: str, chunk: int = 32768,
+                         dtype=None):
     """``xc_fn(dm) -> (exc, vxc (2, nao, nao))`` that evaluates the AO values
     and gradients per grid chunk: O(chunk * nao) memory instead of
     O(G * nao) (``nbed_tpu/dft/xc.py:148-188``). The last chunk is short
     where the reference pads with far-away points; the sums are the same.
-    None for a functional with no grid terms."""
+    AOs are evaluated in the points' dtype and the quadrature runs in
+    ``dtype`` (default: the points'). None for a functional with no grid
+    terms."""
     terms = resolve_functional(xc_name)[0]
     if not terms:
         return None
-    one_chunk = _chunk_math(terms)
+    dtype = points.dtype if dtype is None else dtype
+    one_chunk = _chunk_math(terms, _mask_thresh(dtype))
     n_points = points.shape[0]
+    weights = weights.to(dtype)
 
     def xc_fn(dm):
-        exc = torch.zeros((), dtype=points.dtype, device=points.device)
-        v = torch.zeros((2,) + tuple(dm.shape[-2:]), dtype=points.dtype,
+        exc = torch.zeros((), dtype=dtype, device=points.device)
+        v = torch.zeros((2,) + tuple(dm.shape[-2:]), dtype=dtype,
                         device=points.device)
         for g0 in range(0, n_points, chunk):
             sl = slice(g0, g0 + chunk)
             ao_c, grad_c = eval_aos(mol, points[sl])
-            exc_c, v_c = one_chunk(ao_c, grad_c, weights[sl], dm)
+            exc_c, v_c = one_chunk(ao_c.to(dtype), grad_c.to(dtype), weights[sl], dm)
             exc = exc + exc_c
             v = v + v_c
         return exc, v

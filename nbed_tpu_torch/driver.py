@@ -1,17 +1,19 @@
 """Projection-based embedding driver (port of ``nbed_tpu/driver.py``).
 
-Orchestrates: global UKS and UHF -> SPADE occupied localization ->
+Orchestrates: global UKS -> SPADE occupied localization ->
 subsystem-DFT energy decomposition -> embedding potential -> mu-shift
 and/or Huzinaga embedded SCF -> environment-orbital deletion -> concentric
-virtual localization -> embedded CCSD/FCI -> second-quantised Hamiltonian.
-The result-dict keys are the reference's. Like the reference, the driver
-always runs unrestricted.
+virtual localization -> embedded CCSD/FCI -> DFT-in-DFT check ->
+second-quantised Hamiltonian -> qubit mapping and Z2 tapering ->
+statevector VQE. The result-dict keys are the reference's. Like the
+reference, the driver always runs unrestricted.
 
 The deliberate deviations of ``nbed_tpu`` from upstream Nbed are kept: the
 Huzinaga environment ranking by diag(C^T P C), the per-spin environment
 deletion, and QM/MM only when all three MM fields are set. Not ported:
-DFT-in-DFT, CIS/RPA/VQE, tapering, PAO and the Jacobi-sweep localizers
-(``NbedConfig.require_ported`` names the ROADMAP items).
+CIS/RPA (their oscillator strengths need dipole integrals), PAO and the
+Jacobi-sweep localizers (``NbedConfig.require_ported`` names the ROADMAP
+items).
 """
 
 import json
@@ -27,14 +29,17 @@ from .config import NbedConfig, ProjectorTypes, VirtualLocalizerTypes
 from .dft.functionals import pt2_coefficient
 from .exceptions import NbedDriverError
 from .ham.builder import HamiltonianBuilder
+from .ham.qubit import MAPPINGS
+from .ham.taper import taper_auto
 from .localizers import ConcentricLocalizer, LocalizedSystem, SPADELocalizer
 from .profiling import StageTimer
 from .scf.engine import SCFEngine, SCFSolution
 from .solvers import run_ccsd, run_fci
+from .solvers.vqe import _encode_reference, run_vqe
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["NbedDriver", "run_emb_ccsd", "run_emb_fci"]
+__all__ = ["NbedDriver", "run_emb_ccsd", "run_emb_fci", "dft_in_dft"]
 
 
 class NbedDriver:
@@ -87,7 +92,8 @@ class NbedDriver:
         return SCFEngine(self._mol, xc=xc, conv_tol=self.config.convergence,
                          max_cycle=max_cycle, device=self.device,
                          density_fitting=self._use_df, df_b=df_b,
-                         max_memory_mb=float(self.config.max_ram_memory))
+                         max_memory_mb=float(self.config.max_ram_memory),
+                         warmup_f32=self.config.warmup_f32)
 
     @cached_property
     def _hf_engine(self) -> SCFEngine:
@@ -109,6 +115,14 @@ class NbedDriver:
                 "v_emb.", self.config.xc_functional,
             )
         return self._engine(self.config.xc_functional, self.config.max_dft_cycles)
+
+    @cached_property
+    def _global_hf(self) -> SCFSolution:
+        """Global UHF of the whole molecule (for the full-system qubit
+        counts of ``ham.embedding_reduction``)."""
+        sol = self._hf_engine.kernel()
+        logger.info("Global HF: %s", sol.e_tot)
+        return sol
 
     @cached_property
     def _global_ks(self) -> SCFSolution:
@@ -308,9 +322,46 @@ class NbedDriver:
             logger.info("FCI Energy %s: %s", projector, result["e_fci"])
 
         result["hf_emb"] = result["scf"].e_tot - self.e_nuc
+
+        if cfg.run_dft_in_dft:
+            result.update(dft_in_dft(self, projector))
+
         hb = HamiltonianBuilder(result["scf"], result["classical_energy"])
         result["second_quantised"] = hb.build()
+
+        if cfg.taper_qubits:
+            result["tapered"] = self._taper(result, projector)
+
+        if cfg.run_vqe_emb:
+            occ = result["scf"].mo_occ.cpu().numpy()
+            nelec = (int(np.sum(occ[0] > 0)), int(np.sum(occ[1] > 0)))
+            try:
+                vqe = run_vqe(*result["second_quantised"], nelec=nelec,
+                              mapping=cfg.qubit_mapping, device=self.device)
+                result["vqe"] = vqe
+                result["e_vqe"] = vqe.e_vqe
+                logger.info("VQE Energy %s: %s", projector, vqe.e_vqe)
+            except ValueError as exc:  # active space too large: warn, keep going
+                logger.warning("Skipping embedded VQE: %s", exc)
         return result
+
+    def _taper(self, result, projector) -> dict:
+        """The second-quantised Hamiltonian under ``qubit_mapping``, tapered
+        in the sector of the embedded HF determinant (reference
+        driver.py:556-587)."""
+        mapping = self.config.qubit_mapping
+        psum = MAPPINGS[mapping](*result["second_quantised"])
+        # occupied spin orbitals in the builder's interleave, as the
+        # determinant's computational-basis index in the chosen encoding
+        occupied = np.nonzero(self._interleaved_occ(result["scf"]))[0]
+        hf_bits = _encode_reference(sum(1 << int(p) for p in occupied), mapping,
+                                    psum.n_qubits)
+        tapered, syms, sector = taper_auto(psum, hf_bits=hf_bits)
+        logger.info("Tapering %s: %d -> %d qubits (%d symmetries)",
+                    projector, psum.n_qubits, tapered.n_qubits, len(syms))
+        return {"psum": tapered, "symmetries": syms, "sector": sector,
+                "n_qubits_raw": psum.n_qubits, "n_qubits": tapered.n_qubits,
+                "n_terms_raw": len(psum), "n_terms": len(tapered)}
 
     def _save(self, filename):
         """JSON dump of the scalar results of each projector."""
@@ -355,6 +406,37 @@ def _delete_spin_environment(projector, n_env_mo, mo_coeff, mo_energy, mo_occ,
     logger.info("Orbital indices removed: %s", frozen)
     keep = torch.tensor(active, dtype=torch.long, device=mo_coeff.device)
     return mo_coeff[:, keep], mo_energy[keep], mo_occ[keep]
+
+
+def dft_in_dft(driver: NbedDriver, projection_method) -> dict:
+    """DFT-in-DFT self-consistency check (reference driver.py:831-885): the
+    embedded SCF rerun with the KS engine, whose energy with the
+    environment terms must give back the global KS energy."""
+    result = {}
+    engine = driver._ks_engine
+    if projection_method is ProjectorTypes.MU:
+        result["scf_dft"], result["v_emb_dft"] = driver._mu_embed(
+            engine, driver.embedding_potential)
+    else:
+        result["scf_dft"], result["v_emb_dft"] = driver._huzinaga_embed(
+            engine, driver.embedding_potential, driver.localized_system)
+    result["scf_dft"] = driver._delete_environment(
+        projection_method, result["scf_dft"], driver.localized_system,
+        driver._env_projector)
+
+    dm_act = driver.localized_system.dm_active
+    y_emb = result["scf_dft"].make_rdm1()
+    v = result["v_emb_dft"]
+    result["dft_correction"] = float(torch.einsum("ij,ij", v[0], y_emb[0] - dm_act[0]))
+    result["dft_correction_beta"] = float(torch.einsum("ij,ij", v[1], y_emb[1] - dm_act[1]))
+    veff = engine.get_veff(y_emb)
+    rks_e_elec = (float(veff.exc) + float(veff.ecoul)
+                  + float(torch.einsum("ij,sij->", engine.hcore, y_emb)))
+    result["e_dft_in_dft"] = (rks_e_elec + driver.e_env + driver.two_e_cross
+                              + result["dft_correction"]
+                              + result["dft_correction_beta"] + engine.energy_nuc())
+    result["emb_dft"] = rks_e_elec
+    return result
 
 
 def run_emb_ccsd(scf_sol: SCFSolution, convergence: float = 1e-6):

@@ -1,9 +1,9 @@
 """Lebedev angular quadrature: expand orbit parameters into points/weights
 (port of ``nbed_tpu/grids/lebedev.py``, host numpy).
 
-The orbit parameters are the reference's table ``nbed_tpu/grids/
-data_lebedev.py``, read by path. This module expands them into unit-sphere
-points and weights (weights sum to 1).
+The orbit parameters are the port's copy of the reference's table
+(``data_lebedev.py``). This module expands them into unit-sphere points and
+weights (weights sum to 1).
 """
 
 import itertools
@@ -12,9 +12,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from .._reference_files import load_module
-
-LEBEDEV_PARAMS = load_module("grids/data_lebedev.py").LEBEDEV_PARAMS
+from .data_lebedev import LEBEDEV_PARAMS
 
 __all__ = ["lebedev_grid", "LEBEDEV_PARAMS"]
 

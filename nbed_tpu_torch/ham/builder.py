@@ -18,7 +18,7 @@ import torch
 from ..exceptions import HamiltonianBuilderError
 from ..integrals import ao_to_mo_eri
 
-__all__ = ["HamiltonianBuilder", "EQ_TOLERANCE"]
+__all__ = ["HamiltonianBuilder", "EQ_TOLERANCE", "reduce_virtuals"]
 
 # OpenFermion's default coefficient truncation threshold.
 EQ_TOLERANCE = 1e-8
@@ -90,3 +90,17 @@ class HamiltonianBuilder:
         h1, h2 = self._spinorb_from_spatial(self._one_body_integrals(),
                                             self._two_body_integrals())
         return self.constant_e_shift, h1, 0.5 * h2
+
+
+def reduce_virtuals(scf_solution, n_frozen_virt: int):
+    """A copy of the solution without its highest ``n_frozen_virt`` orbitals
+    per spin (``nbed_tpu/ham/builder.py:161-179``)."""
+    reduced = scf_solution.copy()
+    if n_frozen_virt <= 0:
+        return reduced
+    if n_frozen_virt >= int(torch.count_nonzero(reduced.mo_occ)):
+        raise ValueError("Atempting to reduce virtual space by more than exist.")
+    reduced.mo_coeff = reduced.mo_coeff[:, :, :-n_frozen_virt]
+    reduced.mo_occ = reduced.mo_occ[:, :-n_frozen_virt]
+    reduced.mo_energy = reduced.mo_energy[:, :-n_frozen_virt]
+    return reduced

@@ -1,5 +1,6 @@
-"""ctypes binding of the port's own build of the C++ McMurchie-Davidson
-integral engine (``nbed_tpu/native/md_integrals.cpp``).
+"""ctypes binding of the C++ McMurchie-Davidson integral engine
+(``nbed_tpu_torch/csrc/md_integrals.cpp``, the port's copy of the
+reference's ``nbed_tpu/native/md_integrals.cpp``).
 
 Host code, not a kernel: S, T, V, the ERI tensor and the density-fitting
 integrals are made on the CPU in float64 and moved to the device by the SCF
@@ -18,7 +19,7 @@ from functools import lru_cache
 
 import numpy as np
 
-from .._reference_files import native_integrals_library
+from .._compile import native_integrals_library
 
 __all__ = ["one_electron", "eri", "eri_3c", "eri_2c"]
 

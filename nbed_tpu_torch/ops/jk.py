@@ -27,7 +27,8 @@ _SRC = Path(__file__).resolve().parent.parent / "csrc" / "fused_jk.cu"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC"]
 
-# kernel name -> launches made through its wrapper in this process
+# launches made through the wrapper in this process, by dtype:
+# "fused_jk_f64" and "fused_jk_f32"
 LAUNCHES: Counter = Counter()
 
 
@@ -105,5 +106,5 @@ def fused_jk(g_j, g_k, dm):
                  m, stream)
     if err != 0:
         raise RuntimeError(f"fused_jk kernel launch failed with CUDA error {err}")
-    LAUNCHES["fused_jk"] += 1
+    LAUNCHES["fused_jk_f64" if dm.dtype == torch.float64 else "fused_jk_f32"] += 1
     return out[0].reshape(n, n), out[1:].reshape(2, n, n)

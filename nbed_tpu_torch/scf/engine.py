@@ -23,8 +23,13 @@ One memory budget, ``max_memory_mb`` (the config's ``max_ram_memory``),
 bounds the two large intermediates as in the reference: the auxiliary
 chunk of the DF exchange and the switch from AO-table XC to streaming XC.
 
-Not ported: the mixed-precision modes (ROADMAP queue 1 item 9) and the
-TPU-only compiled-program machinery.
+Two mixed-precision modes are options, off by default
+(``nbed_tpu/scf/engine.py:462-581, 1036-1057``): ``warmup_f32`` runs a
+float32 SCF to loose convergence before the float64 one, and
+``incremental_jk="on"`` builds most J/K of the float64 SCF from float32
+contractions of the density change. Every exact-ERI J/K in float32 goes
+through the fused kernel too. Not ported: the TPU-only compiled-program
+machinery and the TPU's Pallas switch (``pallas_jk``).
 """
 
 import logging
@@ -187,6 +192,17 @@ class SCFEngine:
           table/streaming XC switch from their 4000-MB calibration.
         rohf: restricted open shell (ROHF, or ROKS with ``xc``): both spins
           share spatial orbitals through Roothaan's effective Fock.
+        warmup_f32: seed a full-molecule SCF from a float32 SCF (conv_tol
+          1e-4, dm_conv_tol 1e-3) on float32 casts of the operators. Its
+          J/K are exact even with density fitting, as in the reference:
+          the float32 supermatrices are 2 * nao^4 * 4 bytes (2 GB at
+          nao 126) beside the float64 ERI tensor they are cast from.
+        incremental_jk: ``"on"``: the float64 SCF contracts each cycle's
+          density change in float32 (exact or DF, as the engine is) and
+          rebuilds J/K in float64 every ``rebase_every`` cycles, with
+          float32 XC on coarse cycles and a float64 polish at the end;
+          ``"off"`` or ``"auto"`` (the reference turns "auto" on only on
+          a TPU): plain float64.
     """
 
     mol: Molecule
@@ -202,6 +218,9 @@ class SCFEngine:
     df_b_lr: Optional[torch.Tensor] = field(default=None, repr=False)
     max_memory_mb: float = 4000.0
     rohf: bool = False
+    warmup_f32: bool = False
+    incremental_jk: str = "off"  # "on" | "off" | "auto" (= off)
+    rebase_every: int = 8  # float64 J/K rebuild period of the incremental SCF
     # seconds of each part of this engine's factor builds (df_b_factor)
     df_timings: dict = field(default_factory=dict, init=False, repr=False)
     df_lr_timings: dict = field(default_factory=dict, init=False, repr=False)
@@ -210,6 +229,9 @@ class SCFEngine:
         self.device = resolve_device(self.device)
         if self.init_guess not in ("sad", "hcore"):
             raise ValueError(f"init_guess must be 'sad' or 'hcore', got {self.init_guess!r}")
+        if self.incremental_jk not in ("on", "off", "auto"):
+            raise ValueError("incremental_jk must be 'on', 'off' or 'auto', "
+                             f"got {self.incremental_jk!r}")
         self.coords = self.mol.coords
 
     def _tensor(self, array):
@@ -303,20 +325,69 @@ class SCFEngine:
         return self._xc_meta[2]
 
     @cached_property
+    def _ao_tables(self):
+        return eval_aos(self.mol, self._grid[0])
+
+    def _build_xc(self, dtype):
+        """The XC closure in ``dtype``: the AO-table quadrature, or the
+        streaming one above :attr:`_XC_TABLE_LIMIT`."""
+        points, weights = self._grid
+        if points.shape[0] * self.mol.nao > self._XC_TABLE_LIMIT:
+            return make_xc_fn_streaming(self.mol, points, weights, self.xc,
+                                        dtype=dtype)
+        ao, ao_grad = self._ao_tables
+        return make_xc_fn(ao.to(dtype), ao_grad.to(dtype), weights.to(dtype), self.xc)
+
+    @cached_property
     def _xc(self):
-        """(xc_fn or None, hyb): the AO-table quadrature, or the streaming
-        one above :attr:`_XC_TABLE_LIMIT`. Under range separation hyb is
-        1.0: the exchange weights are folded into K."""
+        """(xc_fn or None, hyb). Under range separation hyb is 1.0: the
+        exchange weights are folded into K."""
         terms, hyb, rsh = self._xc_meta
         if rsh is not None:
             hyb = 1.0
         if not terms:
             return None, hyb
-        points, weights = self._grid
-        if points.shape[0] * self.mol.nao > self._XC_TABLE_LIMIT:
-            return make_xc_fn_streaming(self.mol, points, weights, self.xc), hyb
-        ao, ao_grad = eval_aos(self.mol, points)
-        return make_xc_fn(ao, ao_grad, weights, self.xc), hyb
+        return self._build_xc(DTYPE), hyb
+
+    @cached_property
+    def _xc_f32(self):
+        """Float32 XC closure of the mixed-precision modes, or None."""
+        return None if self._xc[0] is None else self._build_xc(torch.float32)
+
+    @cached_property
+    def _f32_ops(self):
+        """Float32 operators of the warm-up SCF: hcore, S, the XC closure,
+        hyb, and exact J/K through the fused kernel on float32 casts of the
+        ERI supermatrices (``nbed_tpu/scf/engine.py:462-479``)."""
+        f32 = torch.float32
+        gj = self.eri_j.to(f32).contiguous()
+        gk = self.eri_k.to(f32).contiguous()
+        return {
+            "hcore": self.hcore.to(f32), "s": self.s.to(f32),
+            "jk_fn": lambda dm: fused_jk(gj, gk, dm.contiguous()),
+            "xc_fn": self._xc_f32, "hyb": self.hyb,
+        }
+
+    @cached_property
+    def _jk_fast_fn(self):
+        """Float32 J/K of the incremental SCF's density changes, or None
+        unless ``incremental_jk == "on"`` (``engine.py:514-570``): the
+        fused kernel on the float32 supermatrices, or DF J/K on a float32
+        cast of the factor(s). Its input is a difference of densities,
+        symmetric but not positive semidefinite; J and K are linear in it."""
+        if self.incremental_jk != "on":
+            return None
+        if not self.density_fitting:
+            return self._f32_ops["jk_fn"]
+        f32 = torch.float32
+        b32 = self.df_factor().to(f32)
+        b32_lr = None if self._rsh is None else self.df_factor_lr().to(f32)
+        return lambda dm: (_df_j(b32, dm[0] + dm[1]), self._df_k(dm, b32, b32_lr))
+
+    @property
+    def _xc_fast_fn(self):
+        """Float32 XC of the incremental SCF's coarse cycles, or None."""
+        return None if self._jk_fast_fn is None else self._xc_f32
 
     @property
     def hyb(self):
@@ -350,18 +421,20 @@ class SCFEngine:
             return fused_jk(self.eri_j, self.eri_k, dm.contiguous())
         return _df_j(self.df_factor(), dm[0] + dm[1]), self._df_k(dm)
 
-    def _df_k(self, dm):
+    def _df_k(self, dm, b=None, b_lr=None):
         """(2, n, n) DF exchange of a spin density pair, folded under range
-        separation (``nbed_tpu/scf/engine.py:596-607``)."""
+        separation (``nbed_tpu/scf/engine.py:596-607``), from the engine's
+        factors or the given ones (``b_lr`` only under range separation)."""
         chunk = self._df_chunk_elems
 
-        def k_of(b):
-            return torch.stack([_df_k_spin(b, dm[0], chunk), _df_k_spin(b, dm[1], chunk)])
+        def k_of(f):
+            return torch.stack([_df_k_spin(f, dm[0], chunk), _df_k_spin(f, dm[1], chunk)])
 
-        k = k_of(self.df_factor())
+        k = k_of(self.df_factor() if b is None else b)
         if self._rsh is None:
             return k
-        return self._xc_meta[1] * k + self._rsh[0] * k_of(self.df_factor_lr())
+        k_lr = k_of(self.df_factor_lr() if b_lr is None else b_lr)
+        return self._xc_meta[1] * k + self._rsh[0] * k_lr
 
     def get_j(self, dm):
         return self.get_jk(dm)[0]
@@ -410,24 +483,41 @@ class SCFEngine:
         """Run SCF; all embedding terms are explicit arguments."""
         nelec = self.mol.nelec if nelec is None else nelec
         xc_fn, hyb = self._xc
+        from_guess = False
         if (dm0 is None and self.init_guess == "sad"
                 and tuple(nelec) == tuple(self.mol.nelec) and v_emb is None):
             # full-molecule SCF: seed from atomic densities (embedded SCFs
             # keep the reference's modified-hcore guess)
             dm0 = self._sad_guess()
+            from_guess = True
+        max_cycle = self.max_cycle if max_cycle is None else max_cycle
 
-        def opt(t):
-            return None if t is None else _spinify(self._tensor(t))
+        def opt(t, dtype=DTYPE):
+            return None if t is None else _spinify(self._tensor(t)).to(dtype)
+
+        if self.warmup_f32 and (dm0 is None or from_guess):
+            f32 = torch.float32
+            ops = self._f32_ops
+            warm = run_scf(
+                hcore=ops["hcore"], s=ops["s"], jk_fn=ops["jk_fn"], nelec=nelec,
+                v_emb=None if v_emb is None else self._tensor(v_emb).to(f32),
+                xc_fn=ops["xc_fn"], hyb=ops["hyb"],
+                dm_env_occ=opt(dm_env_occ, f32), dm_env_virt=opt(dm_env_virt, f32),
+                dm0=opt(dm0, f32), conv_tol=1e-4, dm_conv_tol=1e-3,
+                max_cycle=max_cycle, rohf=self.rohf,
+            )
+            dm0 = warm.dm.to(DTYPE)
 
         res = run_scf(
             hcore=self.hcore, s=self.s, jk_fn=self.get_jk, nelec=nelec,
+            jk_fn_fast=self._jk_fast_fn, xc_fn_fast=self._xc_fast_fn,
+            rebase_every=self.rebase_every,
             v_emb=None if v_emb is None else self._tensor(v_emb),
             xc_fn=xc_fn, hyb=hyb,
             dm_env_occ=opt(dm_env_occ), dm_env_virt=opt(dm_env_virt), dm0=opt(dm0),
             conv_tol=self.conv_tol if conv_tol is None else conv_tol,
             dm_conv_tol=self.dm_conv_tol if dm_conv_tol is None else dm_conv_tol,
-            max_cycle=self.max_cycle if max_cycle is None else max_cycle,
-            level_shift=level_shift, rohf=self.rohf,
+            max_cycle=max_cycle, level_shift=level_shift, rohf=self.rohf,
         )
         if not res.converged:
             logger.warning("SCF has NOT converged (%s cycles).", res.n_iter)

@@ -11,9 +11,17 @@ the ``jk_fn`` hook (the engine passes the fused J/K kernel of
 per-spin pair before the DIIS error and the diagonalisation, so both spins
 share spatial orbitals; energies still come from the per-spin Fock.
 
+Mixed precision (``jk_fn_fast``, ``xc_fn_fast``): the incremental loop
+contracts each cycle's density *change* in float32 and adds it to the
+float64 J/K of the previous cycle, rebuilding J/K in float64 every
+``rebase_every`` cycles; coarse cycles may take float32 XC. A short
+float64 polish loop then lands on the float64 fixed point
+(``nbed_tpu/scf/hf.py:299-429``). The reference's ``lax.cond`` branches
+become Python ``if`` on host scalars.
+
 Not ported: the TPU-only Newton refinement of ``eigh`` (a no-op off the TPU,
-``hf.py:63-66``), the incremental/f32 mixed-precision branches and the
-forward-mode tangent polish (ROADMAP queue 1 item 9).
+``hf.py:63-66``) and the DIIS-free, damped tangent-polish steps of the
+forward-mode derivatives (ROADMAP queue 1 item 13).
 """
 
 from dataclasses import dataclass
@@ -111,6 +119,10 @@ def run_scf(
     s,  # (n, n)
     nelec,  # (n_alpha, n_beta)
     jk_fn: Callable,  # dm (2,n,n) -> (j (n,n), k (2,n,n))
+    jk_fn_fast: Optional[Callable] = None,  # float32 J/K of density changes
+    rebase_every: int = 8,  # full-precision J/K rebuild period (incremental)
+    xc_fn_fast: Optional[Callable] = None,  # float32 XC for coarse cycles
+    xc_switch_tol: float = 1e-4,  # |dDM| below which the loop's XC is f64
     v_emb=None,  # (2, n, n) embedding potential added to hcore
     xc_fn: Optional[Callable] = None,  # dm -> (exc, vxc (2,n,n))
     hyb: float = 1.0,  # HF-exchange fraction (1.0 = HF, 0.2 = B3LYP)
@@ -128,7 +140,16 @@ def run_scf(
     Fock matrix: ``F_s = hcore + v_emb + J(D_tot) + Vxc_s - hyb*K(D_s)
     + Huz(F)``; energies follow the reference's embedded conventions (the
     Huzinaga term enters the one-body energy in full, ``v_emb`` is part of
-    the core Hamiltonian).
+    the core Hamiltonian). The loop runs in the dtype of ``hcore``: float32
+    operators give the mixed-precision warm-up.
+
+    With ``jk_fn_fast`` each cycle takes ``J(D) = J(D_ref) + J32(D -
+    D_ref)`` (likewise K), D_ref the previous cycle's density, and every
+    ``rebase_every``-th cycle (the first included) builds J/K in full with
+    ``jk_fn``. With ``xc_fn_fast`` a cycle whose previous density change
+    exceeded ``xc_switch_tol`` evaluates XC in float32. Either option ends
+    with a pure full-precision polish loop from the mixed loop's density,
+    which sets the returned convergence flag; ``n_iter`` counts both loops.
     """
     n = s.shape[-1]
     if hcore.ndim == 2:
@@ -153,12 +174,11 @@ def run_scf(
     ar = torch.arange(n, device=s.device)
     occ = torch.stack([(ar < na).to(s.dtype), (ar < nb).to(s.dtype)])
 
-    def fock_and_energy(dm):
-        """One J/K (+XC) build -> (F incl. huz, huz, e_elec of dm)."""
-        j, k = jk_fn(dm)
+    def assemble_fock(dm, j, k, xc=xc_fn):
+        """(F incl. huz, huz, e_elec of dm) from dm and its J/K pair."""
         vhf = j[None] - hyb * k
-        if xc_fn is not None:
-            exc, vxc = xc_fn(dm)
+        if xc is not None:
+            exc, vxc = xc(dm)
             vhf = vhf + vxc
         else:
             exc = 0.0
@@ -174,6 +194,10 @@ def run_scf(
         ex_hf = -0.5 * hyb * torch.einsum("sij,sji->", k, dm)
         return f, huz, e1 + ecoul + ex_hf + exc
 
+    def xc_f32(dm):
+        exc, vxc = xc_fn_fast(dm.to(torch.float32))
+        return exc.to(dm.dtype), vxc.to(dm.dtype)
+
     def eig_fock(f):
         f_ortho = torch.einsum("pi,spq,qj->sij", x, f, x)
         mo_e, c_ortho = torch.linalg.eigh(f_ortho)
@@ -188,49 +212,75 @@ def run_scf(
         _, c0 = eig_fock(f_init)
         dm0 = make_rdm1(c0, occ)
 
-    m = DIIS_SPACE
+    def loop(dm, e_prev, c, mo_e, inc: bool, xcfast: bool):
+        """SCF cycles from ``dm`` until convergence or ``max_cycle``, with a
+        fresh DIIS history; returns (dm, e, c, mo_e, converged, cycles)."""
+        m = DIIS_SPACE
+        hist_f = torch.zeros((m, 2, n, n), dtype=dm.dtype, device=dm.device)
+        hist_e = torch.zeros_like(hist_f)
+        nfill = 0
+        ddm = float("inf")
+        conv = False
+        cycle = 0
+        while cycle < max_cycle and not conv:
+            xc = xc_f32 if xcfast and ddm > xc_switch_tol else xc_fn
+            if inc:
+                if cycle % rebase_every == 0:
+                    j, k = jk_fn(dm)
+                else:
+                    jd, kd = jk_fn_fast((dm - dm_ref).to(torch.float32))
+                    j = j_ref + jd.to(dm.dtype)
+                    k = k_ref + kd.to(dm.dtype)
+                dm_ref, j_ref, k_ref = dm, j, k
+            else:
+                j, k = jk_fn(dm)
+            f, _, e_cur = assemble_fock(dm, j, k, xc)
+            if rohf:
+                # the per-spin error of F_eff covers every coupling block:
+                # D_beta tests closed-open and closed-virtual, D_alpha
+                # open-virtual
+                f = roothaan_effective(f, dm, s)
+            fds = torch.einsum("sij,sjk,kl->sil", f, dm, s)
+            err = torch.einsum("pi,spq,qj->sij", x, fds - fds.transpose(-1, -2), x)
+            slot = cycle % m
+            hist_f[slot] = f
+            hist_e[slot] = err
+            nfill = min(nfill + 1, m)
+            f_use = f
+            if cycle > 0:
+                f_use = _diis_extrapolate(hist_f, hist_e, nfill)
+            if level_shift:
+                # F' = F + lambda (S - S D_s S) shifts only the virtual
+                # eigenvalues, damping occupied<->virtual oscillation
+                sds = torch.einsum("ij,sjk,kl->sil", s, dm, s)
+                f_use = f_use + level_shift * (s[None] - sds)
+            mo_e, c = eig_fock(f_use)
+            dm_new = make_rdm1(c, occ)
+            e_cur = float(e_cur)
+            de = abs(e_cur - e_prev)
+            ddm = float(torch.max(torch.linalg.matrix_norm(dm_new - dm)))
+            conv = de < conv_tol and ddm < dm_conv_tol
+            e_prev = e_cur
+            dm = dm_new
+            cycle += 1
+        return dm, e_prev, c, mo_e, conv, cycle
+
     dm = dm0.to(h_eff.dtype)
-    hist_f = torch.zeros((m, 2, n, n), dtype=dm.dtype, device=dm.device)
-    hist_e = torch.zeros_like(hist_f)
-    nfill = 0
-    e_prev = float("inf")
     c = torch.zeros((2, n, n), dtype=dm.dtype, device=dm.device)
     mo_e = torch.zeros((2, n), dtype=dm.dtype, device=dm.device)
-    conv = False
-    cycle = 0
-    while cycle < max_cycle and not conv:
-        f, _, e_cur = fock_and_energy(dm)
-        if rohf:
-            # the per-spin error of F_eff covers every coupling block:
-            # D_beta tests closed-open and closed-virtual, D_alpha
-            # open-virtual
-            f = roothaan_effective(f, dm, s)
-        fds = torch.einsum("sij,sjk,kl->sil", f, dm, s)
-        err = torch.einsum("pi,spq,qj->sij", x, fds - fds.transpose(-1, -2), x)
-        slot = cycle % m
-        hist_f[slot] = f
-        hist_e[slot] = err
-        nfill = min(nfill + 1, m)
-        f_use = f
-        if cycle > 0:
-            f_use = _diis_extrapolate(hist_f, hist_e, nfill)
-        if level_shift:
-            # F' = F + lambda (S - S D_s S) shifts only the virtual
-            # eigenvalues, damping occupied<->virtual oscillation
-            sds = torch.einsum("ij,sjk,kl->sil", s, dm, s)
-            f_use = f_use + level_shift * (s[None] - sds)
-        mo_e, c = eig_fock(f_use)
-        dm_new = make_rdm1(c, occ)
-        e_cur = float(e_cur)
-        de = abs(e_cur - e_prev)
-        ddm = float(torch.max(torch.linalg.matrix_norm(dm_new - dm)))
-        conv = de < conv_tol and ddm < dm_conv_tol
-        e_prev = e_cur
-        dm = dm_new
-        cycle += 1
+    inc = jk_fn_fast is not None
+    xcfast = xc_fn_fast is not None and xc_fn is not None
+    dm, e_prev, c, mo_e, conv, cycles = loop(dm, float("inf"), c, mo_e, inc, xcfast)
+    if inc or xcfast:
+        # full-precision polish: the mixed loop's fixed point carries its
+        # float32 contraction noise, and a few pure cycles from its density
+        # land on the float64 fixed point
+        dm, e_prev, c, mo_e, conv, more = loop(dm, e_prev, c, mo_e, False, False)
+        cycles += more
 
-    f_fin, huz_fin, e_fin = fock_and_energy(dm)
+    j, k = jk_fn(dm)
+    f_fin, huz_fin, e_fin = assemble_fock(dm, j, k)
     return SCFResult(
         mo_coeff=c, mo_energy=mo_e, mo_occ=occ, dm=dm, e_elec=float(e_fin),
-        converged=conv, fock=f_fin, huzinaga_op=huz_fin, n_iter=cycle,
+        converged=conv, fock=f_fin, huzinaga_op=huz_fin, n_iter=cycles,
     )

@@ -3,8 +3,10 @@
     python3 scripts/profile_port.py [NAME]    (default pfoa)
 
 NAME is a key of ``chip_smoke.CONFIGS``: water, acetonitrile, pfoa,
-water_qmmm, acetonitrile_camb3lyp or pfoa_wb97x. Runs that configuration
-once cold,
+water_qmmm, acetonitrile_camb3lyp, pfoa_wb97x, the float32 warm-up
+configurations water_mixed and acetonitrile_mixed, acetonitrile_taper (JW
+mapping and Z2 tapering) or water_vqe (embedded VQE and DFT-in-DFT). Runs
+that configuration once cold,
 then profiles a second ``nbed()`` call in the same process (SAD atoms and,
 with density fitting, the DF factor recomputed; kernels already built) and
 the global SCF alone at the built engine, each with
@@ -15,7 +17,8 @@ integrals on every core of the process's affinity mask and on one core, in
 the same process, and reports the seconds of each DF factor's build (the
 long-range one too, under range separation) with their share of the
 profiled call. Prints the card's name and power limit first, then one
-labelled JSON object per measurement.
+labelled JSON object per measurement; the profiled call's line carries
+its fused J/K launches by dtype (``fused_jk_f64``, ``fused_jk_f32``).
 """
 
 import json
@@ -68,12 +71,15 @@ def main():
     show("cold", {"wall_s": time.perf_counter() - t0, "stages_s": driver.timings})
 
     _atomic_density.cache_clear()
+    jk.LAUNCHES.clear()
     driver, summary = device_profile(lambda: nbed(**config, device="cuda"))
+    launches = dict(jk.LAUNCHES)
     ks = driver._ks_engine
     factor_s = {"df_build_s": ks.df_timings, "df_lr_build_s": ks.df_lr_timings}
     host_s = sum(t[k] for t in factor_s.values() for k in ("eri_3c", "eri_2c", "eigh")
                  if k in t)
     show("embed_profiled", {**summary, "stages_s": driver.timings, **factor_s,
+                            "fused_jk_launches": launches,
                             "df_factors_host_s": host_s,
                             "df_factors_host_share": host_s / summary["wall_s"]})
 

@@ -70,8 +70,7 @@ def test_invalid_values_raise(bad, water_xyz):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("run_dft_in_dft", True), ("run_vqe_emb", True), ("run_cis_emb", 2),
-    ("run_rpa_emb", 1), ("taper_qubits", True), ("warmup_f32", True),
+    ("run_cis_emb", 2), ("run_rpa_emb", 1),
     ("localization", "pm"),
     ("virtual_localization", "pao"),
 ])
@@ -80,6 +79,25 @@ def test_unported_features_raise_naming_roadmap(field, value, water_xyz):
                           xc_functional="b3lyp", **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cfg.require_ported()
+
+
+@pytest.mark.parametrize("field", ["run_cis_emb", "run_rpa_emb"])
+def test_cis_rpa_name_the_next_slice(field, water_xyz):
+    cfg = port.NbedConfig(geometry=water_xyz, n_active_atoms=1, basis="STO-3G",
+                          xc_functional="b3lyp", **{field: 1})
+    with pytest.raises(NotImplementedError, match="next slice.*one-electron"):
+        cfg.require_ported()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("run_dft_in_dft", True), ("run_vqe_emb", True), ("taper_qubits", True),
+    ("warmup_f32", True),
+])
+def test_ported_outputs_and_modes_are_accepted(field, value, water_xyz):
+    cfg = port.NbedConfig(geometry=water_xyz, n_active_atoms=1, basis="STO-3G",
+                          xc_functional="b3lyp", **{field: value})
+    cfg.require_ported()
+    assert getattr(cfg, field) == value
 
 
 @pytest.mark.parametrize("value", [True, False, None])

@@ -12,8 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from nbed_tpu.config import ProjectorTypes as RefProjector
+from nbed_tpu.ham import pauli_ground_state as ref_pauli_ground_state
+from nbed_tpu.ham.qubit import MAPPINGS as REF_MAPPINGS
+from nbed_tpu.ham.taper import taper_auto as ref_taper_auto
+from nbed_tpu.solvers.vqe import _encode_reference as ref_encode_reference
 from nbed_tpu_torch import NbedConfig, nbed
 from nbed_tpu_torch.driver import NbedDriver
+from nbed_tpu_torch.ham import MAPPINGS, pauli_ground_state
 from nbed_tpu_torch.profiling import device_profile
 
 # one torch thread per test process: under pytest-xdist the OpenMP threads
@@ -44,6 +50,16 @@ H\t-1.75\t0.9324\t0.4202
 """
 E_RHF_PRA = -130.51128805379804
 E_CCSD_PRA = -130.6684176145549
+# nbed_tpu's embedded VQE on the conftest water config (CCSD off, which
+# leaves the SCFs as they are), from
+#   JAX_PLATFORMS=cpu python -c "from nbed_tpu.driver import NbedDriver;
+#   from nbed_tpu.config import NbedConfig; d = NbedDriver(NbedConfig(
+#   geometry=open('tests/molecules/water.xyz').read(), n_active_atoms=1,
+#   basis='STO-3G', xc_functional='b3lyp', projector=P, localization='spade',
+#   convergence=1e-6, run_fci_emb=True, run_vqe_emb=True)); d.embed();
+#   print(getattr(d, P)['e_vqe'])"
+# with P = 'mu' and 'huzinaga'
+E_VQE = {"mu": -75.1285919012455, "huzinaga": -75.12859115945318}
 
 
 @pytest.fixture(scope="module")
@@ -59,6 +75,17 @@ def port_driver(nbed_config):
 def pair(request, port_driver):
     ref = request.getfixturevalue("mu_driver" if request.param == "mu" else "huz_driver")
     return getattr(port_driver, request.param), getattr(ref, request.param)
+
+
+@pytest.fixture(scope="module")
+def port_outputs(nbed_config):
+    """Both projectors with the quantum outputs and the DFT-in-DFT check."""
+    cfg = NbedConfig(**{**nbed_config.model_dump(mode="json"), "projector": "both",
+                        "run_dft_in_dft": True, "run_vqe_emb": True,
+                        "taper_qubits": True})
+    driver = NbedDriver(cfg, device="cpu")
+    driver.embed()
+    return driver
 
 
 @pytest.mark.parametrize("key", ["e_rhf", "e_ccsd", "e_fci", "classical_energy",
@@ -137,10 +164,96 @@ def test_device_profile_of_host_work():
     assert summary["device_idle_share"] == 1.0 and summary["top"] == []
 
 
+@pytest.mark.parametrize("projector", ["mu", "huzinaga"])
+def test_dft_in_dft_matches_nbed_tpu(port_outputs, mu_driver, huz_driver, projector):
+    """The identities of tests/test_driver.py:49-57, and nbed_tpu's values."""
+    ref_driver = mu_driver if projector == "mu" else huz_driver
+    theirs = ref_driver._dft_in_dft(RefProjector(projector))
+    ours = getattr(port_outputs, projector)
+    for key in ("e_dft_in_dft", "emb_dft", "dft_correction", "dft_correction_beta"):
+        assert abs(ours[key] - float(theirs[key])) < 1e-8, key
+    assert ours["scf_dft"].converged
+    e_ks = port_outputs._global_ks.e_tot
+    assert abs(ours["e_dft_in_dft"] - e_ks) < (5e-6 if projector == "mu" else 1e-8)
+
+
+def test_dft_in_dft_projectors_agree(port_outputs):
+    assert abs(port_outputs.mu["e_dft_in_dft"]
+               - port_outputs.huzinaga["e_dft_in_dft"]) < 5e-6
+
+
+@pytest.mark.parametrize("projector", ["mu", "huzinaga"])
+def test_tapered_register_matches_nbed_tpu(port_outputs, mu_driver, huz_driver,
+                                           projector):
+    """nbed_tpu's mapping and tapering of its own second-quantised output of
+    the same run: the same counts, symmetries and sector, sum |c|^2 and
+    identity coefficient, and the same tapered ground energy. The strings
+    themselves are not compared: the MO basis of each package is fixed only
+    up to signs and rotations among degenerate orbitals, which change which
+    strings a mapping gives and their coefficients."""
+    ref = getattr(mu_driver if projector == "mu" else huz_driver, projector)
+    psum = REF_MAPPINGS["jw"](*ref["second_quantised"])
+    occ = np.asarray(ref["scf"].mo_occ)
+    bits = sum(1 << (2 * int(p)) for p in np.nonzero(occ[0] > 0)[0]) + \
+        sum(1 << (2 * int(p) + 1) for p in np.nonzero(occ[1] > 0)[0])
+    tapered, syms, sector = ref_taper_auto(
+        psum, hf_bits=ref_encode_reference(bits, "jw", psum.n_qubits))
+    res = getattr(port_outputs, projector)
+    ours = res["tapered"]
+    assert (ours["n_qubits_raw"], ours["n_qubits"], ours["n_terms_raw"],
+            ours["n_terms"]) == (psum.n_qubits, tapered.n_qubits, len(psum),
+                                 len(tapered))
+    assert ours["n_qubits"] < ours["n_qubits_raw"]
+    assert [(s.x, s.z, s.qubit) for s in ours["symmetries"]] == \
+        [(s.x, s.z, s.qubit) for s in syms]
+    assert list(ours["sector"]) == list(sector)
+    # Tr(H^2)/2^n and Tr(H)/2^n of the tapered block: invariant under
+    # orbital rotations that commute with the symmetries
+    norm2 = sum(abs(c) ** 2 for c in ours["psum"].terms.values())
+    assert abs(norm2 - sum(abs(c) ** 2 for c in tapered.terms.values())) < 1e-8 * norm2
+    assert abs(ours["psum"].terms[(0, 0)] - tapered.terms[(0, 0)]) < 1e-8
+    raw = MAPPINGS["jw"](*res["second_quantised"])
+    e0 = pauli_ground_state(ours["psum"])[0]
+    assert abs(e0 - ref_pauli_ground_state(tapered)[0]) < 1e-7
+    assert abs(e0 - pauli_ground_state(raw)[0]) < 1e-9
+
+
+@pytest.mark.parametrize("projector", ["mu", "huzinaga"])
+def test_vqe_emb_within_bounds(port_outputs, projector):
+    """As tests/test_vqe.py:91-101: variational against the embedded FCI
+    and within UCCSD truncation of it, and nbed_tpu's e_vqe."""
+    res = getattr(port_outputs, projector)
+    assert res["vqe"].converged and res["vqe"].n_qubits == 10
+    assert res["e_vqe"] > res["e_fci"] - 1e-9
+    assert res["e_vqe"] - res["e_fci"] < 2e-4
+    assert abs(res["e_vqe"] - E_VQE[projector]) < 1e-6
+
+
+def test_vqe_emb_over_the_cap_warns_and_continues(caplog):
+    """The PRA register has 28 qubits, past the statevector cap of 24: the
+    driver logs a warning and keeps the other results (nbed_tpu/driver.py:
+    616-628)."""
+    with caplog.at_level("WARNING", logger="nbed_tpu_torch.driver"):
+        driver = nbed(geometry=ACETONITRILE, n_active_atoms=2, basis="STO-3G",
+                      xc_functional="b3lyp5", projector="huzinaga",
+                      run_vqe_emb=True, device="cpu")
+    assert "e_vqe" not in driver.huzinaga
+    assert abs(driver.huzinaga["e_rhf"] - E_RHF_PRA) < 1e-8
+    assert any("Skipping embedded VQE" in r.message and "24 qubits" in r.message
+               for r in caplog.records)
+
+
+@pytest.mark.parametrize("field", ["run_cis_emb", "run_rpa_emb"])
+def test_cis_rpa_raise_naming_next_slice(nbed_config, field):
+    cfg = NbedConfig(**{**nbed_config.model_dump(mode="json"), field: 2})
+    with pytest.raises(NotImplementedError, match=f"{field}.*next slice"):
+        NbedDriver(cfg, device="cpu")
+
+
 def test_unported_config_raises_before_running(nbed_config):
     cfg = NbedConfig(**nbed_config.model_dump(mode="json"))
-    cfg.run_dft_in_dft = True
-    with pytest.raises(NotImplementedError, match="run_dft_in_dft"):
+    cfg.run_cis_emb = 1
+    with pytest.raises(NotImplementedError, match="run_cis_emb"):
         NbedDriver(cfg, device="cpu")
 
 

@@ -48,9 +48,10 @@ def test_matches_numpy_f64():
 
 
 def test_cpu_tensors_take_plain_version_without_launch():
-    before = jk.LAUNCHES["fused_jk"]
-    jk.fused_jk(*(torch.tensor(a) for a in _problem(nao=3)))
-    assert jk.LAUNCHES["fused_jk"] == before
+    before = dict(jk.LAUNCHES)
+    for dtype in (torch.float64, torch.float32):
+        jk.fused_jk(*(torch.tensor(a, dtype=dtype) for a in _problem(nao=3)))
+    assert dict(jk.LAUNCHES) == before
 
 
 @pytest.mark.parametrize("case", ["shape", "device"])
@@ -71,10 +72,11 @@ def test_cuda_kernel_matches_plain(dtype, rtol, atol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     g_j, g_k, dm = (torch.tensor(a, dtype=dtype, device="cuda") for a in _problem())
-    before = jk.LAUNCHES["fused_jk"]
+    key = "fused_jk_f64" if dtype == torch.float64 else "fused_jk_f32"
+    before = jk.LAUNCHES[key]
     j, k = jk.fused_jk(g_j, g_k, dm)
     j_ref, k_ref = jk.fused_jk_reference(g_j, g_k, dm)
     torch.cuda.synchronize()
-    assert jk.LAUNCHES["fused_jk"] == before + 1
+    assert jk.LAUNCHES[key] == before + 1
     torch.testing.assert_close(j, j_ref, rtol=rtol, atol=atol)
     torch.testing.assert_close(k, k_ref, rtol=rtol, atol=atol)
