@@ -28,12 +28,25 @@ J/K on the factor already built.
 
     python3 chip_smoke.py
 
+The kernel phase holds the fused J/K kernel (``ops.jk.FusedJK``, as the
+engines prepare it) against its plain version at every case and dtype, on
+its own path and on each path forced (vector loads, bulk-copy ring,
+chunked densities), checks that two launches are bitwise equal and that
+a CUDA-graph replay equals the eager call, and times the kernel, the plain
+version and one library call (``torch.bmm``) three ways: ``ms``, CUDA
+events around one call (the card waits through the call's host work, so
+host issue plus device time); ``ms_stream``, events around 100
+back-to-back calls, per call; ``host_us``, the host clock over 1000
+enqueues (100 above M = 4096), synchronised after the clock stops. Beside
+them: the kernel's self device time (torch.profiler) and its bound.
+
 Every phase raises on failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the one before that lists each kernel (the fused J/K
 build's float64 and float32 entries) with its launches in the pipeline
-runs, its error against the plain version, its time beside the plain
+runs, its error against the plain version, its times beside the plain
 version's and one library call's, its self device time and its bound.
+The pipeline phases' launches are also printed by dtype and M.
 Exits non-zero, printing no result, where CUDA is unavailable.
 """
 
@@ -203,7 +216,9 @@ def card_line() -> str:
 
 
 def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median per-call time of ``fn`` on the card, with CUDA events."""
+    """Median time of one call of ``fn`` on CUDA events recorded just
+    before and after it: the card waits through the call's host work, so
+    this is issue time plus device time."""
     for _ in range(warmup):
         fn()
     times = []
@@ -218,16 +233,87 @@ def median_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def stream_ms(fn, n: int = 100, warmup: int = 3) -> float:
+    """Time per call of ``n`` calls enqueued back to back, on CUDA events
+    around the run: the device time per call where the host keeps ahead."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def host_us(fn, n: int = 1000, warmup: int = 3) -> float:
+    """Host microseconds per call of ``n`` enqueues (``perf_counter``,
+    synchronised after the clock stops): the issue cost while the device
+    keeps up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def device_us(fn, name: str, n: int = 20, tries: int = 3) -> float:
+    """Self device time per launch of the kernels whose name holds
+    ``name``, from torch.profiler over ``n`` calls. A profile whose trace
+    lost the device events (seen after many profiles in one process) is
+    taken again, up to ``tries`` times."""
+    from nbed_tpu_torch.profiling import device_profile
+
+    for _ in range(tries):
+        _, prof = device_profile(lambda: [fn() for _ in range(n)])
+        found = [ev[2] * 1e3 / ev[1] for ev in prof["top"] if name in ev[0]]
+        if found:
+            return found[0]
+    raise RuntimeError(f"torch.profiler recorded no device event named {name!r} "
+                       f"in {tries} profiles")
+
+
+def timings(fn, m: int) -> dict:
+    """``ms`` (single call), ``ms_stream`` and ``host_us`` of ``fn``; at
+    M > 4096 the enqueues are 100, since the device, not the host, bounds
+    them there."""
+    return {"ms": median_ms(fn), "ms_stream": stream_ms(fn),
+            "host_us": host_us(fn, 1000 if m <= 4096 else 100)}
+
+
+def random_case(label, nao, seed, dtypes):
+    """(label, g_j, g_k, dm, dtypes): seeded random supermatrices made on
+    the card (a torch.Generator: quick at M = nao^2 in the thousands) and
+    seeded symmetric densities."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    m = nao * nao
+    g_j, g_k = (torch.randn((m, m), generator=gen, dtype=torch.float64, device="cuda")
+                for _ in range(2))
+    dm = torch.randn((2, nao, nao), generator=gen, dtype=torch.float64, device="cuda")
+    return label, g_j, g_k, 0.5 * (dm + dm.transpose(-1, -2)), dtypes
+
+
 def jk_cases():
-    """(label, g_j, g_k, dm) in float64 on the card: the real ERI
+    """(label, g_j, g_k, dm, dtypes) in float64 on the card: the real ERI
     supermatrices of water and acetonitrile STO-3G, acetonitrile's
     CAM-B3LYP exchange operator 0.19 (ik|jl) + 0.46 (ik|jl)_LR(0.33), the
     methyl radical's (M = 64, the shape of its ROHF/ROKS launches), the
     supermatrices of pfoa's SAD atoms (C, F, O: M = 25; H: M = 1, the shapes
-    of pfoa's launches), and seeded random symmetric ones at nao = 64."""
+    of pfoa's launches), seeded random symmetric ones at nao = 64, random
+    ones at nao = 95 (M = 9025, odd: most rows misaligned; the largest
+    exact-ERI molecule the driver runs, DF from nao 96) and, in float64
+    only, at nao = 128 (M = 16384: the densities do not fit in shared
+    memory beside the ring, the chunked path)."""
     from nbed_tpu_torch.chem import build_molecule
     from nbed_tpu_torch.scf import SCFEngine
 
+    both = (torch.float64, torch.float32)
     rng = np.random.default_rng(11)
     cases = []
     atoms = tuple((f"pfoa SAD {el}", f"1\n\n{el} 0.0 0.0 0.0", 0) for el in "CFOH")
@@ -239,11 +325,11 @@ def jk_cases():
         dm = rng.standard_normal((2, n, n))
         dm = 0.5 * (dm + dm.swapaxes(-1, -2))
         cases.append((label, eng.eri_j, eng.eri_k,
-                      torch.tensor(dm, dtype=torch.float64, device="cuda")))
+                      torch.tensor(dm, dtype=torch.float64, device="cuda"), both))
         if label == "acetonitrile":
             cam = SCFEngine(eng.mol, xc="camb3lyp", device="cuda")
             cases.append(("acetonitrile camb3lyp folded K", cam.eri_j, cam.eri_k,
-                          cases[-1][3]))
+                          cases[-1][3], both))
     n = 64
     m = n * n
     g = rng.standard_normal((2, m, m))
@@ -252,7 +338,9 @@ def jk_cases():
     dm = 0.5 * (dm + dm.swapaxes(-1, -2))
     cases.append(("random nao=64",
                   torch.tensor(g[0], device="cuda"), torch.tensor(g[1], device="cuda"),
-                  torch.tensor(dm, device="cuda")))
+                  torch.tensor(dm, device="cuda"), both))
+    cases.append(random_case("random nao=95", 95, 95, both))
+    cases.append(random_case("random nao=128", 128, 128, (torch.float64,)))
     return cases
 
 
@@ -267,50 +355,90 @@ def jk_bound(m: int, dtype):
     return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def hold_jk(label, gj, gk, dm) -> float:
+    """The prepared kernel (its own path) and every path forced (vector,
+    ring, chunked in three or more column chunks) against the plain
+    version; two launches bitwise equal; one call captured in a CUDA graph
+    and replayed equal to the eager result. Raises on a miss; returns the
+    largest absolute error."""
+    from nbed_tpu_torch.ops.jk import FusedJK, fused_jk_reference
+
+    dtype = dm.dtype
+    rtol, atol = TOLERANCES[dtype]
+    j_ref, k_ref = fused_jk_reference(gj, gk, dm)
+    m = int(dm.shape[-1]) ** 2
+    prepared = FusedJK(gj, gk)
+    err = 0.0
+    for path in (None, "vector", "ring", "chunked"):
+        jk = prepared if path is None else FusedJK(gj, gk, path=path,
+                                                   chunk_cols=max(1, m // 3 + 1))
+        j, k = jk(dm)
+        torch.cuda.synchronize()
+        what = f"fused_jk {label} {dtype} path {jk.plan.path}"
+        if not (torch.isfinite(j).all() and torch.isfinite(k).all()):
+            raise RuntimeError(f"{what}: non-finite output")
+        e = max(float(torch.max(torch.abs(j - j_ref))), float(torch.max(torch.abs(k - k_ref))))
+        if not (torch.allclose(j, j_ref, rtol=rtol, atol=atol)
+                and torch.allclose(k, k_ref, rtol=rtol, atol=atol)):
+            raise RuntimeError(f"{what}: max abs err {e} exceeds rtol={rtol}, atol={atol}")
+        err = max(err, e)
+        j2, k2 = jk(dm)
+        if not (torch.equal(j, j2) and torch.equal(k, k2)):
+            raise RuntimeError(f"{what}: two launches differ")
+    j, k = prepared(dm)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        j_g, k_g = prepared(dm)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not (torch.equal(j_g, j) and torch.equal(k_g, k)):
+        raise RuntimeError(f"fused_jk {label} {dtype}: CUDA-graph replay differs from eager")
+    return err
+
+
+def library_call(gj, gk, dm):
+    """One PyTorch call for the same function, the yardstick: a batched
+    GEMM of [G_J, G_K] against [[D_a + D_b, 0], [D_a, D_b]]."""
+    m = int(dm.shape[-1]) ** 2
+    g2 = torch.stack([gj, gk])
+    rhs = torch.zeros((2, m, 2), dtype=dm.dtype, device="cuda")
+    rhs[0, :, 0] = (dm[0] + dm[1]).reshape(-1)
+    rhs[1] = dm.reshape(2, m).T
+    return lambda: torch.bmm(g2, rhs)
+
+
 def check_kernels() -> list:
-    """Kernel against plain version at every case and dtype, with the
-    library call's time and the kernel's self device time from
-    torch.profiler; returns rows."""
-    from nbed_tpu_torch.ops.jk import fused_jk, fused_jk_reference
-    from nbed_tpu_torch.profiling import device_profile
+    """Kernel against plain version at every case and dtype on every path
+    (:func:`hold_jk`), then the times of the prepared kernel (the engines'
+    call), the plain version and the library call (:func:`timings`), the
+    kernel's self device time from torch.profiler, and the bound; returns
+    rows."""
+    from nbed_tpu_torch.ops.jk import FusedJK, fused_jk_reference
 
     rows = []
-    for label, gj64, gk64, dm64 in jk_cases():
-        for dtype in (torch.float64, torch.float32):
+    for label, gj64, gk64, dm64, dtypes in jk_cases():
+        for dtype in dtypes:
             gj, gk, dm = (t.to(dtype).contiguous() for t in (gj64, gk64, dm64))
-            j, k = fused_jk(gj, gk, dm)
-            j_ref, k_ref = fused_jk_reference(gj, gk, dm)
-            torch.cuda.synchronize()
-            rtol, atol = TOLERANCES[dtype]
-            err = max(float(torch.max(torch.abs(j - j_ref))),
-                      float(torch.max(torch.abs(k - k_ref))))
-            if not (torch.isfinite(j).all() and torch.isfinite(k).all()):
-                raise RuntimeError(f"fused_jk {label} {dtype}: non-finite output")
-            if not (torch.allclose(j, j_ref, rtol=rtol, atol=atol)
-                    and torch.allclose(k, k_ref, rtol=rtol, atol=atol)):
-                raise RuntimeError(f"fused_jk {label} {dtype}: max abs err {err} "
-                                   f"exceeds rtol={rtol}, atol={atol}")
+            err = hold_jk(label, gj, gk, dm)
             m = int(dm.shape[-1]) ** 2
-            ms = median_ms(lambda: fused_jk(gj, gk, dm))
-            plain_ms = median_ms(lambda: fused_jk_reference(gj, gk, dm))
-            # one library call for the same function: a batched GEMM of
-            # [G_J, G_K] against [[D_a + D_b, 0], [D_a, D_b]]
-            g2 = torch.stack([gj, gk])
-            rhs = torch.zeros((2, m, 2), dtype=dtype, device="cuda")
-            rhs[0, :, 0] = (dm[0] + dm[1]).reshape(-1)
-            rhs[1] = dm.reshape(2, m).T
-            library_ms = median_ms(lambda: torch.bmm(g2, rhs))
-            del g2
-            _, prof = device_profile(lambda: [fused_jk(gj, gk, dm) for _ in range(20)])
-            kernel_us = next(ev[2] * 1e3 / ev[1] for ev in prof["top"]
-                             if "fused_jk_kernel" in ev[0])
-            row = {"case": label, "m": m,
-                   "dtype": str(dtype).removeprefix("torch."),
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "kernel_device_us": kernel_us,
+            prepared = FusedJK(gj, gk)
+            kernel = lambda: prepared(dm)  # noqa: E731
+            lib = library_call(gj, gk, dm)
+            row = {"case": label, "m": m, "dtype": str(dtype).removeprefix("torch."),
+                   "path": prepared.plan.path, "max_abs_err": err,
+                   **timings(kernel, m),
+                   **{f"plain_{k}": v for k, v in timings(
+                       lambda: fused_jk_reference(gj, gk, dm), m).items()},
+                   **{f"library_{k}": v for k, v in timings(lib, m).items()},
+                   "kernel_device_us": device_us(kernel, "fused_jk"),
                    **dict(zip(("bound_ms", "bound_by"), jk_bound(m, dtype)))}
+            row["share_of_bound"] = row["bound_ms"] * 1e3 / row["kernel_device_us"]
+            del lib
             print("fused_jk", json.dumps(row), flush=True)
             rows.append(row)
+        del gj64, gk64
     return rows
 
 
@@ -835,7 +963,12 @@ def main():
     # each pipeline is a cold run (its atoms' SAD SCFs included), with the
     # launch counts set to 0 just before it and read just after
     f64, keep = {}, {}
-    per_phase, peak_gb = {}, {}
+    per_phase, by_m, peak_gb = {}, {}, {}
+
+    def count(name):
+        per_phase[name] = dict(jk.LAUNCHES)
+        for (key, m), n in jk.LAUNCHES_BY_M.items():
+            by_m[f"{key} M={m}"] = by_m.get(f"{key} M={m}", 0) + n
 
     def remember(name, driver):
         if name in ("water", "acetonitrile"):
@@ -866,10 +999,11 @@ def main():
         _atomic_density.cache_clear()
         torch.cuda.reset_peak_memory_stats()
         jk.LAUNCHES.clear()
+        jk.LAUNCHES_BY_M.clear()
         t0 = time.perf_counter()
         driver = run()
         phase_s[name] = time.perf_counter() - t0
-        per_phase[name] = dict(jk.LAUNCHES)
+        count(name)
         peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
         missing = [k for k in needs if not jk.LAUNCHES[k]]
         if missing:
@@ -884,12 +1018,14 @@ def main():
 
     torch.cuda.reset_peak_memory_stats()
     jk.LAUNCHES.clear()
+    jk.LAUNCHES_BY_M.clear()
     t0 = time.perf_counter()
     run_pfoa_incremental(driver)
     phase_s["pfoa_incremental"] = time.perf_counter() - t0
-    per_phase["pfoa_incremental"] = dict(jk.LAUNCHES)
+    count("pfoa_incremental")
     peak_gb["pfoa_incremental"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"fused_jk launches: {json.dumps(per_phase)}", flush=True)
+    print(f"fused_jk launches by M: {json.dumps(by_m)}", flush=True)
     print("max_memory_allocated_gb", json.dumps(peak_gb), flush=True)
     print("phase_s", json.dumps(phase_s), flush=True)
 
@@ -909,8 +1045,9 @@ def main():
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
+            "ms_stream": main_row["ms_stream"], "host_us": main_row["host_us"],
             "kernel_device_us": main_row["kernel_device_us"],
-            "m": main_row["m"], "dtype": dtype,
+            "m": main_row["m"], "dtype": dtype, "path": main_row["path"],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

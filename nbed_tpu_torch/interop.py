@@ -8,7 +8,7 @@ this module imports neither JAX nor ``nbed_tpu``.
 import numpy as np
 import torch
 
-from ._device import DTYPE
+from ._device import DTYPE, resolve_device
 from .chem.molecule import Molecule, Shell
 from .scf.engine import SCFEngine, SCFSolution
 
@@ -53,6 +53,7 @@ def solution_from_reference(sol, device="cuda") -> SCFSolution:
     reference's DF factors (as (nao, naux, nao)), ``df_beta`` and
     ``max_memory_mb`` instead of the ERIs. The Fock matrix is rebuilt by
     the port (``get_fock``) from that state."""
+    device = resolve_device(device)
     ref = sol.engine
     density_fitting = bool(ref.density_fitting)
     rsh = ref._rsh is not None

@@ -5,7 +5,8 @@
 device (S, hcore, the ERI supermatrices or the density-fitting factor, grid
 AO tables); ``kernel`` is a call whose embedding potentials, electron
 counts and Huzinaga projectors are explicit arguments. Exact J/K products
-go through the fused J/K kernel (:func:`nbed_tpu_torch.ops.jk.fused_jk`);
+go through the fused J/K kernel, prepared once per engine and dtype
+(:func:`nbed_tpu_torch.ops.jk.prepare_jk`);
 density-fitted J/K (:func:`df_b_factor`, :func:`_df_k_spin`) are plain
 torch GEMMs, as they are XLA in the reference. :class:`SCFSolution` is the
 result the embedding driver edits (environment deletion, virtual
@@ -49,7 +50,7 @@ from ..dft.functionals import resolve_functional
 from ..dft.xc import make_xc_fn, make_xc_fn_streaming
 from ..grids import build_grid, eval_aos
 from ..integrals import native
-from ..ops.jk import fused_jk
+from ..ops.jk import prepare_jk
 from .hf import make_rdm1, run_scf
 
 logger = logging.getLogger(__name__)
@@ -360,13 +361,18 @@ class SCFEngine:
         hyb, and exact J/K through the fused kernel on float32 casts of the
         ERI supermatrices (``nbed_tpu/scf/engine.py:462-479``)."""
         f32 = torch.float32
-        gj = self.eri_j.to(f32).contiguous()
-        gk = self.eri_k.to(f32).contiguous()
+        jk = prepare_jk(self.eri_j.to(f32).contiguous(), self.eri_k.to(f32).contiguous())
         return {
             "hcore": self.hcore.to(f32), "s": self.s.to(f32),
-            "jk_fn": lambda dm: fused_jk(gj, gk, dm.contiguous()),
+            "jk_fn": lambda dm: jk(dm.contiguous()),
             "xc_fn": self._xc_f32, "hyb": self.hyb,
         }
+
+    @cached_property
+    def _jk_exact(self):
+        """Exact J/K on ``eri_j``/``eri_k``, prepared at first use (DF
+        engines never build it)."""
+        return prepare_jk(self.eri_j, self.eri_k)
 
     @cached_property
     def _jk_fast_fn(self):
@@ -418,7 +424,7 @@ class SCFEngine:
         hyb*K + beta*K_LR on both routes."""
         dm = _spinify(dm)
         if not self.density_fitting:
-            return fused_jk(self.eri_j, self.eri_k, dm.contiguous())
+            return self._jk_exact(dm.contiguous())
         return _df_j(self.df_factor(), dm[0] + dm[1]), self._df_k(dm)
 
     def _df_k(self, dm, b=None, b_lr=None):
