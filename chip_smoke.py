@@ -18,6 +18,14 @@ density the script also holds streaming XC against table XC and the
 chunked DF exchange against the unchunked one, and times DF J, DF K and
 both XC paths. Every energy is checked against the reference values.
 
+The one-electron slice follows: water/6-31G with the Pipek-Mezey, Boys
+and IBO localizers (both projectors, CCSD), the acetonitrile configuration
+with PAO virtuals in the Huzinaga projector, and the same configuration
+with embedded CIS and RPA, whose oscillator strengths, dipole moments,
+atomic charges and density cube are held against nbed_tpu's values. After
+the pfoa run, the torch overlap at 126 AOs is held against the engine's S,
+and pfoa's dipole moment against nbed_tpu's.
+
 The mixed-precision and quantum phases follow the pipelines they extend:
 water and acetonitrile again with the float32 warm-up (the fused kernel's
 float32 entry), acetonitrile's global UKS with incremental float32 J/K, the
@@ -167,6 +175,79 @@ IDENTITY_PRA = -93.25715345113377
 E_VQE_WATER = {"mu": -75.1285919012455, "huzinaga": -75.12859115945318}
 E_DFT_IN_DFT_WATER = {"mu": -75.30914551752402, "huzinaga": -75.3091448156704}
 
+# nbed_tpu's NbedDriver on CONFIGS["water631g_L"] for L in pm, boys, ibo,
+# from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python -c "import chip_smoke as c; from
+#   nbed_tpu import nbed; d = nbed(**c.CONFIGS['water631g_L']);
+#   print(d._global_ks.e_tot, [getattr(d, p)[k] for p in ('mu', 'huzinaga')
+#   for k in ('e_rhf', 'e_ccsd')])"
+E_UKS_WATER631G = -76.38420591309928
+E_WATER631G = {  # localizer: {projector: (e_rhf, e_ccsd)}
+    "pm": {"mu": (-76.15944887228069, -76.1987000545952),
+           "huzinaga": (-76.15944772527871, -76.19869891246921)},
+    "boys": {"mu": (-76.16755356561487, -76.20579593087302),
+             "huzinaga": (-76.16755216788815, -76.20579453868118)},
+    "ibo": {"mu": (-76.16462862376471, -76.20329136415131),
+            "huzinaga": (-76.16462776005412, -76.20329050543762)},
+}
+# nbed_tpu on CONFIGS["acetonitrile_pao"]: the command above with that
+# config, printing d.huzinaga["e_rhf"], d.huzinaga["e_ccsd"]
+E_RHF_PRA_PAO = -133.40757949914632
+E_CCSD_PRA_PAO = -127.9004327705286
+# nbed_tpu on CONFIGS["acetonitrile_cis"], from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python -c "import chip_smoke as c; from
+#   nbed_tpu import nbed, properties as p; d = nbed(**c.CONFIGS[
+#   'acetonitrile_cis']); r = d.huzinaga; print(r['cis'].excitations.tolist(),
+#   r['rpa'].excitations[:6].tolist(), c.cluster_sums(r['cis'].excitations,
+#   r['cis_oscillator_strengths']), c.cluster_sums(r['rpa'].excitations[:6],
+#   r['rpa_oscillator_strengths'])); [print(p.dipole_moment(s).tolist(),
+#   p.mulliken_charges(s).tolist(), p.lowdin_charges(s).tolist()) for s in
+#   (r['scf'], d._global_ks)]; print(float(p.density_cube(d._global_ks,
+#   '/dev/null', spacing=0.35).sum()) * 0.35**3)"
+# (one command: the lines joined)
+E_CIS_PRA = [0.2152992739991993, 0.26577931837945357, 0.26577933547968374,
+             0.3073175363454914, 0.3073180988631107, 0.3271368887167374]
+E_RPA_PRA = [0.07514606164579006, 0.21680433652567438, 0.21680436629538632,
+             0.2833849918647363, 0.2833853912827662, 0.3170896843653738]
+# [energy, summed oscillator strength] per cluster of roots (cluster_sums):
+# the six lowest roots are dark
+F_CIS_PRA = [[0.2152992739991993, 2.632600586497411e-29],
+             [0.26577931837945357, 2.6551937879691855e-29],
+             [0.26577933547968374, 4.4990924128764523e-29],
+             [0.3073175363454914, 1.0599441530749725e-29],
+             [0.3073180988631107, 1.671149156269217e-12],
+             [0.3271368887167374, 2.5617222419676226e-29]]
+F_RPA_PRA = [[0.07514606164579006, 3.6515014360826777e-28],
+             [0.21680433652567438, 9.889840793829341e-30],
+             [0.21680436629538632, 7.326542885366026e-29],
+             [0.2833849918647363, 7.624515986279457e-29],
+             [0.2833853912827662, 1.0027206276467503e-12],
+             [0.3170896843653738, 6.103852614185299e-29]]
+# dipole (Debye), Mulliken and Loewdin charges: "embedded" is the Huzinaga
+# solution after environment deletion and CL, "global" the global UKS
+PROPERTIES_PRA = {
+    "embedded": {
+        "dipole": [-62.272881173356026, 0.0004666711721373197, 0.000623019387627346],
+        "mulliken": [-0.16821733001111028, 0.07592780549468614, 5.0672395672257995,
+                     1.008347780229103, 1.0083520957024907, 1.0083500813590145],
+        "lowdin": [-0.10966163344503066, 0.06739475989900257, 5.049798533131342,
+                   0.9974891432625174, 0.9974896387839421, 0.997489558368203]},
+    "global": {
+        "dipole": [-3.0227649558984324, 5.002502786348586e-05, 2.519450453434011e-05],
+        "mulliken": [-0.1952544821272859, 0.08058930998814251, -0.2373746408668591,
+                     0.11734466816233613, 0.11735139395566241, 0.11734375088799442],
+        "lowdin": [-0.1268148678011638, 0.019080349294480214, -0.12042937957137223,
+                   0.0760547922210476, 0.0760554804170438, 0.07605362543995065]},
+}
+N_ELECTRONS_CUBE_PRA = 22.503403386951323
+# nbed_tpu's dipole moment (Debye) of the global UKS of CONFIGS["pfoa"], from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python -c "import chip_smoke as c; from
+#   nbed_tpu.driver import NbedDriver; from nbed_tpu.config import NbedConfig;
+#   from nbed_tpu.properties import dipole_moment; d = NbedDriver(NbedConfig(
+#   **c.CONFIGS['pfoa'])); print(dipole_moment(d._global_ks).tolist())"
+# (227 s on the development host's CPU)
+DIPOLE_PFOA = [1.3938749113882876, 0.43136280619959266, 0.6352633228290194]
+
 # the nbed() arguments of each pipeline phase (scripts/profile_port.py
 # profiles the same configurations)
 CONFIGS = {
@@ -197,6 +278,13 @@ CONFIGS["acetonitrile_taper"] = {**CONFIGS["acetonitrile"], "run_ccsd_emb": Fals
                                  "taper_qubits": True}
 CONFIGS["water_vqe"] = {**CONFIGS["water"], "run_ccsd_emb": False,
                         "run_vqe_emb": True, "run_dft_in_dft": True}
+# the reference's CL oracle system (water/6-31G) under each Jacobi localizer
+for _loc in ("pm", "boys", "ibo"):
+    CONFIGS[f"water631g_{_loc}"] = {**CONFIGS["water"], "basis": "6-31G",
+                                    "localization": _loc, "run_fci_emb": False}
+CONFIGS["acetonitrile_pao"] = {**CONFIGS["acetonitrile"], "virtual_localization": "pao"}
+CONFIGS["acetonitrile_cis"] = {**CONFIGS["acetonitrile"], "run_ccsd_emb": False,
+                               "run_cis_emb": 6, "run_rpa_emb": 6}
 
 # the fused kernel's least time: each supermatrix read once (2 M^2 words)
 # at the H100's 3.35 TB/s, or its 6 M^2 operations at 67 TFLOP/s (the
@@ -301,7 +389,8 @@ def random_case(label, nao, seed, dtypes):
 
 def jk_cases():
     """(label, g_j, g_k, dm, dtypes) in float64 on the card: the real ERI
-    supermatrices of water and acetonitrile STO-3G, acetonitrile's
+    supermatrices of water (STO-3G, and 6-31G: M = 169, the shape of the
+    localizer phases) and acetonitrile STO-3G, acetonitrile's
     CAM-B3LYP exchange operator 0.19 (ik|jl) + 0.46 (ik|jl)_LR(0.33), the
     methyl radical's (M = 64, the shape of its ROHF/ROKS launches), the
     supermatrices of pfoa's SAD atoms (C, F, O: M = 25; H: M = 1, the shapes
@@ -316,11 +405,14 @@ def jk_cases():
     both = (torch.float64, torch.float32)
     rng = np.random.default_rng(11)
     cases = []
-    atoms = tuple((f"pfoa SAD {el}", f"1\n\n{el} 0.0 0.0 0.0", 0) for el in "CFOH")
-    for label, xyz, spin in (("water", WATER.read_text(), 0),
-                             ("acetonitrile", ACETONITRILE, 0),
-                             ("methyl radical", METHYL.read_text(), 1), *atoms):
-        eng = SCFEngine(build_molecule(xyz, "sto-3g", spin=spin), device="cuda")
+    atoms = tuple((f"pfoa SAD {el}", f"1\n\n{el} 0.0 0.0 0.0", "sto-3g", 0)
+                  for el in "CFOH")
+    for label, xyz, basis, spin in (("water", WATER.read_text(), "sto-3g", 0),
+                                    ("water 6-31G", WATER.read_text(), "6-31g", 0),
+                                    ("acetonitrile", ACETONITRILE, "sto-3g", 0),
+                                    ("methyl radical", METHYL.read_text(), "sto-3g", 1),
+                                    *atoms):
+        eng = SCFEngine(build_molecule(xyz, basis, spin=spin), device="cuda")
         n = eng.mol.nao
         dm = rng.standard_normal((2, n, n))
         dm = 0.5 * (dm + dm.swapaxes(-1, -2))
@@ -450,6 +542,29 @@ def _gate(label, pairs, tol):
             raise RuntimeError(f"{label} {key} {ours} vs reference {ref} (tol {tol})")
 
 
+def cluster_sums(excitations, strengths, tol: float = 1e-8) -> list:
+    """[energy, summed oscillator strength] of each cluster of roots within
+    ``tol`` Ha of the one before: the strengths of degenerate roots depend
+    on the eigensolver's choice of basis in their subspace, their sum does
+    not."""
+    out = []
+    for w, f in zip(excitations, strengths):
+        if out and abs(w - out[-1][0]) < tol:
+            out[-1][1] += float(f)
+        else:
+            out.append([float(w), float(f)])
+    return out
+
+
+def one_electron_ms(mol) -> dict:
+    """Median ms of the torch overlap and dipole integrals of ``mol`` on the
+    card (CUDA events around one call)."""
+    from nbed_tpu_torch.integrals import dipole_integrals, overlap
+
+    return {"overlap_ms": median_ms(lambda: overlap(mol), reps=10),
+            "dipole_integrals_ms": median_ms(lambda: dipole_integrals(mol), reps=10)}
+
+
 def run_water():
     from nbed_tpu_torch import nbed
 
@@ -568,6 +683,127 @@ def run_acetonitrile():
     print("acetonitrile", json.dumps({
         "wall_s": wall, "qubits": qubits, "e_rhf": res["e_rhf"],
         "e_ccsd": res["e_ccsd"], "stages_s": driver.timings}), flush=True)
+    return driver
+
+
+def run_water631g_localizers():
+    """Water/6-31G with the Pipek-Mezey, Boys and IBO localizers, both
+    projectors with CCSD: the global UKS and each projector's e_rhf and
+    e_ccsd within 1e-6 Ha of nbed_tpu, and the localize stage's seconds."""
+    from nbed_tpu_torch import nbed
+
+    out, driver = {}, None
+    for loc, ref in E_WATER631G.items():
+        driver = None
+        t0 = time.perf_counter()
+        driver = nbed(**CONFIGS[f"water631g_{loc}"], device="cuda")
+        wall = time.perf_counter() - t0
+        gates = [("global UKS", driver._global_ks.e_tot, E_UKS_WATER631G)]
+        for name, (e_rhf, e_ccsd) in ref.items():
+            res = getattr(driver, name)
+            gates += [(f"{name} e_rhf", res["e_rhf"], e_rhf),
+                      (f"{name} e_ccsd", res["e_ccsd"], e_ccsd)]
+        _gate(f"water631g_{loc}", gates, 1e-6)
+        out[loc] = {"wall_s": wall, "localize_s": driver.timings["localize"],
+                    "active_mo_inds": driver.localized_system.active_mo_inds.tolist(),
+                    "dev_vs_nbed_tpu": {k: ours - theirs for k, ours, theirs in gates},
+                    "stages_s": driver.timings}
+    out["one_electron_nao13"] = one_electron_ms(driver._mol)
+    print("water631g_localizers", json.dumps(out), flush=True)
+    return driver
+
+
+def run_acetonitrile_pao():
+    """The PRA config with PAO virtuals in the Huzinaga projector: e_rhf and
+    e_ccsd within 1e-6 Ha of nbed_tpu."""
+    from nbed_tpu_torch import nbed
+
+    t0 = time.perf_counter()
+    driver = nbed(**CONFIGS["acetonitrile_pao"], device="cuda")
+    wall = time.perf_counter() - t0
+    res = driver.huzinaga
+    if driver.localized_system.c_loc_virt is None or "cl" in res:
+        raise RuntimeError("acetonitrile_pao did not take the PAO branch")
+    _gate("acetonitrile_pao", [("e_rhf", res["e_rhf"], E_RHF_PRA_PAO),
+                               ("e_ccsd", res["e_ccsd"], E_CCSD_PRA_PAO)], 1e-6)
+    print("acetonitrile_pao", json.dumps({
+        "wall_s": wall, "n_pao": driver.localized_system.c_loc_virt.shape[-1],
+        "e_rhf": res["e_rhf"], "e_ccsd": res["e_ccsd"],
+        "dev_vs_nbed_tpu": [res["e_rhf"] - E_RHF_PRA_PAO, res["e_ccsd"] - E_CCSD_PRA_PAO],
+        "stages_s": driver.timings}), flush=True)
+    return driver
+
+
+def _hold_clusters(label, ours, ref, tol):
+    if len(ours) != len(ref):
+        raise RuntimeError(f"{label}: {len(ours)} clusters of roots vs reference {len(ref)}")
+    _gate(label, [(f"cluster {i}", a[1], b[1]) for i, (a, b) in enumerate(zip(ours, ref))],
+          tol)
+
+
+def run_acetonitrile_cis():
+    """The PRA config with embedded CIS and RPA (six roots each): the
+    excitations within 1e-6 Ha of nbed_tpu, oscillator strengths summed over
+    each cluster of degenerate roots within 1e-5; dipole moments (1e-5 D)
+    and Mulliken/Loewdin charges (1e-6) of the embedded and the global
+    solution; the electron count of a density cube (spacing 0.35 Bohr) to
+    1e-8 relative. Then the seconds of CIS, RPA, the properties and the
+    one-electron integrals at nao 18."""
+    import tempfile
+
+    from nbed_tpu_torch import nbed, properties
+    from nbed_tpu_torch.driver import run_emb_cis, run_emb_rpa
+
+    t0 = time.perf_counter()
+    driver = nbed(**CONFIGS["acetonitrile_cis"], device="cuda")
+    wall = time.perf_counter() - t0
+    res = driver.huzinaga
+    cis, rpa = res["cis"], res["rpa"]
+    _gate("acetonitrile_cis", [(f"cis root {i}", w, r) for i, (w, r)
+                               in enumerate(zip(cis.excitations, E_CIS_PRA))]
+          + [(f"rpa root {i}", w, r) for i, (w, r)
+             in enumerate(zip(rpa.excitations[:6], E_RPA_PRA))], 1e-6)
+    if len(cis.excitations) != 6 or len(res["e_rpa"]) != 6:
+        raise RuntimeError("acetonitrile_cis: not six CIS and six RPA roots")
+    _hold_clusters("acetonitrile_cis CIS f", cluster_sums(
+        cis.excitations, res["cis_oscillator_strengths"]), F_CIS_PRA, 1e-5)
+    _hold_clusters("acetonitrile_cis RPA f", cluster_sums(
+        rpa.excitations[:6], res["rpa_oscillator_strengths"]), F_RPA_PRA, 1e-5)
+    out = {"wall_s": wall, "cis": cis.excitations.tolist(),
+           "rpa": rpa.excitations[:6].tolist(), "n_pairs": len(cis.pairs),
+           "rpa_n_imaginary": rpa.n_imaginary}
+    for name, sol in (("embedded", res["scf"]), ("global", driver._global_ks)):
+        ref = PROPERTIES_PRA[name]
+        dip = properties.dipole_moment(sol)
+        mull, low = properties.mulliken_charges(sol), properties.lowdin_charges(sol)
+        _gate(f"acetonitrile_cis {name} dipole (D)",
+              [(f"d{x}", a, b) for x, a, b in zip("xyz", dip, ref["dipole"])], 1e-5)
+        _gate(f"acetonitrile_cis {name} charges",
+              [(f"mulliken {i}", a, b) for i, (a, b) in enumerate(zip(mull, ref["mulliken"]))]
+              + [(f"lowdin {i}", a, b) for i, (a, b) in enumerate(zip(low, ref["lowdin"]))],
+              1e-6)
+        out[name] = {"dipole_debye": dip.tolist(), "mulliken": mull.tolist()}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        vals = properties.density_cube(driver._global_ks, Path(tmp) / "rho.cube", spacing=0.35)
+        out["density_cube_s"] = time.perf_counter() - t0
+    n_el = float(vals.sum()) * 0.35 ** 3
+    _gate("acetonitrile_cis density cube", [(
+        "electrons / reference", n_el / N_ELECTRONS_CUBE_PRA, 1.0)], 1e-8)
+    out.update(cube_shape=list(vals.shape), cube_electrons=n_el)
+
+    sol = res["scf"]
+    t0 = time.perf_counter()
+    run_emb_cis(sol, nroots=6)
+    torch.cuda.synchronize()
+    out["run_emb_cis_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_emb_rpa(sol)
+    torch.cuda.synchronize()
+    out["run_emb_rpa_s"] = time.perf_counter() - t0
+    out["one_electron_nao18"] = one_electron_ms(driver._mol)
+    out["stages_s"] = driver.timings
+    print("acetonitrile_cis", json.dumps(out), flush=True)
     return driver
 
 
@@ -894,6 +1130,26 @@ def run_vqe_20q(pra_scf, water_sq, water_nelec):
                                 "max_rel_diff": adj_err}}), flush=True)
 
 
+def check_pfoa_one_electron(driver):
+    """At 126 AOs: the torch overlap on the card against the engine's S (C++
+    engine) within 1e-12, the times of the torch one-electron integrals,
+    and the global UKS dipole moment within 1e-5 D of nbed_tpu's."""
+    from nbed_tpu_torch.integrals import overlap
+    from nbed_tpu_torch.properties import dipole_moment
+
+    mol = driver._mol
+    s_err = float(torch.max(torch.abs(overlap(mol) - driver._ks_engine.s)))
+    if not s_err <= 1e-12:
+        raise RuntimeError(f"pfoa torch overlap vs engine S: max abs {s_err}")
+    dip = dipole_moment(driver._global_ks)
+    _gate("pfoa dipole (D)", [(f"d{x}", a, b) for x, a, b in zip("xyz", dip, DIPOLE_PFOA)],
+          1e-5)
+    print("pfoa_one_electron", json.dumps({
+        "nao": mol.nao, "overlap_vs_engine_s": s_err, "dipole_debye": dip.tolist(),
+        "dipole_dev_vs_nbed_tpu": (dip - np.asarray(DIPOLE_PFOA)).tolist(),
+        **one_electron_ms(mol)}), flush=True)
+
+
 def run_pfoa_incremental(driver):
     """pfoa's global DF-UKS again with incremental float32 J/K, on the DF
     factor the driver built: within 1e-8 Ha of its float64 energy. A
@@ -989,6 +1245,9 @@ def main():
         ("acetonitrile_taper", run_acetonitrile_taper, F64),
         ("water_vqe", run_water_vqe, F64),
         ("vqe_20q", lambda: run_vqe_20q(keep.pop("pra_scf"), *keep.pop("water")), ()),
+        ("water631g_localizers", run_water631g_localizers, F64),
+        ("acetonitrile_pao", run_acetonitrile_pao, F64),
+        ("acetonitrile_cis", run_acetonitrile_cis, F64),
         ("water_functionals", run_water_functionals, F64),
         ("methyl_rohf", run_methyl_rohf, F64), ("water_qmmm", run_water_qmmm, F64),
         ("acetonitrile_camb3lyp", run_acetonitrile_camb3lyp, F64),
@@ -1015,6 +1274,12 @@ def main():
     check_pfoa_df_and_xc(driver)  # the pfoa driver, run last
     phase_s["pfoa_df_xc_check"] = time.perf_counter() - t0
     peak_gb["pfoa_df_xc_check"] = torch.cuda.max_memory_allocated() / 1e9
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    check_pfoa_one_electron(driver)
+    phase_s["pfoa_one_electron"] = time.perf_counter() - t0
+    peak_gb["pfoa_one_electron"] = torch.cuda.max_memory_allocated() / 1e9
 
     torch.cuda.reset_peak_memory_stats()
     jk.LAUNCHES.clear()

@@ -2,10 +2,11 @@
 stdlib dataclass with hand-written validation.
 
 Field names, defaults and enum values are those of the reference model, so
-the same JSON config files load here. Fields whose features are not ported
-yet are accepted and validated; :meth:`NbedConfig.require_ported`, which the
-driver calls before it runs anything, raises ``NotImplementedError`` for a
-non-default value, naming the ROADMAP item that will port it.
+the same JSON config files load here. Every field's features are ported.
+:meth:`NbedConfig.require_ported`, which the driver calls before it runs
+anything, is the hook for a field whose feature a slice has not ported yet:
+it raises ``NotImplementedError`` for a non-default value of a field listed
+in ``_NOT_PORTED``, naming the ROADMAP item that will port it.
 """
 
 import dataclasses
@@ -45,14 +46,9 @@ class VirtualLocalizerTypes(Enum):
 # the reference's XYZ pattern (nbed_tpu/config.py:51-53)
 _XYZ_RE = re.compile("^\\d+\n\\s?\n(?:\\w(?:\\s+\\-?\\d\\.\\d+){3}\n?)*")
 
-# non-default values of these fields need code the port does not have yet:
-# CIS/RPA report oscillator strengths, which need the torch one-electron
-# integrals (dipoles) of the next slice
-_ONE_ELECTRON_SLICE = ("ROADMAP queue 1 item 11, next slice: the torch one-electron "
-                       "integrals (dipole_integrals, overlap_cross) with item 10's "
-                       "localizers")
-_NOT_PORTED = {"run_cis_emb": _ONE_ELECTRON_SLICE, "run_rpa_emb": _ONE_ELECTRON_SLICE}
-_LOCALIZER_ITEM = "ROADMAP queue 1 item 10 (PM/Boys/IBO/PAO localizers)"
+# {field: ROADMAP item} of fields whose non-default values need code the
+# port does not have yet; empty since every field's feature is ported
+_NOT_PORTED: dict = {}
 
 
 def _coerce_geometry(value) -> str:
@@ -176,16 +172,6 @@ class NbedConfig:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported to nbed_tpu_torch yet: {item}."
                 )
-        if self.localization is not OccupiedLocalizerTypes.SPADE:
-            raise NotImplementedError(
-                f"localization={self.localization.value!r} is not ported to "
-                f"nbed_tpu_torch yet: {_LOCALIZER_ITEM}."
-            )
-        if self.virtual_localization is VirtualLocalizerTypes.PROJECTED_AO:
-            raise NotImplementedError(
-                "virtual_localization='pao' is not ported to nbed_tpu_torch "
-                f"yet: {_LOCALIZER_ITEM}."
-            )
 
     def as_dict(self) -> dict:
         """The fields as JSON-ready values (enum values, tuples as lists)."""

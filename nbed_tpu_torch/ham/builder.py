@@ -9,8 +9,9 @@ InteractionOperator convention:
 
 ``h1`` and ``h2`` are float64 tensors on the solution's device. With a
 density-fitted engine the MO two-body blocks come from the DF factor, with
-no O(nao^4) tensor. Not ported: frozen-orbital reduction (ROADMAP queue 1
-item 11).
+no O(nao^4) tensor. Not ported: the builder's ``n_frozen_core`` and
+``n_frozen_virt`` arguments (ROADMAP queue 1 item 11); the reductions they
+apply are ``solvers.frozen.freeze_spinorbitals`` and :func:`reduce_virtuals`.
 """
 
 import torch

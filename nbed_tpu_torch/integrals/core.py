@@ -1,0 +1,234 @@
+"""One-electron integrals in torch: overlap, cross-basis overlap, kinetic
+energy and dipoles (port of the one-electron part of
+``nbed_tpu/integrals/core.py`` without point charges).
+
+Shell pairs are grouped into (la, lb, Ka, Kb) classes on the host, as in
+the reference; each class is one batched McMurchie-Davidson computation
+over its whole pair list (the reference ``vmap``s one pair), contracted
+over primitives, turned spherical and accumulated into the AO matrix by
+the class's precomputed indices. Every function is pure torch arithmetic
+on the coordinates, so autograd passes through it.
+
+Not ported yet: ``nuclear_attraction`` and ``point_charge_attraction``,
+which need the Boys function and ``hermite_r`` (ROADMAP queue 1 item 12).
+V, with the MM charges, stays on the C++ engine (``integrals.native``).
+"""
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .._device import DTYPE, resolve_device
+from ..chem.molecule import Molecule, cartesian_components
+from .md import e_table_1d
+
+__all__ = ["overlap", "overlap_cross", "kinetic", "dipole_integrals"]
+
+
+# --------------------------------------------------------------------------
+# host-side class tables
+# --------------------------------------------------------------------------
+
+def _group_pairs(shells_a, shells_b, symmetric):
+    """{(la, lb, Ka, Kb): [(i, j), ...]}: shell pairs by class."""
+    groups = {}
+    for i, sa in enumerate(shells_a):
+        js = range(i, len(shells_b)) if symmetric else range(len(shells_b))
+        for j in js:
+            sb = shells_b[j]
+            key = (sa.l, sb.l, len(sa.exps), len(sb.exps))
+            groups.setdefault(key, []).append((i, j))
+    return groups
+
+
+class _PairTable:
+    """Arrays for one (la, lb, Ka, Kb) class of shell pairs."""
+
+    def __init__(self, key, pairs, shells_a, shells_b, nao_b):
+        la, lb, _, _ = key
+        self.la, self.lb = la, lb
+        sa = [shells_a[i] for i, _ in pairs]
+        sb = [shells_b[j] for _, j in pairs]
+        self.atom_a = np.array([s.atom for s in sa])
+        self.atom_b = np.array([s.atom for s in sb])
+        self.exps_a = np.array([s.exps for s in sa])
+        self.coefs_a = np.array([s.coeffs for s in sa])
+        self.exps_b = np.array([s.exps for s in sb])
+        self.coefs_b = np.array([s.coeffs for s in sb])
+        self.c2s_a = np.array([s.cart2sph for s in sa])  # (P, nca, nsa)
+        self.c2s_b = np.array([s.cart2sph for s in sb])
+        nsa, nsb = 2 * la + 1, 2 * lb + 1
+        offs_a = np.array([s.ao_offset for s in sa])
+        offs_b = np.array([s.ao_offset for s in sb])
+        rows = offs_a[:, None, None] + np.arange(nsa)[None, :, None]
+        cols = offs_b[:, None, None] + np.arange(nsb)[None, None, :]
+        rows = np.broadcast_to(rows, (len(pairs), nsa, nsb)).ravel()
+        cols = np.broadcast_to(cols, (len(pairs), nsa, nsb)).ravel()
+        # flat indices into the (nao_a, nao_b) matrix and its transpose
+        self.flat = rows * nao_b + cols
+        self.flat_mirror = cols * nao_b + rows
+        # mirror only blocks of distinct shells: a diagonal (i, i) shell
+        # block already holds both triangles
+        distinct = np.array([i != j for i, j in pairs], dtype=np.float64)
+        self.mirror_mask = np.repeat(distinct, nsa * nsb)
+
+
+@lru_cache(maxsize=128)
+def _pair_tables(mol_a: Molecule, mol_b: Molecule, symmetric: bool):
+    groups = _group_pairs(mol_a.shells, mol_b.shells, symmetric)
+    return [_PairTable(key, pairs, mol_a.shells, mol_b.shells, mol_b.nao)
+            for key, pairs in sorted(groups.items())]
+
+
+# --------------------------------------------------------------------------
+# per-class primitive integrals: ra, rb (P, 1, 1, 3); a (P, Ka, 1),
+# b (P, 1, Kb) -> (P, Ka, Kb, [3,] nca, ncb)
+# --------------------------------------------------------------------------
+
+def _comp_powers(l):
+    comps = cartesian_components(l)
+    return tuple(np.array([c[d] for c in comps]) for d in range(3))
+
+
+def _e_tables(la, lb, a, b, ab_vec, extra_b=0):
+    """E tables per cartesian direction, optionally extended in j."""
+    return [e_table_1d(la, lb + extra_b, a, b, ab_vec[..., d]) for d in range(3)]
+
+
+def _sel(table, ia, jb):
+    """table[..., ia, jb] over every component pair -> (..., nca, ncb)."""
+    return table[..., ia[:, None], jb[None, :]]
+
+
+def _overlap_prim(la, lb):
+    pa, pb = _comp_powers(la), _comp_powers(lb)
+
+    def f(ra, rb, a, b):
+        p = a + b
+        ex, ey, ez = _e_tables(la, lb, a, b, ra - rb)
+        pref = ((np.pi / p) ** 1.5)[..., None, None]
+        return (pref * _sel(ex[..., 0], pa[0], pb[0]) * _sel(ey[..., 0], pa[1], pb[1])
+                * _sel(ez[..., 0], pa[2], pb[2]))
+
+    return f
+
+
+def _kinetic_prim(la, lb):
+    pa, pb = _comp_powers(la), _comp_powers(lb)
+
+    def f(ra, rb, a, b):
+        p = a + b
+        sq = torch.sqrt(np.pi / p)[..., None, None]
+        s1 = [e[..., 0] * sq for e in _e_tables(la, lb, a, b, ra - rb, extra_b=2)]
+        bb = b[..., None, None]
+        j = torch.arange(lb + 1, dtype=a.dtype, device=a.device)
+        t1 = []
+        for s in s1:  # 1D overlaps (..., la+1, lb+3)
+            s_ij = s[..., : lb + 1]
+            s_ijp2 = s[..., 2: lb + 3]
+            # s_{i,j-2} with zero padding
+            s_ijm2 = torch.nn.functional.pad(s[..., : max(lb - 1, 0)], (2, 0))[..., : lb + 1]
+            t1.append(bb * (2 * j + 1) * s_ij - 2.0 * bb * bb * s_ijp2
+                      - 0.5 * (j * (j - 1)) * s_ijm2)
+        sx, sy, sz = (_sel(s1[d], pa[d], pb[d]) for d in range(3))
+        tx, ty, tz = (_sel(t1[d], pa[d], pb[d]) for d in range(3))
+        return tx * sy * sz + sx * ty * sz + sx * sy * tz
+
+    return f
+
+
+def _dipole_prim(la, lb):
+    pa, pb = _comp_powers(la), _comp_powers(lb)
+
+    def f(ra, rb, a, b):
+        """-> (..., 3, nca, ncb): x, y, z dipole blocks about the origin."""
+        p = a + b
+        sq = torch.sqrt(np.pi / p)[..., None, None]
+        s1 = [e[..., 0] * sq for e in _e_tables(la, lb, a, b, ra - rb, extra_b=1)]
+        out = []
+        for d in range(3):
+            # <i| x_d |j> = s_{i, j+1} + B_d s_{ij} along direction d
+            dip1 = s1[d][..., 1: lb + 2] + rb[..., d, None, None] * s1[d][..., : lb + 1]
+            mats = [_sel(dip1 if dim == d else s1[dim][..., : lb + 1], pa[dim], pb[dim])
+                    for dim in range(3)]
+            out.append(mats[0] * mats[1] * mats[2])
+        return torch.stack(out, dim=-3)
+
+    return f
+
+
+# --------------------------------------------------------------------------
+# assembly
+# --------------------------------------------------------------------------
+
+def _contract_pairs(table: _PairTable, coords_a, coords_b, prim_factory):
+    """One class: primitive integrals over the whole pair list, contracted
+    and made spherical -> (P, [3,] nsa, nsb)."""
+    dev = coords_a.device
+
+    def t(a):
+        return torch.as_tensor(a, dtype=DTYPE, device=dev)
+
+    ra = coords_a[torch.as_tensor(table.atom_a, device=dev)][:, None, None, :]
+    rb = coords_b[torch.as_tensor(table.atom_b, device=dev)][:, None, None, :]
+    fij = prim_factory(table.la, table.lb)(
+        ra, rb, t(table.exps_a)[:, :, None], t(table.exps_b)[:, None, :])
+    block = torch.einsum("pi,pj,pij...->p...", t(table.coefs_a), t(table.coefs_b), fij)
+    return torch.einsum("p...ab,pax,pby->p...xy", block, t(table.c2s_a), t(table.c2s_b))
+
+
+def _assemble(mol_a, mol_b, coords_a, coords_b, prim_factory, symmetric, n_ops=None):
+    """Accumulate every class into the (nao_a, nao_b) matrix, or the
+    (n_ops, nao_a, nao_b) stack, by index addition: several classes write
+    the same entries only through the mirror of the symmetric case, and
+    ``index_add`` sums repeated indices."""
+    dev = coords_a.device
+    shape = (mol_a.nao * mol_b.nao,) if n_ops is None else (n_ops, mol_a.nao * mol_b.nao)
+    out = torch.zeros(shape, dtype=DTYPE, device=dev)
+    for table in _pair_tables(mol_a, mol_b, symmetric):
+        blocks = _contract_pairs(table, coords_a, coords_b, prim_factory)
+        if n_ops is None:
+            vals = blocks.reshape(-1)
+        else:
+            vals = blocks.movedim(1, 0).reshape(n_ops, -1)
+        out = out.index_add(-1, torch.as_tensor(table.flat, device=dev), vals)
+        if symmetric:
+            mask = torch.as_tensor(table.mirror_mask, dtype=DTYPE, device=dev)
+            out = out.index_add(-1, torch.as_tensor(table.flat_mirror, device=dev),
+                                vals * mask)
+    return out.reshape(shape[:-1] + (mol_a.nao, mol_b.nao))
+
+
+def _coords(mol, coords, device):
+    return torch.as_tensor(mol.coords if coords is None else coords, dtype=DTYPE,
+                           device=device)
+
+
+def overlap(mol: Molecule, coords=None, device="cuda"):
+    """AO overlap matrix S (nao, nao) on ``device``; ``coords`` (Bohr)
+    defaults to the molecule's."""
+    c = _coords(mol, coords, resolve_device(device))
+    return _assemble(mol, mol, c, c, _overlap_prim, symmetric=True)
+
+
+def overlap_cross(mol_a: Molecule, mol_b: Molecule, coords_a=None, coords_b=None,
+                  device="cuda"):
+    """Cross-basis overlap <a|b> (nao_a, nao_b), used by IBO and by concentric
+    localization onto another basis."""
+    device = resolve_device(device)
+    return _assemble(mol_a, mol_b, _coords(mol_a, coords_a, device),
+                     _coords(mol_b, coords_b, device), _overlap_prim, symmetric=False)
+
+
+def kinetic(mol: Molecule, coords=None, device="cuda"):
+    """Kinetic-energy matrix T (nao, nao)."""
+    c = _coords(mol, coords, resolve_device(device))
+    return _assemble(mol, mol, c, c, _kinetic_prim, symmetric=True)
+
+
+def dipole_integrals(mol: Molecule, coords=None, device="cuda"):
+    """Dipole (position-operator) matrices about the origin, in Bohr:
+    (3, nao, nao)."""
+    c = _coords(mol, coords, resolve_device(device))
+    return _assemble(mol, mol, c, c, _dipole_prim, symmetric=True, n_ops=3)

@@ -1,9 +1,12 @@
-"""Orbital localization on the main path: SPADE (occupied) and concentric
-localization (virtual)."""
+"""Orbital localization: occupied (SPADE, Pipek-Mezey, Boys, IBO), virtual
+(concentric localization, PAO) and ACE-of-SPADE."""
 
-from .occupied import OccupiedLocalizer, SPADELocalizer, check_values
+from .ace import ACELocalizer
+from .occupied import (BOYSLocalizer, IBOLocalizer, OccupiedLocalizer, PMLocalizer,
+                       SPADELocalizer, check_values)
 from .system import LocalizedSystem
-from .virtual import ConcentricLocalizer
+from .virtual import ConcentricLocalizer, PAOLocalizer
 
-__all__ = ["LocalizedSystem", "OccupiedLocalizer", "SPADELocalizer",
-           "ConcentricLocalizer", "check_values"]
+__all__ = ["LocalizedSystem", "OccupiedLocalizer", "SPADELocalizer", "PMLocalizer",
+           "BOYSLocalizer", "IBOLocalizer", "ConcentricLocalizer", "PAOLocalizer",
+           "ACELocalizer", "check_values"]

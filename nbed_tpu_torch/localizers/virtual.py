@@ -1,18 +1,23 @@
-"""Virtual-orbital localization: concentric localization (port of
-``ConcentricLocalizer`` in ``nbed_tpu/localizers/virtual.py``).
+"""Virtual-orbital localization: concentric localization (CL) and projected
+atomic orbitals (PAO) (port of ``nbed_tpu/localizers/virtual.py``).
 
 CL (Claudino & Mayhall, JCTC 15, 6085 (2019)) truncates the embedded
-virtual space by repeated SVDs of overlap- and Fock-projected virtuals.
-The driver projects onto the working basis itself (``engine.s``). Not
-ported: a different ``projected_basis``, which needs cross-basis overlap
-integrals, and the PAO localizer (ROADMAP queue 1 item 10).
+virtual space by repeated SVDs of overlap- and Fock-projected virtuals,
+projecting onto the working basis (``engine.s``) or, with
+``projected_basis``, onto another basis at the same geometry through the
+torch cross-basis overlaps. PAO builds projected atomic orbitals for the
+Huzinaga path.
 """
 
 import logging
 
+import numpy as np
 import torch
 
-__all__ = ["ConcentricLocalizer"]
+from ..chem.molecule import build_molecule
+from ..integrals.core import overlap, overlap_cross
+
+__all__ = ["ConcentricLocalizer", "PAOLocalizer"]
 
 logger = logging.getLogger(__name__)
 
@@ -27,11 +32,6 @@ class ConcentricLocalizer:
 
     def __init__(self, embedded_scf, n_active_atoms: int, max_shells: int = 4,
                  projected_basis: str | None = None):
-        if projected_basis is not None and \
-                projected_basis.lower() != embedded_scf.mol.basis.lower():
-            raise NotImplementedError(
-                "a projected_basis other than the working basis is not ported "
-                "yet: ROADMAP queue 1 item 10 (cross-basis overlaps for CL).")
         self._n_active_atoms = n_active_atoms
         self.embedded_scf = embedded_scf
         self.max_shells = max_shells
@@ -45,10 +45,24 @@ class ConcentricLocalizer:
     def localize_virtual(self):
         """Localize virtuals; returns the modified embedded SCF solution."""
         scf = self.embedded_scf
-        s = scf.engine.s
-        n_act = int(scf.mol.aoslice_by_atom()[self._n_active_atoms - 1][-1])
-        self.projected_overlap = s[:n_act, :n_act]
-        self.overlap_two_basis = s[:n_act, :]
+        mol = scf.mol
+        if self.projected_basis is None or self.projected_basis.lower() == mol.basis.lower():
+            proj_mol, s_proj = mol, scf.engine.s
+            s_cross = s_proj
+        else:
+            # the reference's geometry text (Bohr x 0.52917721092, :.12f)
+            coords = np.asarray(scf.engine.coords)
+            xyz_lines = [f"{mol.natm}", ""]
+            for sym, xyz in zip(mol.symbols, coords * 0.52917721092):
+                xyz_lines.append(f"{sym} {xyz[0]:.12f} {xyz[1]:.12f} {xyz[2]:.12f}")
+            proj_mol = build_molecule("\n".join(xyz_lines) + "\n", self.projected_basis,
+                                      charge=mol.charge, spin=mol.spin)
+            device = scf.engine.device
+            s_proj = overlap(proj_mol, device=device)
+            s_cross = overlap_cross(proj_mol, mol, proj_mol.coords, coords, device=device)
+        n_act = int(proj_mol.aoslice_by_atom()[self._n_active_atoms - 1][-1])
+        self.projected_overlap = s_proj[:n_act, :n_act]
+        self.overlap_two_basis = s_cross[:n_act, :]
         self.n_act_proj_aos = n_act
 
         mo_coeff, mo_occ = scf.mo_coeff, scf.mo_occ
@@ -125,3 +139,46 @@ class ConcentricLocalizer:
                 else:
                     break
         return c_total, shells, singular_values, c_rem
+
+
+class PAOLocalizer:
+    """Projected atomic orbitals for the embedded virtual space (reference
+    virtual.py:175-199; Huzinaga path only)."""
+
+    def __init__(self, global_scf, n_active_atoms: int, c_loc_occ,
+                 norm_cutoff: float = 0.05, overlap_cutoff: float = 1e-5):
+        self._n_active_atoms = n_active_atoms
+        self.global_scf = global_scf
+        self.norm_cutoff = norm_cutoff
+        self.overlap_cutoff = overlap_cutoff
+        self.c_loc_occ = c_loc_occ
+
+    def localize_virtual(self) -> torch.Tensor:
+        """(2, nao, n_pao) PAO coefficients, one block per spin."""
+        mol = self.global_scf.mol
+        n_act_aos = int(mol.aoslice_by_atom()[self._n_active_atoms - 1][-1])
+        s = self.global_scf.engine.s
+        return torch.stack([_pao_spin(self.c_loc_occ[spin], s, n_act_aos, self.norm_cutoff,
+                                      self.overlap_cutoff) for spin in (0, 1)])
+
+
+def _pao_spin(c_loc_occ, ao_overlap, n_act_aos, norm_cutoff, overlap_cutoff):
+    """PAOs for one spin: projector, norm truncation, renormalisation, and
+    the overlap-eigenvalue cut (reference virtual.py:202-218)."""
+    eye = torch.eye(ao_overlap.shape[-1], dtype=ao_overlap.dtype, device=ao_overlap.device)
+    projector = eye - c_loc_occ @ c_loc_occ.T @ ao_overlap
+    norms = torch.einsum("ji,ji->i", projector[:n_act_aos],
+                         (ao_overlap @ projector)[:n_act_aos])
+    truncated = projector[:, torch.abs(norms) > norm_cutoff]
+    if truncated.shape[-1] == 0:
+        logger.warning("No projected atomic orbitals above the norm cutoff.")
+        return truncated
+    renorm = truncated / torch.sqrt(torch.einsum("ij,ij->j", truncated, truncated))
+    eigvals = torch.linalg.eigvalsh(renorm.T @ ao_overlap @ renorm)
+    # the reference keeps the columns at the positions of the eigenvalues
+    # above the cut, in ascending eigenvalue order
+    final = renorm[:, torch.abs(eigvals) > overlap_cutoff]
+    if final.shape[-1] == 0:
+        logger.warning("No projected atomic orbitals; active region may have "
+                       "no virtual AOs.")
+    return final

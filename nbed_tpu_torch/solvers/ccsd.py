@@ -5,8 +5,8 @@ The amplitude equations run as torch einsums on the integrals' device; the
 reference's on-device ``lax.while_loop`` becomes a Python loop with the
 same Pulay-DIIS ring buffer and a host convergence test each cycle.
 
-Not ported: the ``"f32"``/``"mixed"`` precision modes (TPU defaults, ROADMAP
-queue 1 item 9) and the perturbative (T) correction (item 11).
+Not ported: the perturbative (T) correction (ROADMAP queue 1 item 11,
+CCSD(T)) and the ``"f32"``/``"mixed"`` precision modes (TPU defaults, item 9).
 """
 
 import logging

@@ -75,18 +75,27 @@ def test_invalid_values_raise(bad, water_xyz):
     ("virtual_localization", "pao"),
 ])
 def test_unported_features_raise_naming_roadmap(field, value, water_xyz):
+    """These values raised until the one-electron slice ported their code;
+    now they pass require_ported and validate as in nbed_tpu."""
     cfg = port.NbedConfig(geometry=water_xyz, n_active_atoms=1, basis="STO-3G",
                           xc_functional="b3lyp", **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.require_ported()
+    cfg.require_ported()
+    assert _default(getattr(cfg, field)) == value
+    assert cfg.as_dict() == ref.NbedConfig(**cfg.as_dict()).model_dump(mode="json")
 
 
 @pytest.mark.parametrize("field", ["run_cis_emb", "run_rpa_emb"])
 def test_cis_rpa_name_the_next_slice(field, water_xyz):
-    cfg = port.NbedConfig(geometry=water_xyz, n_active_atoms=1, basis="STO-3G",
-                          xc_functional="b3lyp", **{field: 1})
-    with pytest.raises(NotImplementedError, match="next slice.*one-electron"):
-        cfg.require_ported()
+    """CIS/RPA, once left to the next slice, are ported: no field is listed
+    as unported, and a negative root count is invalid in both packages."""
+    assert port._NOT_PORTED == {}
+    kwargs = dict(geometry=water_xyz, n_active_atoms=1, basis="STO-3G",
+                  xc_functional="b3lyp")
+    port.NbedConfig(**kwargs, **{field: 1}).require_ported()
+    with pytest.raises(ValueError):
+        port.NbedConfig(**kwargs, **{field: -1})
+    with pytest.raises(Exception):
+        ref.NbedConfig(**kwargs, **{field: -1})
 
 
 @pytest.mark.parametrize("field,value", [

@@ -12,6 +12,7 @@ from nbed_tpu_torch import interop, nbed
 from nbed_tpu_torch.chem import build_molecule
 from nbed_tpu_torch.driver import NbedDriver
 from nbed_tpu_torch.grids import build_grid
+from nbed_tpu_torch.integrals import dipole_integrals, kinetic, overlap, overlap_cross
 from nbed_tpu_torch.scf import SCFEngine
 from nbed_tpu_torch.scf.engine import df_b_factor
 from nbed_tpu_torch.solvers import vqe
@@ -42,6 +43,10 @@ ENTRY_POINTS = {
     "vqe_statevector": (vqe.vqe_statevector, lambda: vqe.vqe_statevector(*_sq())),
     "solution_from_reference": (interop.solution_from_reference,
                                 lambda: interop.solution_from_reference(None)),
+    "overlap": (overlap, lambda: overlap(_h2())),
+    "overlap_cross": (overlap_cross, lambda: overlap_cross(_h2(), _h2())),
+    "kinetic": (kinetic, lambda: kinetic(_h2())),
+    "dipole_integrals": (dipole_integrals, lambda: dipole_integrals(_h2())),
 }
 
 

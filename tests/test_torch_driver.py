@@ -243,23 +243,60 @@ def test_vqe_emb_over_the_cap_warns_and_continues(caplog):
                for r in caplog.records)
 
 
+def _excited_nbed_tpu(mu_driver, field, nroots):
+    """What nbed_tpu's driver reports for ``field=nroots`` on the conftest mu
+    config: its embedded solvers on its own embedded solution."""
+    from nbed_tpu.driver import run_emb_cis, run_emb_rpa
+    from nbed_tpu.solvers.cis import oscillator_strengths
+
+    res = mu_driver.mu
+    if field == "run_cis_emb":
+        cis = run_emb_cis(res["scf"], nroots=nroots)
+        return {"e_cis": res["e_rhf"] + cis.excitations,
+                "cis_oscillator_strengths": oscillator_strengths(res["scf"], cis)[0]}
+    rpa = run_emb_rpa(res["scf"])
+    return {"e_rpa": res["e_rhf"] + rpa.excitations[:nroots],
+            "rpa_oscillator_strengths": oscillator_strengths(res["scf"], rpa)[0][:nroots]}
+
+
+def _assert_excited_match(ours: dict, theirs: dict):
+    for key, value in theirs.items():
+        assert np.asarray(ours[key]).shape == value.shape, key
+        # energies to 1e-8 Ha, strengths to 1e-9 (non-degenerate roots)
+        np.testing.assert_allclose(ours[key], value, rtol=0,
+                                   atol=1e-8 if key.startswith("e_") else 1e-9)
+
+
 @pytest.mark.parametrize("field", ["run_cis_emb", "run_rpa_emb"])
-def test_cis_rpa_raise_naming_next_slice(nbed_config, field):
+def test_cis_rpa_raise_naming_next_slice(nbed_config, mu_driver, field):
+    """CIS/RPA raised until the one-electron slice; now the driver runs them
+    and reports nbed_tpu's excitations and oscillator strengths."""
     cfg = NbedConfig(**{**nbed_config.model_dump(mode="json"), field: 2})
-    with pytest.raises(NotImplementedError, match=f"{field}.*next slice"):
-        NbedDriver(cfg, device="cpu")
+    driver = NbedDriver(cfg, device="cpu")
+    driver.embed()
+    key = "cis" if field == "run_cis_emb" else "rpa"
+    assert key in driver.mu and f"e_{key}" in driver.mu
+    _assert_excited_match(driver.mu, _excited_nbed_tpu(mu_driver, field, 2))
 
 
-def test_unported_config_raises_before_running(nbed_config):
+def test_unported_config_raises_before_running(nbed_config, mu_driver):
+    """A config edited after validation (run_cis_emb = 1) used to raise in
+    the driver's constructor; it now runs, with nbed_tpu's values."""
     cfg = NbedConfig(**nbed_config.model_dump(mode="json"))
     cfg.run_cis_emb = 1
-    with pytest.raises(NotImplementedError, match="run_cis_emb"):
-        NbedDriver(cfg, device="cpu")
+    driver = NbedDriver(cfg, device="cpu")
+    driver.embed()
+    assert driver.mu["cis"].excitations.shape == (1,)
+    _assert_excited_match(driver.mu, _excited_nbed_tpu(mu_driver, "run_cis_emb", 1))
 
 
 def test_slice_imports_neither_jax_nor_pydantic():
+    # one torch thread in the child too, as in every test process: beside
+    # the other xdist workers its OpenMP threads would spin on busy cores
     script = textwrap.dedent(f"""
         import sys
+        import torch
+        torch.set_num_threads(1)
         sys.path.insert(0, {str(REPO)!r})
         from nbed_tpu_torch import nbed
         d = nbed(geometry={str(REPO / "tests/molecules/water.xyz")!r},

@@ -87,9 +87,21 @@ def test_cl_shell_oracle(uks631g):
 
 
 def test_cl_other_projected_basis_raises(water_uks):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ConcentricLocalizer(solution_from_reference(water_uks, "cpu"), 1,
-                            projected_basis="6-31g")
+    """A projected basis other than the working one raised until the torch
+    cross-basis overlaps were ported; now CL onto 6-31G runs and gives
+    nbed_tpu's shells and spans."""
+    theirs = RefCL(water_uks.copy(), 1, projected_basis="6-31g")
+    c_ref = np.asarray(theirs.localize_virtual().mo_coeff)
+    ours = ConcentricLocalizer(solution_from_reference(water_uks, "cpu"), 1,
+                               projected_basis="6-31g")
+    c = ours.localize_virtual().mo_coeff
+    assert ours.shells == tuple(theirs.shells) and tuple(c.shape) == c_ref.shape
+    assert ours.n_act_proj_aos == theirs.n_act_proj_aos
+    for spin in (0, 1):
+        bounds = [0] + list(ours.shells[spin])
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            np.testing.assert_allclose(_projector(c[spin][:, lo:hi]).numpy(),
+                                       _projector(c_ref[spin][:, lo:hi]), atol=1e-8)
 
 
 def test_interop_carries_solution(water_uks):
