@@ -34,6 +34,18 @@ and DFT-in-DFT check, one value-and-gradient of the VQE objective on a
 20-qubit acetonitrile register, and pfoa's DF-UKS with incremental float32
 J/K on the factor already built.
 
+The post-SCF slice follows: water's global CCSD, CCSD(T) and FCI beside
+restricted HF/B3LYP and a frozen-core builder; the acetonitrile molecule's
+TDA (dense and Davidson, and a Davidson under a 300-MB budget that its
+device memory must keep) and RPA TDDFT, huzinaga_scf restricted and
+unrestricted on the driver's embedding potential, and the stability
+spectrum of its Huzinaga embedded solution; stretched H2's broken-symmetry
+instability followed downhill by stable_scf; QSE on water's VQE register
+against CIS and FCI; and, on the pfoa driver, CCSD(T) in every precision
+mode, the DF TDA of the embedded solution against CIS, a Davidson TDDFT of
+the global UKS, the f_xc jvp against finite differences and a checkpoint
+round trip with a warm restart.
+
     python3 chip_smoke.py
 
 The kernel phase holds the fused J/K kernel (``ops.jk.FusedJK``, as the
@@ -248,6 +260,61 @@ N_ELECTRONS_CUBE_PRA = 22.503403386951323
 # (227 s on the development host's CPU)
 DIPOLE_PFOA = [1.3938749113882876, 0.43136280619959266, 0.6352633228290194]
 
+# The post-SCF slice. The reference's oracles of water's global CCSD and FCI
+# (tests/test_solvers.py:28-38), and nbed_tpu on CONFIGS["water_global"] and
+# on acetonitrile, from one command (the lines joined):
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python -c "import chip_smoke as c; from
+#   nbed_tpu import nbed; from nbed_tpu.chem import build_molecule; from
+#   nbed_tpu.config import NbedConfig; from nbed_tpu.driver import NbedDriver;
+#   from nbed_tpu.ham import HamiltonianBuilder as B; from nbed_tpu.scf import
+#   huzinaga_scf; from nbed_tpu.scf.engine import SCFEngine; from
+#   nbed_tpu.solvers import run_ccsd, run_fci, run_stability, run_tddft_rpa,
+#   run_tddft_tda; d = NbedDriver(NbedConfig(**c.CONFIGS['water_global']));
+#   hf = d._global_hf; _, h1, h2 = B(hf, 0.0).build(); print(run_ccsd(h1, h2,
+#   d._interleaved_occ(hf), conv_tol=1e-10, triples=True)); k, h1, h2 = B(hf,
+#   0.0, n_frozen_core=1, n_frozen_virt=1).build(); print(run_fci(k, h1, h2,
+#   h1.shape[0], (4, 4))[0][0] + hf.energy_nuc()); mol = build_molecule(
+#   c.ACETONITRILE, 'sto-3g'); s = SCFEngine(mol, xc='b3lyp5',
+#   **c.TIGHT_SCF).kernel(); print(s.e_tot, run_tddft_tda(s, nroots=6,
+#   method='dense').excitations, run_tddft_rpa(s, nroots=6).excitations); d =
+#   nbed(**c.CONFIGS['acetonitrile_post']); v = d.embedding_potential; e =
+#   d.localized_system.dm_enviro; na = len(d.localized_system.active_mo_inds[
+#   0]); print(huzinaga_scf(SCFEngine(mol, restricted=True, **c.HUZ_SCF),
+#   v[0], e[0] + e[1], nelec=(na, na))[1]); s = d.huzinaga['scf']; _, h1, h2 =
+#   B(s, 0.0).build(); print(run_stability(h1, h2,
+#   d._interleaved_occ(s)).eigenvalues)"
+# (190 s on the development host's CPU)
+E_CCSD_GLOBAL_WATER = -75.0090124134578
+E_FCI_GLOBAL_WATER = -75.00912605315143
+E_T_WATER = -6.707912854585658e-05
+E_FCI_FROZEN_WATER = -74.97517427879919  # n_frozen_core=1, n_frozen_virt=1
+TIGHT_SCF = dict(conv_tol=1e-10, dm_conv_tol=1e-8, max_cycle=100)
+HUZ_SCF = dict(conv_tol=1e-10, dm_conv_tol=1e-8, max_cycle=200)
+E_UKS_PRA_TIGHT = -130.98422067199579
+E_TDA_PRA = [0.2571817023680199, 0.28597342599253944, 0.28597346094944326,
+             0.298341582427509, 0.29834391721616615, 0.3286496317316542]
+E_RPA_TDDFT_PRA = [0.23706672137321372, 0.2781701075763361, 0.27817015312900495,
+                   0.2957509474091435, 0.2957533085486132, 0.32783573433483887]
+MO_ENERGY_HUZ_PRA = [
+    -15.346061882484072, -11.064014454583953, -1.156841645188095, -0.7609167984739847,
+    -0.4700758272600682, -0.41887125809577913, -0.4188712134749228, 0.16553480249352165,
+    0.16570479888423228, 0.35821090541485245, 0.35905603251177765, 0.35906504274380396,
+    0.5707458518153601, 0.7425283369793041, 0.7752939126571655, 0.7753723871633147,
+    1.3278085248081246, 6.8828942577196495]
+STABILITY_PRA = [0.013627140527957458, 0.11220410451635107, 0.11220413480994564,
+                 0.2503396663495806]
+# nbed_tpu's (T) of the mu-embedded pfoa space (78 spin orbitals, 26
+# occupied), from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python -c "import chip_smoke as c; from
+#   nbed_tpu import nbed; from nbed_tpu.ham import HamiltonianBuilder; from
+#   nbed_tpu.solvers import run_ccsd; d = nbed(**c.CONFIGS['pfoa']); s =
+#   d.mu['scf']; _, h1, h2 = HamiltonianBuilder(s, 0.0).build();
+#   print(run_ccsd(h1, h2, d._interleaved_occ(s), conv_tol=1e-8,
+#   triples=True))"
+# (the embedding 524 s, the CCSD(T) 55 s on the development host's CPU)
+E_T_PFOA = -0.00016767979109900255
+E_CORR_PFOA = -0.01312410752243741
+
 # the nbed() arguments of each pipeline phase (scripts/profile_port.py
 # profiles the same configurations)
 CONFIGS = {
@@ -285,6 +352,10 @@ for _loc in ("pm", "boys", "ibo"):
 CONFIGS["acetonitrile_pao"] = {**CONFIGS["acetonitrile"], "virtual_localization": "pao"}
 CONFIGS["acetonitrile_cis"] = {**CONFIGS["acetonitrile"], "run_ccsd_emb": False,
                                "run_cis_emb": 6, "run_rpa_emb": 6}
+# the global diagnostics at a convergence that holds the HF orbitals to the
+# oracles' 1e-7 (at the config's 1e-6 the global CCSD is 1.3e-7 off)
+CONFIGS["water_global"] = {**CONFIGS["water"], "convergence": 1e-10}
+CONFIGS["acetonitrile_post"] = {**CONFIGS["acetonitrile"], "run_ccsd_emb": False}
 
 # the fused kernel's least time: each supermatrix read once (2 M^2 words)
 # at the H100's 3.35 TB/s, or its 6 M^2 operations at 67 TFLOP/s (the
@@ -1174,6 +1245,322 @@ def run_pfoa_incremental(driver):
     print("pfoa_incremental", json.dumps(out), flush=True)
 
 
+def _interleaved(sol) -> np.ndarray:
+    from nbed_tpu_torch.driver import NbedDriver
+
+    return NbedDriver._interleaved_occ(sol)
+
+
+def run_water_global(device="cuda"):
+    """Water's global diagnostics: the driver's _global_ccsd and _global_fci
+    against the reference's oracles (1e-7), global CCSD(T) with e_t within
+    1e-9 of nbed_tpu's and between CCSD and FCI; restricted HF and B3LYP
+    equal to unrestricted (1e-10); the builder with n_frozen_core=1 and
+    n_frozen_virt=1, whose FCI equals the same freeze through run_emb_fci
+    and nbed_tpu's value (1e-8)."""
+    from nbed_tpu_torch.config import NbedConfig
+    from nbed_tpu_torch.driver import NbedDriver, run_emb_fci
+    from nbed_tpu_torch.ham import HamiltonianBuilder
+    from nbed_tpu_torch.scf import SCFEngine
+    from nbed_tpu_torch.solvers import run_ccsd, run_fci
+
+    driver = NbedDriver(NbedConfig(**CONFIGS["water_global"]), device=device)
+    e_ccsd, _ = driver._global_ccsd
+    e_fci = driver._global_fci
+    hf = driver._global_hf
+    _, h1, h2 = HamiltonianBuilder(hf, 0.0).build()
+    t0 = time.perf_counter()
+    _, e_t, _ = run_ccsd(h1, h2, _interleaved(hf), conv_tol=driver.config.convergence,
+                         triples=True)
+    ccsd_t_s = time.perf_counter() - t0
+    _gate("water_global", [("ccsd", e_ccsd, E_CCSD_GLOBAL_WATER),
+                           ("fci", e_fci, E_FCI_GLOBAL_WATER)], 1e-7)
+    _gate("water_global", [("e_t", e_t, E_T_WATER)], 1e-9)
+    if not (e_t < 0 and abs(e_ccsd + e_t - e_fci) < 0.5 * abs(e_ccsd - e_fci)):
+        raise RuntimeError(f"water_global: CCSD(T) {e_ccsd + e_t} not between CCSD "
+                           f"{e_ccsd} and FCI {e_fci}")
+
+    out = {"e_ccsd": e_ccsd, "e_fci": e_fci, "e_t": e_t, "ccsd_t_s": ccsd_t_s,
+           "n_triples": int(_interleaved(hf).sum()) ** 3}
+    mol = driver._mol
+    for xc in (None, "b3lyp"):
+        r = SCFEngine(mol, xc=xc, restricted=True, device=device, **WATER_SCF).kernel()
+        u = SCFEngine(mol, xc=xc, device=device, **WATER_SCF).kernel()
+        if r.mo_coeff.ndim != 2 or sorted(set(r.mo_occ.tolist())) != [0.0, 2.0]:
+            raise RuntimeError(f"water restricted {xc}: not reported restricted")
+        _gate(f"water restricted {xc}", [("e_tot", r.e_tot, u.e_tot)], 1e-10)
+        out[f"restricted_{xc}_dev"] = r.e_tot - u.e_tot
+
+    const, h1f, h2f = HamiltonianBuilder(hf, 0.0, n_frozen_core=1, n_frozen_virt=1).build()
+    n = hf.mol.nao
+    e_frozen = float(run_fci(const, h1f, h2f, h1f.shape[0], (4, 4))[0][0]) + hf.energy_nuc()
+    _gate("water frozen-core FCI", [
+        ("vs run_emb_fci(frozen=[0, n-1])", e_frozen, run_emb_fci(hf, frozen=[0, n - 1])),
+        ("vs the reference", e_frozen, E_FCI_FROZEN_WATER)], 1e-8)
+    if not e_frozen > e_fci - 1e-10:
+        raise RuntimeError(f"water frozen FCI {e_frozen} below the full FCI {e_fci}")
+    out.update(e_fci_frozen=e_frozen, n_spin_orbitals_frozen=h1f.shape[0])
+    print("water_global", json.dumps(out), flush=True)
+
+
+def run_acetonitrile_post(device="cuda"):
+    """The PRA molecule after the SCF: global B3LYP5 UKS TDA (dense and
+    Davidson, 6 roots) and RPA-TDDFT (6 roots) within 1e-8 Ha of nbed_tpu,
+    and a 2-root Davidson TDA under max_memory_mb=300 within that budget;
+    huzinaga_scf restricted and unrestricted on the driver's v_emb and
+    D_env, equal to each other and to nbed_tpu's orbital energies (1e-8);
+    the four lowest stability eigenvalues of the Huzinaga embedded solution
+    within 1e-8 of nbed_tpu's."""
+    from nbed_tpu_torch import nbed
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.ham import HamiltonianBuilder
+    from nbed_tpu_torch.scf import SCFEngine, huzinaga_scf
+    from nbed_tpu_torch.solvers import run_stability, run_tddft_rpa, run_tddft_tda
+
+    mol = build_molecule(ACETONITRILE, "sto-3g")
+    out = {}
+    # first in the phase, since it resets the peak counter: under a 300-MB
+    # budget a Davidson TDA allocates at most 300 MB above what was
+    # allocated before it (its roots are held to the default budget's
+    # below). Davidson, not dense: the budget cuts blocks to 2 vectors and
+    # the grid to 4 chunks, and the 77 blocks of a dense TDA took 50 s
+    # (H100 80GB HBM3, 700 W)
+    small = SCFEngine(mol, xc="b3lyp5", device=device, max_memory_mb=300.0,
+                      **TIGHT_SCF).kernel()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bounded = run_tddft_tda(small, nroots=2, method="davidson").excitations
+    torch.cuda.synchronize()
+    out["tda_300mb_s"] = time.perf_counter() - t0
+    out["tda_300mb_peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 1e6
+    if not out["tda_300mb_peak_mb"] <= 300.0:
+        raise RuntimeError(f"acetonitrile_post: TDA under max_memory_mb=300 allocated "
+                           f"{out['tda_300mb_peak_mb']:.1f} MB")
+    del small
+    sol = SCFEngine(mol, xc="b3lyp5", device=device, **TIGHT_SCF).kernel()
+    _gate("acetonitrile_post", [("e_uks", sol.e_tot, E_UKS_PRA_TIGHT)], 1e-8)
+    t0 = time.perf_counter()
+    dense = run_tddft_tda(sol, nroots=6, method="dense").excitations
+    out["tda_dense_s"] = time.perf_counter() - t0
+    stats = {}
+    t0 = time.perf_counter()
+    dav = run_tddft_tda(sol, nroots=6, method="davidson", stats=stats).excitations
+    out["tda_davidson_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rpa = run_tddft_rpa(sol, nroots=6).excitations
+    out["rpa_s"] = time.perf_counter() - t0
+    _gate("acetonitrile_post TDA", [(f"root {i}", a, b) for i, (a, b)
+                                    in enumerate(zip(dense, E_TDA_PRA))], 1e-8)
+    _gate("acetonitrile_post Davidson", [(f"root {i}", a, b) for i, (a, b)
+                                         in enumerate(zip(dav, dense))], 1e-8)
+    _gate("acetonitrile_post TDA at 300 MB", [(f"root {i}", a, b) for i, (a, b)
+                                              in enumerate(zip(bounded, dense))], 1e-8)
+    _gate("acetonitrile_post RPA", [(f"root {i}", a, b) for i, (a, b)
+                                    in enumerate(zip(rpa, E_RPA_TDDFT_PRA))], 1e-8)
+    if len(dav) != 6 or max(stats["residuals"]) > 1e-8:
+        raise RuntimeError(f"acetonitrile_post Davidson: residuals {stats['residuals']}")
+    out.update(tda=dense.tolist(), rpa=rpa.tolist(), davidson_iterations=stats["iterations"],
+               davidson_s_per_block=stats["matvec_s"] / stats["matvec_blocks"])
+
+    driver = nbed(**CONFIGS["acetonitrile_post"], device=device)
+    v_emb = driver.embedding_potential
+    dm_env = driver.localized_system.dm_enviro
+    na = len(driver.localized_system.active_mo_inds[0])
+    t0 = time.perf_counter()
+    r = huzinaga_scf(SCFEngine(mol, restricted=True, device=device, **HUZ_SCF),
+                     v_emb[0], dm_env[0] + dm_env[1], nelec=(na, na))
+    u = huzinaga_scf(SCFEngine(mol, device=device, **HUZ_SCF), v_emb, dm_env,
+                     nelec=(na, na))
+    out["huzinaga_scf_s"] = time.perf_counter() - t0
+    if not (r[4] and u[4]):
+        raise RuntimeError("acetonitrile_post: huzinaga_scf did not converge")
+    e_r = r[1].cpu().numpy()
+    _gate("acetonitrile_post huzinaga restricted vs unrestricted",
+          [(f"mo {i}", a, b) for i, (a, b) in enumerate(zip(e_r, u[1][0].tolist()))]
+          + [("density", float(torch.max(torch.abs(r[2] - u[2][0] - u[2][1]))), 0.0)], 1e-8)
+    _gate("acetonitrile_post huzinaga vs the reference",
+          [(f"mo {i}", a, b) for i, (a, b) in enumerate(zip(e_r, MO_ENERGY_HUZ_PRA))], 1e-8)
+
+    emb = driver.huzinaga["scf"]
+    _, h1, h2 = HamiltonianBuilder(emb, 0.0).build()
+    stab = run_stability(h1, h2, _interleaved(emb))
+    _gate("acetonitrile_post stability", [(f"eig {i}", a, b) for i, (a, b) in enumerate(
+        zip(stab.eigenvalues, STABILITY_PRA))], 1e-8)
+    out.update(stability=stab.eigenvalues.tolist(), stable=stab.stable,
+               n_pairs=len(stab.pairs))
+    print("acetonitrile_post", json.dumps(out), flush=True)
+
+
+def run_h2_stability(device="cuda"):
+    """H2/STO-3G at 2.5 angstrom (tests/test_stability.py:52-66): the
+    spin-symmetric solution is unstable (lowest eigenvalue < -0.05), and
+    stable_scf lands on a stable broken-symmetry solution 0.05 Ha lower,
+    within 0.02 of two STO-3G H atoms, with <S^2> > 0.5."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.ham import HamiltonianBuilder
+    from nbed_tpu_torch.scf import SCFEngine
+    from nbed_tpu_torch.solvers import run_stability, stable_scf
+
+    mol = build_molecule("2\n\nH 0.0 0.0 0.0\nH 2.5 0.0 0.0", "sto-3g")
+    engine = SCFEngine(mol, conv_tol=1e-12, dm_conv_tol=1e-10, max_cycle=200,
+                       device=device)
+    sym = engine.kernel()
+    _, h1, h2 = HamiltonianBuilder(sym, 0.0).build()
+    stab = run_stability(h1, h2, _interleaved(sym))
+    if stab.stable or not stab.lowest < -0.05:
+        raise RuntimeError(f"h2_stability: symmetric solution lowest {stab.lowest}")
+    bs, stab_bs = stable_scf(engine, sol=sym)
+    s2 = bs.spin_square()[0]
+    if not (stab_bs.stable and bs.e_tot < sym.e_tot - 0.05
+            and abs(bs.e_tot - 2 * -0.46658185) < 0.02 and s2 > 0.5):
+        raise RuntimeError(f"h2_stability: broken-symmetry e_tot {bs.e_tot} (symmetric "
+                           f"{sym.e_tot}), stable {stab_bs.stable}, <S^2> {s2}")
+    print("h2_stability", json.dumps({
+        "lowest_symmetric": stab.lowest, "lowest_broken": stab_bs.lowest,
+        "e_symmetric": sym.e_tot, "e_broken": bs.e_tot, "s2": s2}), flush=True)
+
+
+def run_water_qse(sq, nelec, params, e_vqe, device="cuda"):
+    """QSE on water's mu-embedded register (10 qubits) of the water_vqe
+    phase: the singles pool on the reference determinant gives the CIS
+    roots (1e-10); the singles-and-doubles pool on the VQE state gives a
+    lowest root at or below e_vqe and at or above the register's FCI."""
+    from nbed_tpu_torch.solvers import run_cis, run_fci, run_qse, uccsd_excitations
+
+    const, h1, h2 = sq
+    n = h1.shape[0]
+    occ_int, _ = uccsd_excitations(n, nelec)
+    occ = np.array([(occ_int >> p) & 1 for p in range(n)], dtype=bool)
+    cis = run_cis(h1, h2, occ)
+    t0 = time.perf_counter()
+    singles = run_qse(const, h1, h2, nelec, pool="singles", device=device)
+    sd = run_qse(const, h1, h2, nelec, pool="sd", params=params, device=device)
+    qse_s = time.perf_counter() - t0
+    if len(singles.excitations) != len(cis.excitations) + 1:
+        raise RuntimeError("water_qse: singles-QSE and CIS root counts differ")
+    _gate("water_qse singles vs CIS", [(f"root {i}", a, b) for i, (a, b) in enumerate(
+        zip(singles.excitations[1:], cis.excitations))], 1e-10)
+    e_fci = float(run_fci(const, h1, h2, n, nelec)[0][0])
+    lowest = float(sd.energies[0])
+    if not (lowest <= e_vqe + 1e-10 and lowest >= e_fci - 1e-8):
+        raise RuntimeError(f"water_qse: sd lowest {lowest}, e_vqe {e_vqe}, FCI {e_fci}")
+    print("water_qse", json.dumps({
+        "qse_s": qse_s, "n_operators_singles": singles.n_operators,
+        "n_operators_sd": sd.n_operators, "n_retained_sd": sd.n_retained,
+        "sd_lowest": lowest, "e_vqe": e_vqe, "e_fci": e_fci,
+        "singles_vs_cis_max": float(np.max(np.abs(singles.excitations[1:]
+                                                  - cis.excitations)))}), flush=True)
+
+
+def run_pfoa_post(driver):
+    """On the pfoa driver: the mu embedded space's CCSD(T) through
+    run_emb_ccsd (e_t within 1e-7 of nbed_tpu's) and the precision modes
+    (mixed within 1e-8 of f64, f32 within 5e-5); TDA of the embedded HF
+    solution on the DF route equal to run_emb_cis (1e-8); Davidson TDA (4
+    roots) of the global B3LYP DF-UKS; the f_xc jvp against a central
+    difference at its density (1e-5 relative); and a checkpoint round trip
+    of the global UKS with a warm restart (<= 3 cycles, 1e-8 Ha)."""
+    import tempfile
+
+    from nbed_tpu_torch.checkpoint import load_solution, save_solution
+    from nbed_tpu_torch.driver import run_emb_ccsd, run_emb_cis
+    from nbed_tpu_torch.ham import HamiltonianBuilder
+    from nbed_tpu_torch.solvers import run_ccsd, run_tddft_tda
+
+    sol = driver.mu["scf"]
+    out = {}
+    e_emb, e_corr_t = run_emb_ccsd(sol, triples=True)
+    _, h1, h2 = HamiltonianBuilder(sol, 0.0).build()
+    occ = _interleaved(sol)
+    energies = {}
+    for precision in ("f64", "f32", "mixed"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        energies[precision] = run_ccsd(h1, h2, occ, conv_tol=1e-10, precision=precision)[0]
+        out[f"ccsd_{precision}_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e_corr, e_t, _ = run_ccsd(h1, h2, occ, conv_tol=1e-8, triples=True)
+    out["ccsd_t_f64_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_ccsd(h1, h2, occ, conv_tol=1e-8)
+    out["triples_s"] = out["ccsd_t_f64_s"] - (time.perf_counter() - t0)
+    out["n_triples"] = int(occ.sum()) ** 3
+    _gate("pfoa_post", [("e_t", e_t, E_T_PFOA)], 1e-7)
+    _gate("pfoa_post", [("run_emb_ccsd(triples=True) e_corr", e_corr_t, E_CORR_PFOA + E_T_PFOA),
+                        ("e_corr", e_corr, E_CORR_PFOA)], 1e-6)
+    _gate("pfoa_post precision", [("mixed", energies["mixed"], energies["f64"])], 1e-8)
+    _gate("pfoa_post precision", [("f32", energies["f32"], energies["f64"])], 5e-5)
+    out.update(e_t=e_t, e_corr=e_corr, ccsd_dev={k: v - energies["f64"]
+                                                 for k, v in energies.items()})
+
+    t0 = time.perf_counter()
+    tda = run_tddft_tda(sol, method="dense").excitations
+    out["tda_embedded_s"] = time.perf_counter() - t0
+    cis = run_emb_cis(sol).excitations
+    # the builder zeroes coefficients below OpenFermion's EQ_TOLERANCE
+    # (1e-8), which moves run_emb_cis's roots by ~1e-8 at 78 spin orbitals;
+    # TDA on the HF engine is CIS exactly on the untruncated integrals
+    from nbed_tpu_torch.solvers import run_cis
+
+    _, h1_full, h2_full = HamiltonianBuilder(sol, 0.0)._build(0.0)
+    cis_full = run_cis(h1_full, h2_full, occ).excitations
+    if not len(tda) == len(cis) == len(cis_full):
+        raise RuntimeError("pfoa_post: embedded TDA and CIS root counts differ")
+    dev = float(np.max(np.abs(tda - cis_full)))
+    dev_emb = float(np.max(np.abs(tda - cis)))
+    _gate("pfoa_post embedded TDA (DF) vs CIS on the untruncated integrals",
+          [("max |d omega|", dev, 0.0)], 1e-8)
+    _gate("pfoa_post embedded TDA (DF) vs run_emb_cis", [("max |d omega|", dev_emb, 0.0)],
+          1e-7)
+    out.update(n_pairs_embedded=len(tda), tda_vs_cis_untruncated=dev, tda_vs_run_emb_cis=dev_emb)
+
+    ks = driver._global_ks
+    eng = driver._ks_engine
+    stats = {}
+    t0 = time.perf_counter()
+    dav = run_tddft_tda(ks, nroots=4, method="davidson", stats=stats).excitations
+    out["davidson_s"] = time.perf_counter() - t0
+    if not (max(stats["residuals"]) <= 1e-8 and np.all(np.diff(dav) >= 0) and dav[0] > 0):
+        raise RuntimeError(f"pfoa_post Davidson: roots {dav}, residuals {stats['residuals']}")
+    out.update(davidson_roots=dav.tolist(), davidson_iterations=stats["iterations"],
+               davidson_blocks=stats["matvec_blocks"],
+               davidson_s_per_block=stats["matvec_s"] / stats["matvec_blocks"],
+               n_pairs_global=sum(int((o > 0).sum()) * int((o <= 0).sum())
+                                  for o in ks.mo_occ))
+    dm0 = ks.make_rdm1()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    t = 1e-3 * torch.randn(dm0.shape, generator=gen, dtype=torch.float64, device="cuda")
+    t = t + t.transpose(-1, -2)
+    response = eng._build_xc(torch.float64, differentiable=True)
+    t0 = time.perf_counter()
+    _, dv = torch.func.jvp(lambda d: response(d)[1], (dm0,), (t,))
+    out["jvp_s"] = time.perf_counter() - t0
+    h = 1e-4
+    fd = (eng.xc_fn(dm0 + h * t)[1] - eng.xc_fn(dm0 - h * t)[1]) / (2 * h)
+    rel = float(torch.max(torch.abs(dv - fd)) / torch.max(torch.abs(fd)))
+    _gate("pfoa_post f_xc jvp vs central difference", [("relative", rel, 0.0)], 1e-5)
+    out["jvp_vs_fd"] = rel
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "pfoa_uks.npz"
+        save_solution(path, ks)
+        loaded = load_solution(path, eng)
+    e_loaded = loaded.energy_elec()[0] + loaded.energy_nuc()
+    _gate("pfoa_post checkpoint", [("e_tot", loaded.e_tot, ks.e_tot),
+                                   ("energy of the loaded orbitals", e_loaded,
+                                    ks.energy_elec()[0] + ks.energy_nuc())], 1e-12)
+    t0 = time.perf_counter()
+    warm = eng.kernel(dm0=loaded.make_rdm1(), max_cycle=3)
+    out["warm_restart_s"] = time.perf_counter() - t0
+    if not warm.converged:
+        raise RuntimeError("pfoa_post: the warm restart did not converge in 3 cycles")
+    _gate("pfoa_post warm restart", [("e_tot", warm.e_tot, ks.e_tot)], 1e-8)
+    out["warm_restart_dev"] = warm.e_tot - ks.e_tot
+    print("pfoa_post", json.dumps(out), flush=True)
+
+
 def build_all():
     """Build the CUDA kernel library and the two host C++ libraries, each
     compiler started at once."""
@@ -1194,6 +1581,8 @@ def build_all():
 # plain torch, as they are XLA in the reference
 F64 = ("fused_jk_f64",)
 MIXED = ("fused_jk_f64", "fused_jk_f32")
+# the phases of the post-SCF slice, summarised together at the end
+NEW_PHASES = ("water_global", "acetonitrile_post", "h2_stability", "water_qse", "pfoa_post")
 
 
 def main():
@@ -1233,8 +1622,10 @@ def main():
             keep["pra_scf"] = driver.huzinaga["scf"]
         elif name == "water_vqe":
             occ = driver.mu["scf"].mo_occ.cpu().numpy()
-            keep["water"] = (driver.mu["second_quantised"],
-                             (int(occ[0].sum()), int(occ[1].sum())))
+            nelec = (int(occ[0].sum()), int(occ[1].sum()))
+            keep["water"] = (driver.mu["second_quantised"], nelec)
+            keep["water_qse"] = (driver.mu["second_quantised"], nelec,
+                                 driver.mu["vqe"].params, driver.mu["e_vqe"])
 
     phases = (
         ("water", run_water, F64),
@@ -1245,9 +1636,13 @@ def main():
         ("acetonitrile_taper", run_acetonitrile_taper, F64),
         ("water_vqe", run_water_vqe, F64),
         ("vqe_20q", lambda: run_vqe_20q(keep.pop("pra_scf"), *keep.pop("water")), ()),
+        ("water_qse", lambda: run_water_qse(*keep.pop("water_qse")), ()),
         ("water631g_localizers", run_water631g_localizers, F64),
         ("acetonitrile_pao", run_acetonitrile_pao, F64),
         ("acetonitrile_cis", run_acetonitrile_cis, F64),
+        ("water_global", run_water_global, F64),
+        ("acetonitrile_post", run_acetonitrile_post, F64),
+        ("h2_stability", run_h2_stability, F64),
         ("water_functionals", run_water_functionals, F64),
         ("methyl_rohf", run_methyl_rohf, F64), ("water_qmmm", run_water_qmmm, F64),
         ("acetonitrile_camb3lyp", run_acetonitrile_camb3lyp, F64),
@@ -1289,6 +1684,20 @@ def main():
     phase_s["pfoa_incremental"] = time.perf_counter() - t0
     count("pfoa_incremental")
     peak_gb["pfoa_incremental"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # the post-SCF slice on the pfoa driver: DF throughout, so no fused
+    # J/K launch is expected; its count is read all the same
+    torch.cuda.reset_peak_memory_stats()
+    jk.LAUNCHES.clear()
+    jk.LAUNCHES_BY_M.clear()
+    t0 = time.perf_counter()
+    run_pfoa_post(driver)
+    phase_s["pfoa_post"] = time.perf_counter() - t0
+    count("pfoa_post")
+    peak_gb["pfoa_post"] = torch.cuda.max_memory_allocated() / 1e9
+    for name in NEW_PHASES:
+        print(f"{name}_summary", json.dumps({"s": phase_s[name], "peak_gb": peak_gb[name],
+                                             "fused_jk": per_phase[name]}), flush=True)
     print(f"fused_jk launches: {json.dumps(per_phase)}", flush=True)
     print(f"fused_jk launches by M: {json.dumps(by_m)}", flush=True)
     print("max_memory_allocated_gb", json.dumps(peak_gb), flush=True)

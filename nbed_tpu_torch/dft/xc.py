@@ -10,6 +10,14 @@ them per chunk, for grids whose tables would outgrow the memory budget.
 Both work in the dtype of their tables: float64 on the main path, float32
 for the mixed-precision SCF's coarse cycles, with the density mask of each
 dtype (:func:`_mask_thresh`).
+
+Either closure also comes in a differentiable form (``differentiable=True``)
+for linear response: the potentials are ``torch.func.grad`` of the energy
+density with nothing detached, so ``torch.func.jvp`` of ``vxc(dm)`` along a
+symmetric density tangent is the XC kernel contraction f_xc . d (the
+reference takes ``jax.jvp`` of its closure, ``nbed_tpu/solvers/tddft.py:
+271-281``). Both give the same (exc, vxc); the SCF uses the detached form,
+which is the faster one on the card.
 """
 
 import torch
@@ -18,6 +26,11 @@ from ..grids import eval_aos
 from .functionals import resolve_functional
 
 __all__ = ["make_xc_fn", "make_xc_fn_streaming"]
+
+# grid points per chunk of the table and streaming closures
+TABLE_CHUNK = 131072
+STREAM_CHUNK = 32768
+
 
 def _mask_thresh(dtype) -> float:
     """Density cut below which grid points are masked out of the XC math,
@@ -28,7 +41,7 @@ def _mask_thresh(dtype) -> float:
     return 1e-11 if dtype == torch.float64 else 3e-6
 
 
-def _chunk_math(terms, thresh: float):
+def _chunk_math(terms, thresh: float, differentiable: bool = False):
     """Per-chunk energy + potential contributions from AO tables.
 
     When a term is tau-dependent (``fn.needs_tau``, the meta-GGAs) the chunk
@@ -37,6 +50,12 @@ def _chunk_math(terms, thresh: float):
     autograd with the other five inputs and adds
     V_tau[pq] = 1/2 sum_g v_tau(g) grad phi_p . grad phi_q to each spin's V
     (``nbed_tpu/dft/xc.py:72-93``).
+
+    ``differentiable``: the input derivatives come from
+    ``torch.func.grad_and_value`` on the attached inputs, so (exc, vxc)
+    carry their dependence on ``dm`` into an enclosing ``torch.func``
+    transform; otherwise the inputs are detached and differentiated by
+    ``torch.autograd.grad``.
     """
     needs_tau = any(getattr(fn, "needs_tau", False) for _, fn in terms)
 
@@ -67,11 +86,21 @@ def _chunk_math(terms, thresh: float):
             tau = 0.5 * torch.einsum("sdgq,dgq->sg", grad_d, grad_c)
             del grad_d
             base += [tau[0], tau[1]]
-        inputs = [t.detach().requires_grad_(True) for t in base]
-        with torch.enable_grad():
-            exc = torch.sum(w_c * e_density(*inputs))
-            vra, vrb, vgaa, vgab, vgbb, *v_tau = torch.autograd.grad(
-                exc, inputs, allow_unused=True, materialize_grads=True)
+
+        def energy(*inputs):
+            return torch.sum(w_c * e_density(*inputs))
+
+        if differentiable:
+            grads, exc = torch.func.grad_and_value(
+                energy, argnums=tuple(range(len(base))))(*base)
+        else:
+            inputs = [t.detach().requires_grad_(True) for t in base]
+            with torch.enable_grad():
+                exc = energy(*inputs)
+                grads = torch.autograd.grad(exc, inputs, allow_unused=True,
+                                            materialize_grads=True)
+            exc = exc.detach()
+        vra, vrb, vgaa, vgab, vgbb, *v_tau = grads
         vta, vtb = v_tau if needs_tau else (None, None)
 
         def vmat(vr, vg_ss, vg_ab, grho_s, grho_t, vt):
@@ -85,20 +114,22 @@ def _chunk_math(terms, thresh: float):
 
         va = vmat(vra, vgaa, vgab, grho[0], grho[1], vta)
         vb = vmat(vrb, vgbb, vgab, grho[1], grho[0], vtb)
-        return exc.detach(), torch.stack([va, vb])
+        return exc, torch.stack([va, vb])
 
     return one_chunk
 
 
-def make_xc_fn(ao, ao_grad, weights, xc_name: str, chunk: int = 131072):
+def make_xc_fn(ao, ao_grad, weights, xc_name: str, chunk: int = TABLE_CHUNK,
+               differentiable: bool = False):
     """``xc_fn(dm) -> (exc, vxc (2, nao, nao))`` from precomputed AO tables
     (``ao`` (G, nao), ``ao_grad`` (3, G, nao), ``weights`` (G,)), or None
     for a functional with no grid terms (``hf``). It computes in the
-    tables' dtype and takes a density of that dtype."""
+    tables' dtype and takes a density of that dtype; ``differentiable``
+    as in :func:`_chunk_math`."""
     terms = resolve_functional(xc_name)[0]
     if not terms:
         return None
-    one_chunk = _chunk_math(terms, _mask_thresh(ao.dtype))
+    one_chunk = _chunk_math(terms, _mask_thresh(ao.dtype), differentiable)
     n_points = ao.shape[0]
 
     def xc_fn(dm):
@@ -115,20 +146,20 @@ def make_xc_fn(ao, ao_grad, weights, xc_name: str, chunk: int = 131072):
     return xc_fn
 
 
-def make_xc_fn_streaming(mol, points, weights, xc_name: str, chunk: int = 32768,
-                         dtype=None):
+def make_xc_fn_streaming(mol, points, weights, xc_name: str, chunk: int = STREAM_CHUNK,
+                         dtype=None, differentiable: bool = False):
     """``xc_fn(dm) -> (exc, vxc (2, nao, nao))`` that evaluates the AO values
     and gradients per grid chunk: O(chunk * nao) memory instead of
     O(G * nao) (``nbed_tpu/dft/xc.py:148-188``). The last chunk is short
     where the reference pads with far-away points; the sums are the same.
     AOs are evaluated in the points' dtype and the quadrature runs in
     ``dtype`` (default: the points'). None for a functional with no grid
-    terms."""
+    terms; ``differentiable`` as in :func:`_chunk_math`."""
     terms = resolve_functional(xc_name)[0]
     if not terms:
         return None
     dtype = points.dtype if dtype is None else dtype
-    one_chunk = _chunk_math(terms, _mask_thresh(dtype))
+    one_chunk = _chunk_math(terms, _mask_thresh(dtype), differentiable)
     n_points = points.shape[0]
     weights = weights.to(dtype)
 

@@ -12,8 +12,9 @@ reference's. Like the reference, the driver always runs unrestricted.
 The deliberate deviations of ``nbed_tpu`` from upstream Nbed are kept: the
 Huzinaga environment ranking by diag(C^T P C), the per-spin environment
 deletion, QM/MM only when all three MM fields are set, and PAO only with
-the Huzinaga projector. Not ported: the global CCSD/FCI diagnostics and the
-(T) correction of ``run_emb_ccsd(triples=True)`` (ROADMAP queue 1 item 11).
+the Huzinaga projector. ``_global_ccsd`` and ``_global_fci`` are the
+full-system diagnostics on the global HF; ``run_emb_ccsd(triples=True)``
+adds the (T) correction.
 """
 
 import json
@@ -129,6 +130,27 @@ class NbedDriver:
         return sol
 
     @cached_property
+    def _global_ccsd(self):
+        """(e_tot, e_corr) of full-system CCSD on the global HF reference
+        (``nbed_tpu/driver.py:148-157``)."""
+        _, h1, h2 = HamiltonianBuilder(self._global_hf, 0.0).build()
+        occ_mask = self._interleaved_occ(self._global_hf)
+        e_corr, _ = run_ccsd(h1, h2, occ_mask, conv_tol=self.config.convergence)
+        e_tot = self._global_hf.e_tot + e_corr
+        logger.info("Global CCSD: %s", e_tot)
+        return e_tot, e_corr
+
+    @cached_property
+    def _global_fci(self) -> float:
+        """Full-system FCI total energy by exact diagonalisation
+        (``nbed_tpu/driver.py:159-168``)."""
+        _, h1, h2 = HamiltonianBuilder(self._global_hf, 0.0).build()
+        vals, _ = run_fci(0.0, h1, h2, h1.shape[0], self._global_hf.nelec)
+        e_tot = float(vals[0]) + self._hf_engine.energy_nuc()
+        logger.info("Global FCI: %s", e_tot)
+        return e_tot
+
+    @cached_property
     def _global_ks(self) -> SCFSolution:
         sol = self._ks_engine.kernel()
         logger.info("Global UKS: %s", sol.e_tot)
@@ -138,7 +160,7 @@ class NbedDriver:
 
     @staticmethod
     def _interleaved_occ(sol: SCFSolution) -> np.ndarray:
-        occ = sol.mo_occ.cpu().numpy()
+        occ = sol.per_spin()[1].cpu().numpy()
         mask = np.zeros(2 * occ.shape[-1], dtype=bool)
         mask[::2] = occ[0] > 0
         mask[1::2] = occ[1] > 0
@@ -529,13 +551,16 @@ def run_emb_ccsd(scf_sol: SCFSolution, frozen=None, convergence: float = 1e-6,
     """Embedded CCSD on the (truncated) embedded SCF solution; returns
     (e_tot, e_corr) (reference driver.py:725-757). ``frozen`` takes spatial
     MO indices: frozen occupied orbitals are folded in exactly, frozen
-    virtuals dropped."""
-    if triples:
-        raise NotImplementedError(
-            "run_emb_ccsd(triples=True) is not ported to nbed_tpu_torch yet: "
-            "ROADMAP queue 1 item 11, CCSD(T).")
+    virtuals dropped. ``triples=True`` adds the (T) correction to both
+    returns."""
     e_shift, h1, h2, occ_mask = _embedded_hamiltonian(scf_sol, frozen)
-    e_corr, e_ref_elec = run_ccsd(h1, h2, occ_mask, conv_tol=convergence * 1e-2)
+    out = run_ccsd(h1, h2, occ_mask, conv_tol=convergence * 1e-2, triples=triples)
+    if triples:
+        e_corr, e_t, e_ref_elec = out
+        e_corr = e_corr + e_t
+        logger.info("Embedded (T) correction: %s", e_t)
+    else:
+        e_corr, e_ref_elec = out
     e_tot = e_shift + e_ref_elec + scf_sol.energy_nuc() + e_corr
     logger.info("Embedded CCSD correlation energy: %s", e_corr)
     return e_tot, e_corr

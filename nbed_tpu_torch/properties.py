@@ -22,13 +22,13 @@ DEBYE_PER_AU = 2.541746473
 
 
 def _total_dm(scf_sol):
-    dm = scf_sol.make_rdm1()
-    return dm[0] + dm[1]
+    dm = scf_sol.make_rdm1()  # a restricted solution's is the total already
+    return dm if scf_sol.restricted else dm[0] + dm[1]
 
 
 def _spin_dm(scf_sol):
-    dm = scf_sol.make_rdm1()
-    return dm[0] - dm[1]
+    dm = scf_sol.make_rdm1()  # a restricted solution is closed-shell
+    return torch.zeros_like(dm) if scf_sol.restricted else dm[0] - dm[1]
 
 
 def _s_half(s):
@@ -150,9 +150,10 @@ def _write_cube(path, mol, origin, axes, shape, values, comment):
 def mo_cube(scf_sol, index: int, path, spin: int = 0, margin: float = 4.0,
             spacing: float = 0.25):
     """Write molecular orbital ``index`` of spin ``spin`` as a Gaussian cube
-    file; returns the lattice values, shaped."""
+    file (a restricted solution's one set for either spin); returns the
+    lattice values, shaped."""
     mol = scf_sol.mol
-    orb = scf_sol.mo_coeff[spin][:, index]
+    orb = scf_sol.per_spin()[0][spin][:, index]
     origin, axes, shape, points = cube_grid(mol, margin, spacing)
     vals = _eval_field(mol, points, lambda ao: ao @ orb, scf_sol.engine.device)
     _write_cube(path, mol, origin, axes, shape, vals, f"MO {index} (spin {spin})")

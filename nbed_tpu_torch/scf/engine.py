@@ -18,7 +18,9 @@ into the exchange operator and report ``hyb`` 1.0, as the reference does
 supermatrix the fused kernel reads; on the DF route K is built from the
 ordinary factor and a second factor fitted in the long-range metric. MM
 charges of a QM/MM molecule are in the host V, so in ``hcore``;
-``rohf=True`` runs ROHF/ROKS through Roothaan's effective Fock.
+``rohf=True`` runs ROHF/ROKS through Roothaan's effective Fock;
+``restricted=True`` changes only how a closed-shell solution is reported
+(one (n, k) orbital set, occupations 0/2), as in the reference.
 
 One memory budget, ``max_memory_mb`` (the config's ``max_ram_memory``),
 bounds the two large intermediates as in the reference: the auxiliary
@@ -47,7 +49,7 @@ from ..chem.basis.auxiliary import make_auxiliary_molecule
 from ..chem.molecule import Molecule, build_molecule
 from ..chem.periodic import SYMBOL_TO_Z, Z_TO_SYMBOL
 from ..dft.functionals import resolve_functional
-from ..dft.xc import make_xc_fn, make_xc_fn_streaming
+from ..dft.xc import STREAM_CHUNK, TABLE_CHUNK, make_xc_fn, make_xc_fn_streaming
 from ..grids import build_grid, eval_aos
 from ..integrals import native
 from ..ops.jk import prepare_jk
@@ -193,6 +195,10 @@ class SCFEngine:
           table/streaming XC switch from their 4000-MB calibration.
         rohf: restricted open shell (ROHF, or ROKS with ``xc``): both spins
           share spatial orbitals through Roothaan's effective Fock.
+        restricted: report style only (``nbed_tpu/scf/engine.py:1082-1113``):
+          the solver stays spin-resolved, and the solution carries the
+          alpha orbitals as (n, k), occupations 0/2 and the alpha Huzinaga
+          operator; n_alpha != n_beta raises.
         warmup_f32: seed a full-molecule SCF from a float32 SCF (conv_tol
           1e-4, dm_conv_tol 1e-3) on float32 casts of the operators. Its
           J/K are exact even with density fitting, as in the reference:
@@ -219,6 +225,7 @@ class SCFEngine:
     df_b_lr: Optional[torch.Tensor] = field(default=None, repr=False)
     max_memory_mb: float = 4000.0
     rohf: bool = False
+    restricted: bool = False
     warmup_f32: bool = False
     incremental_jk: str = "off"  # "on" | "off" | "auto" (= off)
     rebase_every: int = 8  # float64 J/K rebuild period of the incremental SCF
@@ -329,15 +336,28 @@ class SCFEngine:
     def _ao_tables(self):
         return eval_aos(self.mol, self._grid[0])
 
-    def _build_xc(self, dtype):
+    @property
+    def _xc_streams(self) -> bool:
+        """Whether the XC closures evaluate the AOs per grid chunk (above
+        :attr:`_XC_TABLE_LIMIT`) instead of keeping whole-grid tables."""
+        return self._grid[0].shape[0] * self.mol.nao > self._XC_TABLE_LIMIT
+
+    def _build_xc(self, dtype, differentiable: bool = False, chunk=None):
         """The XC closure in ``dtype``: the AO-table quadrature, or the
-        streaming one above :attr:`_XC_TABLE_LIMIT`."""
+        streaming one above :attr:`_XC_TABLE_LIMIT`, over grid chunks of
+        ``chunk`` points (default: the path's, :data:`TABLE_CHUNK` or
+        :data:`STREAM_CHUNK`); ``differentiable`` as in
+        :func:`nbed_tpu_torch.dft.xc.make_xc_fn`. The SCF's closures are not
+        differentiable: the differentiable form costs its SCF 28-37 % more
+        wall time on the card (``scripts/bench_response.py``, PERF.md §6)."""
         points, weights = self._grid
-        if points.shape[0] * self.mol.nao > self._XC_TABLE_LIMIT:
+        if self._xc_streams:
             return make_xc_fn_streaming(self.mol, points, weights, self.xc,
-                                        dtype=dtype)
+                                        chunk=chunk or STREAM_CHUNK, dtype=dtype,
+                                        differentiable=differentiable)
         ao, ao_grad = self._ao_tables
-        return make_xc_fn(ao.to(dtype), ao_grad.to(dtype), weights.to(dtype), self.xc)
+        return make_xc_fn(ao.to(dtype), ao_grad.to(dtype), weights.to(dtype), self.xc,
+                          chunk=chunk or TABLE_CHUNK, differentiable=differentiable)
 
     @cached_property
     def _xc(self):
@@ -488,6 +508,8 @@ class SCFEngine:
                level_shift=0.0) -> "SCFSolution":
         """Run SCF; all embedding terms are explicit arguments."""
         nelec = self.mol.nelec if nelec is None else nelec
+        if self.restricted and nelec[0] != nelec[1]:
+            raise ValueError("Restricted reporting requires n_alpha == n_beta.")
         xc_fn, hyb = self._xc
         from_guess = False
         if (dm0 is None and self.init_guess == "sad"
@@ -527,38 +549,58 @@ class SCFEngine:
         )
         if not res.converged:
             logger.warning("SCF has NOT converged (%s cycles).", res.n_iter)
+        huz = res.huzinaga_op if dm_env_occ is not None else None
+        mo_coeff, mo_energy, mo_occ = res.mo_coeff, res.mo_energy, res.mo_occ
+        if self.restricted:
+            mo_coeff, mo_energy, mo_occ = mo_coeff[0], mo_energy[0], 2.0 * mo_occ[0]
+            huz = None if huz is None else huz[0]
         return SCFSolution(
             engine=self,
             nelec=tuple(int(x) for x in nelec),
-            mo_coeff=res.mo_coeff,
-            mo_energy=res.mo_energy,
-            mo_occ=res.mo_occ,
+            mo_coeff=mo_coeff,
+            mo_energy=mo_energy,
+            mo_occ=mo_occ,
             e_tot=res.e_elec + self.energy_nuc(),
             converged=res.converged,
             v_emb=None if v_emb is None else self._tensor(v_emb),
-            huzinaga_op=res.huzinaga_op if dm_env_occ is not None else None,
+            huzinaga_op=huz,
         )
 
 
 @dataclass(eq=False)
 class SCFSolution:
-    """Unrestricted SCF result on the engine's device. The driver edits the
-    MO sets in place when it deletes environment orbitals and localizes
-    virtuals."""
+    """SCF result on the engine's device: unrestricted, or restricted-
+    reported (one orbital set; see ``SCFEngine.restricted``). The driver
+    edits the MO sets in place when it deletes environment orbitals and
+    localizes virtuals."""
 
     engine: SCFEngine
     nelec: tuple
-    mo_coeff: torch.Tensor  # (2, n, k)
-    mo_energy: torch.Tensor  # (2, k)
-    mo_occ: torch.Tensor  # (2, k) in electrons per spin orbital (0/1)
+    mo_coeff: torch.Tensor  # (2, n, k); restricted (n, k)
+    mo_energy: torch.Tensor  # (2, k); restricted (k,)
+    mo_occ: torch.Tensor  # (2, k) of 0/1; restricted (k,) of 0/2
     e_tot: float
     converged: bool
     v_emb: Optional[torch.Tensor] = None  # (2, n, n)
-    huzinaga_op: Optional[torch.Tensor] = None
+    huzinaga_op: Optional[torch.Tensor] = None  # (2, n, n); restricted (n, n)
 
     @property
     def mol(self) -> Molecule:
         return self.engine.mol
+
+    @property
+    def restricted(self) -> bool:
+        return self.mo_coeff.ndim == 2
+
+    def per_spin(self):
+        """(mo_coeff (2, n, k), mo_occ (2, k) of 0/1). A restricted
+        solution's one orbital set serves both spins: a doubly occupied
+        orbital is occupied in each, a singly occupied one in alpha."""
+        if not self.restricted:
+            return self.mo_coeff, self.mo_occ
+        occ = self.mo_occ
+        return (torch.stack([self.mo_coeff, self.mo_coeff]),
+                torch.stack([(occ > 0.9).to(occ.dtype), (occ > 1.9).to(occ.dtype)]))
 
     def copy(self) -> "SCFSolution":
         def clone(t):
@@ -581,19 +623,24 @@ class SCFSolution:
         return h[None] + self.v_emb
 
     def make_rdm1(self):
+        """(2, n, n) per-spin density; restricted: the (n, n) total."""
+        if self.restricted:
+            c = self.mo_coeff
+            return torch.einsum("pi,i,qi->pq", c, self.mo_occ, c)
         return make_rdm1(self.mo_coeff, self.mo_occ)
 
     def get_fock(self):
-        """(2, n, n) Fock matrix (incl. v_emb and the Huzinaga term) at the
-        current density."""
+        """Fock matrix (incl. v_emb and the Huzinaga term) at the current
+        density: (2, n, n), or (n, n) for a restricted solution."""
         veff = self.engine.get_veff(self.make_rdm1())
         h = self.get_hcore()
         if h.ndim == 2:
             h = h[None]
         f = h + veff.matrix
         if self.huzinaga_op is not None:
-            f = f + self.huzinaga_op
-        return f
+            huz = self.huzinaga_op
+            f = f + (huz[None] if huz.ndim == 2 else huz)
+        return f[0] if self.restricted else f
 
     def energy_nuc(self) -> float:
         return self.engine.energy_nuc()
@@ -602,7 +649,7 @@ class SCFSolution:
         """(e_elec, e_2) at the given (default: current) density, with v_emb
         folded into the one-body term; e_2 is the Coulomb+exchange energy for
         HF and ecoul + exc for KS, as PySCF reports them."""
-        dm = self.make_rdm1() if dm is None else _spinify(self.engine._tensor(dm))
+        dm = _spinify(self.engine._tensor(self.make_rdm1() if dm is None else dm))
         veff = self.engine.get_veff(dm)
         h = self.get_hcore()
         if h.ndim == 2:
@@ -619,9 +666,10 @@ class SCFSolution:
     def spin_square(self):
         """(<S^2>, 2S+1) of the unrestricted determinant:
         <S^2> = S_z(S_z+1) + N_beta - sum_ij |<phi_i^a|phi_j^b>|^2 over
-        occupied orbitals."""
-        ca = self.mo_coeff[0][:, self.mo_occ[0] > 0.5]
-        cb = self.mo_coeff[1][:, self.mo_occ[1] > 0.5]
+        occupied orbitals (both spins' for a restricted solution)."""
+        c, occ = self.per_spin()
+        ca = c[0][:, occ[0] > 0.5]
+        cb = c[1][:, occ[1] > 0.5]
         ovlp = ca.T @ self.engine.s @ cb
         na, nb = ovlp.shape
         sz = 0.5 * (na - nb)

@@ -134,6 +134,7 @@ def run_scf(
     max_cycle: int = 50,
     level_shift: float = 0.0,  # virtual-orbital level shift (Ha)
     rohf: bool = False,  # restricted open shell: shared spatial orbitals
+    use_diis: bool = True,  # False: plain Roothaan iterations
 ) -> SCFResult:
     """Run SCF to convergence.
 
@@ -247,7 +248,7 @@ def run_scf(
             hist_e[slot] = err
             nfill = min(nfill + 1, m)
             f_use = f
-            if cycle > 0:
+            if cycle > 0 and use_diis:
                 f_use = _diis_extrapolate(hist_f, hist_e, nfill)
             if level_shift:
                 # F' = F + lambda (S - S D_s S) shifts only the virtual

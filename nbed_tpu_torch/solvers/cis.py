@@ -153,7 +153,7 @@ def spin_labels(scf_sol, result: CISResult):
     ``s = 2 sum_ia X_aa[ia] X_bb[ia]`` over spatially matched pairs, each
     spatial orbital's per-spin sign aligned through the AO overlap (+1 a
     pure singlet, -1 the M_s = 0 triplet component, "mixed" between)."""
-    c = scf_sol.mo_coeff
+    c = scf_sol.per_spin()[0]
     align = to_host(torch.sign(torch.einsum("ui,uv,vi->i", c[0], scf_sol.engine.s, c[1])))
 
     lut = {}
@@ -174,7 +174,7 @@ def _pair_dipoles(scf_sol, pairs):
     """(npairs, 3) MO-basis transition-dipole rows d_ia of the given pairs,
     from ``dipole_integrals`` on the solution's device."""
     dip = dipole_integrals(scf_sol.mol, device=scf_sol.engine.device)  # (3, nao, nao)
-    c = scf_sol.mo_coeff
+    c = scf_sol.per_spin()[0]
     dip_mo = torch.einsum("xuv,sui,svj->sxij", dip, c, c)  # per-spin MO dipoles
     i_idx, a_idx = pairs[:, 0], pairs[:, 1]
     spin = i_idx % 2  # == a_idx % 2 by construction

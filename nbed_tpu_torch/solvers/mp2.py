@@ -56,7 +56,7 @@ def run_double_hybrid(sol):
     """Total double-hybrid energy of a converged KS solution from
     ``SCFEngine(mol, xc=<double hybrid>)``: ``(e_tot, e_pt2)`` with
     ``e_tot = sol.e_tot + c_PT2 * e_pt2`` on the KS orbitals and
-    eigenvalues."""
+    eigenvalues; a restricted solution's one set serves both spins."""
     from ..dft.functionals import pt2_coefficient
     from ..ham import HamiltonianBuilder
 
@@ -64,7 +64,7 @@ def run_double_hybrid(sol):
     if c2 == 0.0:
         raise ValueError(f"'{sol.engine.xc}' is not a double-hybrid functional.")
     _, _, h2 = HamiltonianBuilder(sol, 0).build()
-    eps, occ = sol.mo_energy, sol.mo_occ.cpu().numpy()
+    eps, occ = sol.mo_energy.expand(2, -1), sol.per_spin()[1].cpu().numpy()
     k = eps.shape[-1]
     eps_so = torch.empty(2 * k, dtype=eps.dtype, device=eps.device)
     eps_so[0::2], eps_so[1::2] = eps[0], eps[1]

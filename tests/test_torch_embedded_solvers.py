@@ -99,13 +99,6 @@ def test_freeze_spinorbitals_matches_nbed_tpu(embedded):
     assert abs(float(torch.linalg.norm(h2_red)) - np.linalg.norm(h2_ref_red)) < 1e-8
 
 
-def test_triples_raise_naming_item_11(embedded):
-    """The reference test's call (tests/test_driver.py:84) reaches the port's
-    NotImplementedError, not a TypeError."""
-    with pytest.raises(NotImplementedError, match="item 11, CCSD\\(T\\)"):
-        port.run_emb_ccsd(embedded[1], convergence=1e-8, triples=True)
-
-
 def test_driver_shims(port_driver):
     sol = port_driver.mu["scf"]
     ccsd_like, e_corr = port_driver._run_emb_ccsd(sol)
