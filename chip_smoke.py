@@ -46,6 +46,16 @@ mode, the DF TDA of the embedded solution against CIS, a Davidson TDDFT of
 the global UKS, the f_xc jvp against finite differences and a checkpoint
 round trip with a warm restart.
 
+The derivatives slice follows the post-SCF phases on the small molecules:
+water's UHF, B3LYP (grid response) and CAM-B3LYP analytic gradients
+against nbed_tpu's and against central differences on the card, a BFGS
+geometry optimization, harmonic frequencies, IR intensities and RRHO
+thermochemistry at the minimum; the acetonitrile molecule's UHF and B3LYP5
+gradients and its HF Hessian over 36 displaced SCFs; and water/cc-pVDZ's
+torch ERI tensor and V against the C++ engine, the seconds of one ERI
+tensor's forward and backward pass, and its UHF gradient. Every SCF of
+these phases builds its J/K in the fused kernel.
+
     python3 chip_smoke.py
 
 The kernel phase holds the fused J/K kernel (``ops.jk.FusedJK``, as the
@@ -315,6 +325,119 @@ STABILITY_PRA = [0.013627140527957458, 0.11220410451635107, 0.11220413480994564,
 E_T_PFOA = -0.00016767979109900255
 E_CORR_PFOA = -0.01312410752243741
 
+# nbed_tpu (JAX, float64, CPU) on water/STO-3G, from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python -c "from nbed_tpu.chem import
+#   build_molecule; from nbed_tpu.solvers.gradients import hf_gradient,
+#   ks_gradient, optimize_geometry; mol = build_molecule(open(
+#   'tests/molecules/water.xyz').read(), 'sto-3g'); print(hf_gradient(mol)[1],
+#   ks_gradient(mol, 'b3lyp')[1], ks_gradient(mol, 'cam-b3lyp')[1],
+#   optimize_geometry(mol, gtol=1e-6))"
+# and at that minimum X, with nbed_tpu.solvers' functions:
+#   f, modes, _ = harmonic_frequencies(mol, coords=X); ir_intensities(mol,
+#   modes, coords=X, mu_x=dipole_derivative_fd(mol, coords=X));
+#   thermochemistry(mol, f, coords=X)
+# (~7.5 min on the development host's CPU). The UHF oracle is
+# tests/test_gradients.py:53's.
+E_UHF_WATER = -74.96099960129165
+GRAD_HF_WATER = [[9.017184855402624e-31, 1.4733017963517323e-15, -0.08063063784948785],
+    [-3.4533676317076566e-17, -0.033802220301400815, 0.040315318924739274],
+    [3.453367631707594e-17, 0.03380222030140001, 0.04031531892473797]]
+GRAD_B3LYP_WATER = [[-1.6370961574517105e-16, 1.803998968704257e-15, -0.12477032612172023],
+    [-6.465801378876512e-17, -0.057416337620411054, 0.062385163060863086],
+    [6.076317171866771e-17, 0.05741633762040976, 0.06238516306086193]]
+GRAD_CAMB3LYP_WATER = [[-2.7407098414492586e-16, -1.5026248174907201e-15, -0.1183501313215355],
+    [-4.32401497199249e-18, -0.05465173600437294, 0.059175065660773504],
+    [1.9077306959375713e-18, 0.054651736004374035, 0.05917506566077272]]
+E_OPT_WATER = -74.96590119230012
+X_OPT_WATER = [[-2.4071283815781346e-30, 3.595876291077367e-16, 0.2951781122764922],
+    [1.774518746206486e-16, 1.432564800055482, -0.9063140951511007],
+    [-1.774518746206449e-16, -1.4325648000554876, -0.9063140951510943]]
+# the three vibrations (cm^-1) and their IR intensities (km/mol)
+FREQ_WATER = [2169.9979375652642, 4140.015402781896, 4391.082673522297]
+IR_WATER = [7.2377966391628465, 44.28669914271997, 29.964453930197365]
+ZPE_WATER = 0.024378890505583534
+S_WATER = 46.65891854196261  # cal/(mol K)
+# nbed_tpu on the acetonitrile molecule (ACETONITRILE, STO-3G), from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python -c "import chip_smoke as c; from
+#   nbed_tpu.chem import build_molecule; from nbed_tpu.solvers.gradients import
+#   hf_gradient, ks_gradient; from nbed_tpu.solvers import hessian_fd; mol =
+#   build_molecule(c.ACETONITRILE, 'sto-3g'); print(hf_gradient(mol)[1],
+#   ks_gradient(mol, 'b3lyp5')[1], hessian_fd(mol))"
+# (gradients 137 s and 61 s, the Hessian's 36 displaced SCFs in one vmapped
+# program 85 s on the development host's CPU); the Hessian's upper triangle,
+# row by row, to 12 significant digits
+GRAD_HF_PRA = [[0.018850694454185156, -1.572932127840995e-08, -1.1833869005342824e-06],
+    [-0.03800599688270261, 8.210507481498443e-07, 1.0302820630882606e-05],
+    [0.029339370931512093, -1.399048851954743e-05, -4.977518437375279e-05],
+    [-0.0033939836326134466, -0.003053124682792629, 0.002199962138908133],
+    [-0.0033924214105709024, -0.000358888168704588, -0.0036922734211194555],
+    [-0.003397663459747253, 0.0034251980185942624, 0.0015329670328626185]]
+GRAD_B3LYP5_PRA = [[-0.09382890113897686, 1.697297691002551e-07, -1.1012182519560175e-06],
+    [0.07087384979392007, 1.034889288367e-06, 8.297012249883235e-06],
+    [0.01718192495841525, -1.1855737446600885e-05, -4.136484277931647e-05],
+    [0.0019257242851270203, 0.006618102376390242, -0.004760336957320119],
+    [0.0019260474145071443, 0.0008296170916117819, 0.008158781464049275],
+    [0.0019213546870172522, -0.007437068349611178, -0.0033642754579510034]]
+HESS_PRA_UPPER = [1.64734700561, 8.82346529898e-08, 1.73483601088e-06, -1.66050711751,
+    -8.44499160118e-08, -3.15446923296e-06, 0.00270979600921, 5.2796019678e-07,
+    2.53738819136e-06, 0.00348313679183, 0.00143819188737, -0.0010352068016,
+    0.00348394712414, 0.00017687014483, 0.00176224325505, 0.00348318646653,
+    -0.00161562271134, -0.000728118945049, 0.0329615599474, 1.38124787001e-08,
+    -1.58115666653e-07, -0.0577826531488, 6.15920808239e-08, 1.88880094952e-07,
+    0.0265039716214, -8.4760413041e-08, 0.00389794820293, -0.000886190661822,
+    0.000970198739622, 0.000480297281055, 0.000442059411492, -0.000203709699855,
+    -0.00437836448037, -0.00123900846799, -0.000766479696826, 0.0329612076219,
+    -1.39159689075e-06, 6.19099064117e-08, -0.0577820146331, 2.04348942189e-08,
+    -8.29098796979e-08, 0.0265041367464, -0.00280505827276, 0.000970488603947,
+    -0.0002359399693, 0.00477811049118, -0.000203633642577, -0.00156470936964,
+    -0.00197341588034, -0.000766845613598, 0.000116863919169, 2.15030977777,
+    -9.08555035044e-07, -1.94386981822e-06, -0.418849760545, -1.26480849332e-06,
+    -4.47298048112e-06, -0.0236518253812, 0.00273153174574, -0.001964318996,
+    -0.0236496427613, 0.000338198068639, 0.0033546306167, -0.0236514367977,
+    -0.00306751865655, -0.00138246326899, 0.14082916764, -1.34808410441e-06,
+    -7.19130545893e-07, -0.0981759935383, 6.34916929255e-07, -0.0362958765598,
+    0.00679801554982, -0.0052348634786, -0.00447154320024, -0.000370772471865,
+    0.00109954461017, 0.0407691318868, 0.00870200220349, 0.00413597024249,
+    0.140826971084, 1.8506152632e-07, 6.351932265e-07, -0.0981803401837,
+    0.0261200130647, -0.0052370700399, 0.0032886882632, -0.0444904013787,
+    0.00109943370373, 0.0104617954879, 0.0183753016008, 0.00413828726724,
+    0.00138477111804, 0.767823239885, -3.71809215555e-06, 8.30655837223e-05,
+    -0.117218967206, -0.0980226030983, 0.0705405626218, -0.117246856183,
+    -0.0120783632964, -0.120242214429, -0.117218057242, 0.110105319528,
+    0.0496184612502, 0.788702791324, -1.226449451e-05, -0.100085525886, -0.29079327453,
+    0.154596470828, -0.0123340638135, -0.0792213544228, -0.0324386905271,
+    0.112424044643, -0.347016185075, -0.122146068334, 0.788828432415, 0.0720258793501,
+    0.154597032605, -0.187237620537, -0.122772720178, -0.0324341212621, -0.39888683885,
+    0.0506657108298, -0.122151199693, -0.1310277077, 0.12285641193, 0.105197441088,
+    -0.0757053985709, 0.00726678514268, 0.0145995236227, -0.00849132780992,
+    0.00726467737873, 0.0126864555828, -0.0111441419274, 0.297073468304,
+    -0.165799317457, 0.00330767391907, 0.0072998838487, -0.00834875120073,
+    -0.0146522035505, -0.0194916238865, 0.0238176589822, 0.186011012555,
+    0.0165617912422, 0.0327915390605, -0.0143087243403, -0.00839745251632,
+    -0.017323821247, 0.0124829057112, 0.122878730212, 0.0129614200086, 0.129035250859,
+    0.00726725515917, 5.62235570377e-05, 0.0168878867683, 0.0701753841696,
+    0.03479161188, -0.015997644618, 0.00167493890752, -0.0360449138217, 0.412991286108,
+    -0.00541854330789, 0.00510004036899, -0.00869286457305, 0.122854593679,
+    -0.118164893217, -0.0532516400531, 0.357369997937, 0.131003581646, 0.125736288036]
+# nbed_tpu on water/cc-pVDZ: its analytic gradient is NaN there (the Boys
+# derivative at t = 0 from order 5 on, ROADMAP queue 3), so the gradient is
+# held to a five-point central difference (h = 1e-3 bohr) of nbed_tpu's UHF
+# energies, from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python -c "import numpy as np; from
+#   nbed_tpu.chem import build_molecule; from nbed_tpu.scf.engine import
+#   SCFEngine; mol = build_molecule(open('tests/molecules/water.xyz').read(),
+#   'cc-pvdz'); e = lambda x: SCFEngine(mol, coords=x, conv_tol=1e-12,
+#   dm_conv_tol=1e-10, max_cycle=200).kernel().e_tot; x0 = mol.coords; h =
+#   1e-3; d = lambda a, k, s: e(x0 + s * h * np.eye(9)[3 * a + k].reshape(3,
+#   3)); print([[(-d(a, k, 2) + 8 * d(a, k, 1) - 8 * d(a, k, -1) + d(a, k, -2))
+#   / (12 * h) for k in range(3)] for a in range(3)])"
+# (32 s on the development host's CPU), and the energy to
+# nbed_tpu.solvers.gradients.hf_gradient(mol)[0] (21 min there)
+E_UHF_WATER_DZ = -76.02702870817886
+GRAD_FD_WATER_DZ = [[-7.105427357601002e-12, -4.973799150320701e-11, -2.7195170559934922e-05],
+    [-3.789561257387201e-11, 0.002507082344986126, 1.3597680018998895e-05],
+    [2.1316282072803006e-11, -0.002507082090374979, 1.3597767652602972e-05]]
+
 # the nbed() arguments of each pipeline phase (scripts/profile_port.py
 # profiles the same configurations)
 CONFIGS = {
@@ -460,8 +583,9 @@ def random_case(label, nao, seed, dtypes):
 
 def jk_cases():
     """(label, g_j, g_k, dm, dtypes) in float64 on the card: the real ERI
-    supermatrices of water (STO-3G, and 6-31G: M = 169, the shape of the
-    localizer phases) and acetonitrile STO-3G, acetonitrile's
+    supermatrices of water (STO-3G; 6-31G: M = 169, the shape of the
+    localizer phases; cc-pVDZ: M = 576, the shape of the cc-pVDZ gradient
+    phase) and acetonitrile STO-3G, acetonitrile's
     CAM-B3LYP exchange operator 0.19 (ik|jl) + 0.46 (ik|jl)_LR(0.33), the
     methyl radical's (M = 64, the shape of its ROHF/ROKS launches), the
     supermatrices of pfoa's SAD atoms (C, F, O: M = 25; H: M = 1, the shapes
@@ -480,6 +604,7 @@ def jk_cases():
                   for el in "CFOH")
     for label, xyz, basis, spin in (("water", WATER.read_text(), "sto-3g", 0),
                                     ("water 6-31G", WATER.read_text(), "6-31g", 0),
+                                    ("water cc-pVDZ", WATER.read_text(), "cc-pvdz", 0),
                                     ("acetonitrile", ACETONITRILE, "sto-3g", 0),
                                     ("methyl radical", METHYL.read_text(), "sto-3g", 1),
                                     *atoms):
@@ -1422,6 +1547,184 @@ def run_h2_stability(device="cuda"):
         "e_symmetric": sym.e_tot, "e_broken": bs.e_tot, "s2": s2}), flush=True)
 
 
+def _sync_s(t0: float, device) -> float:
+    """Seconds since ``t0`` once ``device`` has finished its work."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _gate_array(label, ours, ref, tol):
+    """Raise unless ``ours`` is finite and within ``tol`` of ``ref``
+    everywhere; returns the largest deviation."""
+    ours = np.asarray(ours, dtype=np.float64)
+    dev = float(np.max(np.abs(ours - np.asarray(ref)))) if np.all(np.isfinite(ours)) \
+        else float("inf")
+    if not dev <= tol:
+        raise RuntimeError(f"{label}: {dev} off the reference (tol {tol})")
+    return dev
+
+
+def _fd_components(energy, x0, picks, h=1e-4):
+    """Central differences of ``energy(coords)`` at ``x0`` on the (atom,
+    axis) ``picks``."""
+    out = {}
+    for a, k in picks:
+        es = []
+        for sgn in (1.0, -1.0):
+            x = np.array(x0, dtype=np.float64)
+            x[a, k] += sgn * h
+            es.append(energy(x))
+        out[(a, k)] = (es[0] - es[1]) / (2 * h)
+    return out
+
+
+def run_water_derivatives(device="cuda"):
+    """Water/STO-3G (M = 49): the UHF gradient against the oracle energy
+    (5e-8), nbed_tpu's gradient (1e-8) and a central difference on the card
+    (2e-7, three components), with its translational sum <= 1e-9; the
+    B3LYP gradient with grid response against nbed_tpu (1e-7) and a card
+    FD (1e-6); CAM-B3LYP's against nbed_tpu (1e-7); a BFGS optimization
+    to gtol 1e-6 ending within 1e-8 Ha of nbed_tpu's minimum; at nbed_tpu's
+    minimum the three vibrations (0.5 cm^-1), TR modes |nu| < 30, IR
+    intensities (1e-3 relative), ZPE (1e-8 Ha) and entropy (1e-3
+    cal/(mol K))."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.scf import SCFEngine
+    from nbed_tpu_torch.solvers import (dipole_derivative_fd, harmonic_frequencies,
+                                        hf_gradient, ir_intensities, ks_gradient,
+                                        optimize_geometry, thermochemistry)
+    from nbed_tpu_torch.solvers.thermo import HA_PER_K_TO_CAL_MOL_K
+
+    mol = build_molecule(WATER.read_text(), "sto-3g")
+    picks = [(0, 2), (1, 1), (2, 0)]
+    out = {}
+    t0 = time.perf_counter()
+    e, g, _ = hf_gradient(mol, device=device)
+    out["hf_gradient_s"] = _sync_s(t0, device)
+    g = g.cpu().numpy()
+    _gate("water hf_gradient", [("e_tot", e, E_UHF_WATER)], 5e-8)
+    out["hf_dev"] = _gate_array("water hf_gradient", g, GRAD_HF_WATER, 1e-8)
+    fd = _fd_components(lambda x: hf_gradient(mol, coords=x, device=device)[0],
+                        mol.coords, picks)
+    out["hf_fd_dev"] = _gate_array("water hf_gradient vs FD", [g[p] for p in picks],
+                                   [fd[p] for p in picks], 2e-7)
+    out["hf_sum"] = _gate_array("water hf_gradient sum", g.sum(axis=0), 0.0, 1e-9)
+
+    t0 = time.perf_counter()
+    _, g, _ = ks_gradient(mol, "b3lyp", device=device)
+    out["b3lyp_gradient_s"] = _sync_s(t0, device)
+    g = g.cpu().numpy()
+    out["b3lyp_dev"] = _gate_array("water b3lyp gradient", g, GRAD_B3LYP_WATER, 1e-7)
+    fd = _fd_components(lambda x: SCFEngine(mol, xc="b3lyp", coords=x, conv_tol=1e-12,
+                                            dm_conv_tol=1e-10, max_cycle=200,
+                                            device=device).kernel().e_tot,
+                        mol.coords, picks)
+    out["b3lyp_fd_dev"] = _gate_array("water b3lyp gradient vs FD", [g[p] for p in picks],
+                                      [fd[p] for p in picks], 1e-6)
+    _, g, _ = ks_gradient(mol, "cam-b3lyp", device=device)
+    out["camb3lyp_dev"] = _gate_array("water cam-b3lyp gradient", g.cpu().numpy(),
+                                      GRAD_CAMB3LYP_WATER, 1e-7)
+
+    t0 = time.perf_counter()
+    x_opt, e_opt, steps, ok = optimize_geometry(mol, gtol=1e-6, device=device)
+    out.update(optimize_s=_sync_s(t0, device), optimize_steps=steps,
+               optimize_x_dev=float(np.max(np.abs(x_opt - np.asarray(X_OPT_WATER)))))
+    if not ok:
+        raise RuntimeError("water optimize_geometry did not converge")
+    _gate("water optimize_geometry", [("e_min", e_opt, E_OPT_WATER)], 1e-8)
+
+    t0 = time.perf_counter()
+    freqs, modes, _ = harmonic_frequencies(mol, coords=X_OPT_WATER, device=device)
+    out["hessian_s"] = _sync_s(t0, device)
+    out["freq_dev"] = _gate_array("water frequencies", freqs[-3:], FREQ_WATER, 0.5)
+    out["tr_max"] = _gate_array("water TR modes", freqs[:6], 0.0, 30.0)
+    t0 = time.perf_counter()
+    mu_x = dipole_derivative_fd(mol, coords=X_OPT_WATER, device=device)
+    out["dipole_derivative_s"] = _sync_s(t0, device)
+    ir = ir_intensities(mol, modes, mu_x=mu_x)[-3:]
+    out["ir_rel_dev"] = _gate_array("water IR intensities", ir / np.asarray(IR_WATER), 1.0,
+                                    1e-3)
+    thermo = thermochemistry(mol, freqs, coords=X_OPT_WATER)
+    s_cal = thermo["s_tot"] * HA_PER_K_TO_CAL_MOL_K
+    _gate("water thermochemistry", [("zpe", thermo["zpe"], ZPE_WATER)], 1e-8)
+    _gate("water thermochemistry", [("s_tot cal/(mol K)", s_cal, S_WATER)], 1e-3)
+    out.update(e_opt=e_opt, freqs=freqs[-3:].tolist(), ir=ir.tolist(), zpe=thermo["zpe"],
+               s_cal=s_cal)
+    print("water_derivatives", json.dumps(out), flush=True)
+
+
+def run_acetonitrile_derivatives(device="cuda"):
+    """The acetonitrile molecule (STO-3G, nao 18, M = 324): UHF and
+    B3LYP5 gradients within 1e-7 Ha/bohr of nbed_tpu's; the HF Hessian by
+    central differences over 36 displaced SCFs, symmetric to 1e-12, its
+    translational sum rule within 5e-6 and within 1e-6 Ha/bohr^2 of
+    nbed_tpu's."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.solvers import hessian_fd, hf_gradient, ks_gradient
+
+    mol = build_molecule(ACETONITRILE, "sto-3g")
+    out = {}
+    t0 = time.perf_counter()
+    _, g, _ = hf_gradient(mol, device=device)
+    out["hf_gradient_s"] = _sync_s(t0, device)
+    out["hf_dev"] = _gate_array("acetonitrile hf_gradient", g.cpu().numpy(), GRAD_HF_PRA,
+                                1e-7)
+    t0 = time.perf_counter()
+    _, g, _ = ks_gradient(mol, "b3lyp5", device=device)
+    out["b3lyp5_gradient_s"] = _sync_s(t0, device)
+    out["b3lyp5_dev"] = _gate_array("acetonitrile b3lyp5 gradient", g.cpu().numpy(),
+                                    GRAD_B3LYP5_PRA, 1e-7)
+    t0 = time.perf_counter()
+    hess = hessian_fd(mol, device=device)
+    out["hessian_s"] = _sync_s(t0, device)
+    out["hessian_asym"] = _gate_array("acetonitrile Hessian symmetry", hess, hess.T, 1e-12)
+    out["sum_rule"] = _gate_array("acetonitrile Hessian sum rule",
+                                  hess.reshape(18, 6, 3).sum(axis=1), 0.0, 5e-6)
+    ref = np.zeros((18, 18))
+    ref[np.triu_indices(18)] = HESS_PRA_UPPER
+    ref = ref + np.triu(ref, 1).T
+    out["hessian_dev"] = _gate_array("acetonitrile Hessian", hess, ref, 1e-6)
+    print("acetonitrile_derivatives", json.dumps(out), flush=True)
+
+
+def run_water_ccpvdz_gradient(device="cuda"):
+    """Water/cc-pVDZ (nao 24, d shells, M = 576): the torch ERI tensor within
+    1e-10 of the C++ engine's and torch V within 1e-11 of its V; the seconds
+    of eri_tensor forward and backward (a first and a second call); the UHF
+    energy within 1e-8 Ha of nbed_tpu's and its gradient within 1e-8
+    Ha/bohr of a five-point central difference of nbed_tpu's energies
+    (nbed_tpu's own analytic gradient is NaN here)."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.integrals import eri_tensor, native, nuclear_attraction
+    from nbed_tpu_torch.solvers import hf_gradient
+
+    mol = build_molecule(WATER.read_text(), "cc-pvdz")
+    out = {}
+    w = torch.tensor(np.random.default_rng(2).standard_normal((mol.nao,) * 4),
+                     device=device)
+    for call in ("first", "second"):
+        x = torch.tensor(mol.coords, device=device, requires_grad=True)
+        t0 = time.perf_counter()
+        g = eri_tensor(mol, x, device=device)
+        out[f"eri_forward_s_{call}"] = _sync_s(t0, device)
+        t0 = time.perf_counter()
+        torch.autograd.grad(torch.sum(w * g), x)
+        out[f"eri_backward_s_{call}"] = _sync_s(t0, device)
+    out["eri_dev"] = _gate_array("water cc-pVDZ eri_tensor", g.detach().cpu().numpy(),
+                                 native.eri(mol), 1e-10)
+    out["v_dev"] = _gate_array("water cc-pVDZ V", nuclear_attraction(mol, device=device)
+                               .cpu().numpy(), native.one_electron(mol)[2], 1e-11)
+    t0 = time.perf_counter()
+    e, g, res = hf_gradient(mol, conv_tol=1e-12, dm_conv_tol=1e-10, max_cycle=200,
+                            device=device)
+    out.update(hf_gradient_s=_sync_s(t0, device), e_tot=e, scf_cycles=res.n_iter)
+    _gate("water cc-pVDZ hf_gradient", [("e_tot", e, E_UHF_WATER_DZ)], 1e-8)
+    out["hf_dev"] = _gate_array("water cc-pVDZ hf_gradient", g.cpu().numpy(),
+                                GRAD_FD_WATER_DZ, 1e-8)
+    print("water_ccpvdz_gradient", json.dumps(out), flush=True)
+
+
 def run_water_qse(sq, nelec, params, e_vqe, device="cuda"):
     """QSE on water's mu-embedded register (10 qubits) of the water_vqe
     phase: the singles pool on the reference determinant gives the CIS
@@ -1581,8 +1884,9 @@ def build_all():
 # plain torch, as they are XLA in the reference
 F64 = ("fused_jk_f64",)
 MIXED = ("fused_jk_f64", "fused_jk_f32")
-# the phases of the post-SCF slice, summarised together at the end
-NEW_PHASES = ("water_global", "acetonitrile_post", "h2_stability", "water_qse", "pfoa_post")
+# the phases of the post-SCF and derivatives slices, summarised at the end
+NEW_PHASES = ("water_global", "acetonitrile_post", "h2_stability", "water_qse", "pfoa_post",
+              "water_derivatives", "acetonitrile_derivatives", "water_ccpvdz_gradient")
 
 
 def main():
@@ -1643,6 +1947,9 @@ def main():
         ("water_global", run_water_global, F64),
         ("acetonitrile_post", run_acetonitrile_post, F64),
         ("h2_stability", run_h2_stability, F64),
+        ("water_derivatives", run_water_derivatives, F64),
+        ("acetonitrile_derivatives", run_acetonitrile_derivatives, F64),
+        ("water_ccpvdz_gradient", run_water_ccpvdz_gradient, F64),
         ("water_functionals", run_water_functionals, F64),
         ("methyl_rohf", run_methyl_rohf, F64), ("water_qmmm", run_water_qmmm, F64),
         ("acetonitrile_camb3lyp", run_acetonitrile_camb3lyp, F64),

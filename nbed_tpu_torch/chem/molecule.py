@@ -236,19 +236,26 @@ class Molecule:
         """Nuclear repulsion, plus the nuclei's interaction with the MM
         charges taken as bare point charges (radii only smear the
         electronic term, as in the reference)."""
+        return float(self.energy_nuc_tensor(coords))
+
+    def energy_nuc_tensor(self, coords=None) -> torch.Tensor:
+        """:meth:`energy_nuc` as a 0-d tensor on the device of ``coords``
+        (a tensor that autograd follows, or an array for the CPU)."""
         r = torch.as_tensor(self.coords if coords is None else coords, dtype=DTYPE)
-        z = torch.tensor(self.atom_charges, dtype=DTYPE)
-        eye = torch.eye(self.natm, dtype=DTYPE)
+        dev = r.device
+        z = torch.tensor(self.atom_charges, dtype=DTYPE, device=dev)
+        eye = torch.eye(self.natm, dtype=DTYPE, device=dev)
         diff = r[:, None, :] - r[None, :, :]
         dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + eye)
         pair = z[:, None] * z[None, :] / dist
         e = 0.5 * torch.sum(pair * (1.0 - eye))
         if self.mm_coords is not None:
             d_mm = torch.linalg.norm(
-                r[:, None, :] - torch.as_tensor(self.mm_coords, dtype=DTYPE)[None], dim=-1)
-            e = e + torch.sum(z[:, None] * torch.as_tensor(self.mm_charges, dtype=DTYPE)[None]
-                              / d_mm)
-        return float(e)
+                r[:, None, :] - torch.as_tensor(self.mm_coords, dtype=DTYPE, device=dev)[None],
+                dim=-1)
+            e = e + torch.sum(z[:, None] * torch.as_tensor(
+                self.mm_charges, dtype=DTYPE, device=dev)[None] / d_mm)
+        return e
 
 
 def parse_xyz(text: str, unit: str = "angstrom"):

@@ -147,14 +147,15 @@ def make_xc_fn(ao, ao_grad, weights, xc_name: str, chunk: int = TABLE_CHUNK,
 
 
 def make_xc_fn_streaming(mol, points, weights, xc_name: str, chunk: int = STREAM_CHUNK,
-                         dtype=None, differentiable: bool = False):
+                         dtype=None, differentiable: bool = False, coords=None):
     """``xc_fn(dm) -> (exc, vxc (2, nao, nao))`` that evaluates the AO values
     and gradients per grid chunk: O(chunk * nao) memory instead of
     O(G * nao) (``nbed_tpu/dft/xc.py:148-188``). The last chunk is short
     where the reference pads with far-away points; the sums are the same.
     AOs are evaluated in the points' dtype and the quadrature runs in
     ``dtype`` (default: the points'). None for a functional with no grid
-    terms; ``differentiable`` as in :func:`_chunk_math`."""
+    terms; ``differentiable`` as in :func:`_chunk_math`; ``coords`` (Bohr)
+    places the atoms, the molecule's by default."""
     terms = resolve_functional(xc_name)[0]
     if not terms:
         return None
@@ -169,7 +170,7 @@ def make_xc_fn_streaming(mol, points, weights, xc_name: str, chunk: int = STREAM
                         device=points.device)
         for g0 in range(0, n_points, chunk):
             sl = slice(g0, g0 + chunk)
-            ao_c, grad_c = eval_aos(mol, points[sl])
+            ao_c, grad_c = eval_aos(mol, points[sl], coords)
             exc_c, v_c = one_chunk(ao_c.to(dtype), grad_c.to(dtype), weights[sl], dm)
             exc = exc + exc_c
             v = v + v_c

@@ -1,8 +1,10 @@
-"""Public entry point: ``nbed(config | path | kwargs, device=...)``."""
+"""Public entry point: ``nbed(config | path | kwargs, device=...)``, and the
+command line ``nbed-tpu-torch --config <file.json> [--device cuda|cpu]``
+(also ``python -m nbed_tpu_torch.embed``)."""
 
 from .config import NbedConfig, parse_config
 
-__all__ = ["nbed"]
+__all__ = ["nbed", "cli"]
 
 
 def nbed(config: "NbedConfig | str | None" = None, device="cuda", **config_kwargs):
@@ -21,3 +23,22 @@ def nbed(config: "NbedConfig | str | None" = None, device="cuda", **config_kwarg
     driver = NbedDriver(parse_config(config, **config_kwargs), device=device)
     driver.embed()
     return driver
+
+
+def cli(argv=None) -> None:
+    """Console entry point: set up logging (``.nbed.log``), run the config
+    on the device asked for and print the classical energy of each
+    projector's embedded result."""
+    from .utils import parse, setup_logs
+
+    setup_logs()
+    config, device = parse(argv)
+    driver = nbed(config, device=device)
+    for name in ("mu", "huzinaga"):
+        result = getattr(driver, name, None)
+        if result:
+            print(f"{name}: classical_energy = {result['classical_energy']!r}")
+
+
+if __name__ == "__main__":
+    cli()

@@ -1,15 +1,20 @@
 """Grid construction and AO evaluation on grid points (port of
-``nbed_tpu/grids/grid.py``, scheme ``"reference"``).
+``nbed_tpu/grids/grid.py``).
 
-The reference scheme replicates the grid the upstream code inherits from
-PySCF: per-element Treutler-Ahlrichs M4 radial maps, Lebedev angular rules,
-NWChem pruning and Becke partitioning with Treutler's atomic-size
-adjustment. The static layout (atom-relative points and base weights) is
-host numpy; the Becke weights and AO tables are torch on the molecule's
-device, in float64. The public layout is the reference's: ``ao`` is
-point-major ``(G, nao)``, ``ao_grad`` is ``(3, G, nao)``.
+Two quadrature schemes, as in the reference. ``scheme="reference"`` (the
+default) replicates the grid the upstream code inherits from PySCF:
+per-element Treutler-Ahlrichs M4 radial maps, Lebedev angular rules, NWChem
+pruning and Becke partitioning with Treutler's atomic-size adjustment.
+``scheme="product"`` is a Mura-Knowles x Gauss-Legendre product grid with
+Becke's own size adjustment, for convergence studies at any degree.
 
-Not ported: the ``"product"`` grid scheme (convergence studies only).
+The static layout (atom-relative points and base weights) is host numpy;
+the points, Becke weights and AO tables are torch on the device, in
+float64, and pure functions of the coordinates: given ``coords`` as a
+tensor, autograd follows the grid's response to the nuclei (the KS
+gradients' grid response, ``solvers/gradients.py``). The public layout is
+the reference's: ``ao`` is point-major ``(G, nao)``, ``ao_grad`` is
+``(3, G, nao)``.
 """
 
 from dataclasses import dataclass
@@ -37,6 +42,16 @@ _ANGSTROM_TO_BOHR = 1.0 / 0.52917721092
 
 def _bragg_bohr(z: int) -> float:
     return _BRAGG.get(int(z), 1.5) * _ANGSTROM_TO_BOHR
+
+
+def _radial_mura_knowles(n: int, alpha: float = 5.0):
+    """Mura-Knowles Log3 radial grid: r = -alpha ln(1 - x^3), with weights
+    r^2 dr/dx / n."""
+    i = np.arange(n)
+    x = (i + 0.5) / n
+    r = -alpha * np.log(1.0 - x**3)
+    w = (alpha * 3.0 * x**2 / (1.0 - x**3)) / n * r**2
+    return r, w
 
 
 def _radial_treutler(n: int):
@@ -137,6 +152,21 @@ def _nwchem_prune(z: int, rads: np.ndarray, n_ang: int) -> np.ndarray:
     return np.array([n if _has_rule(n) else avail[-1] for n in angs])
 
 
+def _angular_product(n_theta: int):
+    """Gauss-Legendre in cos(theta) x uniform azimuth (2 n_theta angles)."""
+    xt, wt = np.polynomial.legendre.leggauss(n_theta)
+    n_phi = 2 * n_theta
+    phi = 2.0 * np.pi * np.arange(n_phi) / n_phi
+    wp = 2.0 * np.pi / n_phi
+    ct = xt[:, None]
+    st = np.sqrt(1.0 - ct**2)
+    x = (st * np.cos(phi)[None, :]).ravel()
+    y = (st * np.sin(phi)[None, :]).ravel()
+    z = np.broadcast_to(ct, (n_theta, n_phi)).ravel()
+    w = np.broadcast_to(wt[:, None] * wp, (n_theta, n_phi)).ravel()
+    return np.stack([x, y, z], axis=1), w
+
+
 @dataclass(eq=False)
 class MolecularGrid:
     """Static grid metadata; ``points``/``weights`` from :func:`build_grid`."""
@@ -145,6 +175,25 @@ class MolecularGrid:
     base_weights: np.ndarray  # (G,) radial*angular weights (no partition)
     atom_of_point: np.ndarray  # (G,) owning atom index
     size: int
+
+
+@lru_cache(maxsize=32)
+def _grid_meta_product(mol: Molecule, n_rad: int, n_theta: int) -> MolecularGrid:
+    ang_pts, ang_w = _angular_product(n_theta)
+    rel, w, owner = [], [], []
+    for ia, z in enumerate(mol.atom_charges):
+        alpha = 5.0 if z > 1 else 3.2  # tighter shells for H
+        r, wr = _radial_mura_knowles(n_rad, alpha)
+        rel.append((r[:, None, None] * ang_pts[None, :, :]).reshape(-1, 3))
+        w.append((wr[:, None] * ang_w[None, :]).reshape(-1))
+        owner.append(np.full(n_rad * len(ang_w), ia))
+    rel = np.concatenate(rel)
+    return MolecularGrid(
+        rel_points=rel,
+        base_weights=np.concatenate(w),
+        atom_of_point=np.concatenate(owner),
+        size=len(rel),
+    )
 
 
 @lru_cache(maxsize=32)
@@ -168,18 +217,30 @@ def _grid_meta_reference(mol: Molecule, level: int) -> MolecularGrid:
     )
 
 
-def _becke_weights(points, owner, coords, bragg_radii, chunk=32768):
-    """Becke fuzzy-cell partition weights (k=3 smoothing) with Treutler's
-    atomic-size adjustment a_ij = (chi_ji - chi_ij)/4,
-    chi_ij = sqrt(R_i/R_j) clipped to +-1/2. Evaluated in chunks of
-    ``chunk`` points to bound the (g, natm, natm) intermediate."""
+def _becke_weights(points, owner, coords, bragg_radii, chunk=32768, adjust="treutler"):
+    """Becke fuzzy-cell partition weights (k=3 smoothing). Becke, JCP 88,
+    2547 (1988). ``adjust="treutler"``: Treutler's atomic-size adjustment
+    a_ij = (chi_ji - chi_ij)/4, chi_ij = sqrt(R_i/R_j), clipped to +-1/2;
+    ``adjust="becke"``: Becke's appendix formula on the plain radius ratio.
+    Evaluated in chunks of ``chunk`` points to bound the (g, natm, natm)
+    intermediate.
+
+    The clips act on the radii alone, so no coordinate gradient passes
+    them; the diagonal guard sits inside the square root of the
+    interatomic distances (sqrt(0) has an infinite derivative), which keeps
+    the weights differentiable in ``coords``."""
     natm = coords.shape[0]
     eye = torch.eye(natm, dtype=coords.dtype, device=coords.device)
     dvec = coords[:, None, :] - coords[None, :, :]
     rij = torch.sqrt(torch.sum(dvec * dvec, dim=-1) + eye)
-    rad = torch.sqrt(bragg_radii)
-    chi = rad[:, None] / rad[None, :]
-    a = torch.clamp(0.25 * (1.0 / chi - chi), -0.5, 0.5)
+    if adjust == "treutler":
+        rad = torch.sqrt(bragg_radii)
+        chi = rad[:, None] / rad[None, :]
+        a = torch.clamp(0.25 * (1.0 / chi - chi), -0.5, 0.5)
+    else:
+        chi = bragg_radii[:, None] / bragg_radii[None, :]
+        u = (chi - 1.0) / (chi + 1.0)
+        a = torch.clamp(u / (u * u - 1.0), -0.5, 0.5)
     diag = eye.bool()[None, :, :]
 
     def wpart(pts, own):
@@ -199,27 +260,45 @@ def _becke_weights(points, owner, coords, bragg_radii, chunk=32768):
                       for i in range(0, points.shape[0], chunk)])
 
 
-def build_grid(mol: Molecule, device="cuda", level: int = 3):
-    """(points (G, 3), weights (G,)) for XC quadrature on ``device``."""
-    device = resolve_device(device)
-    meta = _grid_meta_reference(mol, level)
-    c = torch.as_tensor(mol.coords, dtype=DTYPE, device=device)
+def build_grid(mol: Molecule, coords=None, n_rad: int = 80, n_theta: int = 18,
+               scheme: str = "reference", level: int = 3, device="cuda"):
+    """(points (G, 3), weights (G,)) for XC quadrature on ``device``.
+
+    A pure function of ``coords`` (Bohr; the molecule's by default): each
+    point is its atom-relative offset plus its owning atom's coordinates,
+    so autograd follows points and weights. ``scheme="reference"`` ignores
+    ``n_rad``/``n_theta`` and takes the per-element level-``level``
+    defaults; ``scheme="product"`` ignores ``level``.
+    """
+    if scheme == "reference":
+        meta = _grid_meta_reference(mol, level)
+        adjust = "treutler"
+    elif scheme == "product":
+        meta = _grid_meta_product(mol, n_rad, n_theta)
+        adjust = "becke"
+    else:
+        raise ValueError(f"Unknown grid scheme '{scheme}'")
+    c = torch.as_tensor(mol.coords if coords is None else coords, dtype=DTYPE,
+                        device=resolve_device(device))
+    device = c.device
     owner = torch.as_tensor(meta.atom_of_point, device=device)
     points = torch.as_tensor(meta.rel_points, dtype=DTYPE, device=device) + c[owner]
     bragg = torch.tensor([_bragg_bohr(int(z)) for z in mol.atom_charges],
                          dtype=DTYPE, device=device)
-    becke = _becke_weights(points, owner, c, bragg)
+    becke = _becke_weights(points, owner, c, bragg, adjust=adjust)
     base = torch.as_tensor(meta.base_weights, dtype=DTYPE, device=device)
     return points, base * becke
 
 
-def eval_aos(mol: Molecule, points):
-    """AO values and gradients on grid points.
+def eval_aos(mol: Molecule, points, coords=None):
+    """AO values and gradients on grid points, for atoms at ``coords``
+    (Bohr; the molecule's by default), differentiable in both.
 
     Returns:
         ao: (G, nao); ao_grad: (3, G, nao).
     """
-    c = torch.as_tensor(mol.coords, dtype=points.dtype, device=points.device)
+    c = torch.as_tensor(mol.coords if coords is None else coords, dtype=points.dtype,
+                        device=points.device)
     vals, grads = [], []  # per shell: (nsph, G) and (3, nsph, G)
     for sh in mol.shells:
         rel = (points - c[sh.atom][None, :]).T  # (3, G)

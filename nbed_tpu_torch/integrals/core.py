@@ -1,17 +1,15 @@
 """One-electron integrals in torch: overlap, cross-basis overlap, kinetic
-energy and dipoles (port of the one-electron part of
-``nbed_tpu/integrals/core.py`` without point charges).
+energy, nuclear and point-charge attraction, and dipoles (port of
+``nbed_tpu/integrals/core.py``).
 
 Shell pairs are grouped into (la, lb, Ka, Kb) classes on the host, as in
 the reference; each class is one batched McMurchie-Davidson computation
 over its whole pair list (the reference ``vmap``s one pair), contracted
 over primitives, turned spherical and accumulated into the AO matrix by
 the class's precomputed indices. Every function is pure torch arithmetic
-on the coordinates, so autograd passes through it.
-
-Not ported yet: ``nuclear_attraction`` and ``point_charge_attraction``,
-which need the Boys function and ``hermite_r`` (ROADMAP queue 1 item 12).
-V, with the MM charges, stays on the C++ engine (``integrals.native``).
+on the coordinates (the molecule's and the point charges'), so autograd
+passes through it. The SCF engine keeps the host C++ engine
+(``integrals.native``) for its own V; these serve the nuclear gradients.
 """
 
 from functools import lru_cache
@@ -21,9 +19,10 @@ import torch
 
 from .._device import DTYPE, resolve_device
 from ..chem.molecule import Molecule, cartesian_components
-from .md import e_table_1d
+from .md import e_table_1d, hermite_r
 
-__all__ = ["overlap", "overlap_cross", "kinetic", "dipole_integrals"]
+__all__ = ["overlap", "overlap_cross", "kinetic", "nuclear_attraction",
+           "point_charge_attraction", "dipole_integrals"]
 
 
 # --------------------------------------------------------------------------
@@ -138,6 +137,46 @@ def _kinetic_prim(la, lb):
     return f
 
 
+def _e3_tensor(la, lb, a, b, ab_vec):
+    """Combined Hermite expansion E3[..., ca, cb, t, u, v]."""
+    pa, pb = _comp_powers(la), _comp_powers(lb)
+    ex, ey, ez = (e[..., pa[d][:, None], pb[d][None, :], :]
+                  for d, e in enumerate(_e_tables(la, lb, a, b, ab_vec)))
+    return torch.einsum("...abt,...abu,...abv->...abtuv", ex, ey, ez)
+
+
+def _nuclear_prim(la, lb):
+    """Attraction to point charges ``charges`` (N,) at ``centers`` (N, 3)."""
+    lmax = la + lb
+
+    def f(ra, rb, a, b, centers, charges):
+        p = a + b
+        big_p = (a[..., None] * ra + b[..., None] * rb) / p[..., None]  # (..., 3)
+        e3 = _e3_tensor(la, lb, a, b, ra - rb)
+        r = hermite_r(lmax, p[..., None], big_p[..., None, :] - centers)  # (..., N, T, T, T)
+        rz = torch.einsum("...ntuv,n->...tuv", r, -charges)
+        return (2 * np.pi / p)[..., None, None] * torch.einsum("...abtuv,...tuv->...ab", e3, rz)
+
+    return f
+
+
+def _smeared_prim(la, lb):
+    """Attraction to Gaussian charges of exponents ``etas`` (QM/MM with
+    radii)."""
+    lmax = la + lb
+
+    def f(ra, rb, a, b, centers, charges, etas):
+        p = a + b
+        big_p = (a[..., None] * ra + b[..., None] * rb) / p[..., None]
+        e3 = _e3_tensor(la, lb, a, b, ra - rb)
+        pn = p[..., None]  # (..., 1) against the charges' axis
+        r = hermite_r(lmax, pn * etas / (pn + etas), big_p[..., None, :] - centers)
+        pref = -charges * (2 * np.pi / pn) * torch.sqrt(etas / (pn + etas))  # (..., N)
+        return torch.einsum("...abtuv,...ntuv,...n->...ab", e3, r, pref)
+
+    return f
+
+
 def _dipole_prim(la, lb):
     pa, pb = _comp_powers(la), _comp_powers(lb)
 
@@ -162,9 +201,10 @@ def _dipole_prim(la, lb):
 # assembly
 # --------------------------------------------------------------------------
 
-def _contract_pairs(table: _PairTable, coords_a, coords_b, prim_factory):
+def _contract_pairs(table: _PairTable, coords_a, coords_b, prim_factory, extra=()):
     """One class: primitive integrals over the whole pair list, contracted
-    and made spherical -> (P, [3,] nsa, nsb)."""
+    and made spherical -> (P, [3,] nsa, nsb). ``extra`` tensors (point
+    charges) follow the primitive arguments."""
     dev = coords_a.device
 
     def t(a):
@@ -173,12 +213,13 @@ def _contract_pairs(table: _PairTable, coords_a, coords_b, prim_factory):
     ra = coords_a[torch.as_tensor(table.atom_a, device=dev)][:, None, None, :]
     rb = coords_b[torch.as_tensor(table.atom_b, device=dev)][:, None, None, :]
     fij = prim_factory(table.la, table.lb)(
-        ra, rb, t(table.exps_a)[:, :, None], t(table.exps_b)[:, None, :])
+        ra, rb, t(table.exps_a)[:, :, None], t(table.exps_b)[:, None, :], *extra)
     block = torch.einsum("pi,pj,pij...->p...", t(table.coefs_a), t(table.coefs_b), fij)
     return torch.einsum("p...ab,pax,pby->p...xy", block, t(table.c2s_a), t(table.c2s_b))
 
 
-def _assemble(mol_a, mol_b, coords_a, coords_b, prim_factory, symmetric, n_ops=None):
+def _assemble(mol_a, mol_b, coords_a, coords_b, prim_factory, symmetric, n_ops=None,
+              extra=()):
     """Accumulate every class into the (nao_a, nao_b) matrix, or the
     (n_ops, nao_a, nao_b) stack, by index addition: several classes write
     the same entries only through the mirror of the symmetric case, and
@@ -187,7 +228,7 @@ def _assemble(mol_a, mol_b, coords_a, coords_b, prim_factory, symmetric, n_ops=N
     shape = (mol_a.nao * mol_b.nao,) if n_ops is None else (n_ops, mol_a.nao * mol_b.nao)
     out = torch.zeros(shape, dtype=DTYPE, device=dev)
     for table in _pair_tables(mol_a, mol_b, symmetric):
-        blocks = _contract_pairs(table, coords_a, coords_b, prim_factory)
+        blocks = _contract_pairs(table, coords_a, coords_b, prim_factory, extra)
         if n_ops is None:
             vals = blocks.reshape(-1)
         else:
@@ -225,6 +266,33 @@ def kinetic(mol: Molecule, coords=None, device="cuda"):
     """Kinetic-energy matrix T (nao, nao)."""
     c = _coords(mol, coords, resolve_device(device))
     return _assemble(mol, mol, c, c, _kinetic_prim, symmetric=True)
+
+
+def nuclear_attraction(mol: Molecule, coords=None, device="cuda"):
+    """Nuclear-attraction matrix V (nao, nao) over the molecule's nuclei at
+    ``coords`` (the MM charges of a QM/MM molecule are not in it: see
+    :func:`point_charge_attraction`)."""
+    c = _coords(mol, coords, resolve_device(device))
+    z = torch.as_tensor(mol.atom_charges, dtype=DTYPE, device=c.device)
+    return _assemble(mol, mol, c, c, _nuclear_prim, symmetric=True, extra=(c, z))
+
+
+def point_charge_attraction(mol: Molecule, centers, charges, radii=None, coords=None,
+                            device="cuda"):
+    """External charge attraction added to hcore for QM/MM: point charges,
+    or with ``radii`` Gaussian charges of exponent 1/radii**2 (the
+    reference's convention). ``centers`` (N, 3) in Bohr; any argument may be
+    a tensor that autograd follows."""
+    c = _coords(mol, coords, resolve_device(device))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=DTYPE, device=c.device)
+
+    extra = (t(centers), t(charges))
+    if radii is None:
+        return _assemble(mol, mol, c, c, _nuclear_prim, symmetric=True, extra=extra)
+    return _assemble(mol, mol, c, c, _smeared_prim, symmetric=True,
+                     extra=extra + (1.0 / t(radii) ** 2,))
 
 
 def dipole_integrals(mol: Molecule, coords=None, device="cuda"):

@@ -1,0 +1,191 @@
+"""Two-electron repulsion integrals in torch, chemist notation (ab|cd)
+(port of ``nbed_tpu/integrals/eri.py``).
+
+Shell quartets are canonicalised (a>=b, c>=d, pair(ab)>=pair(cd)), rotated
+to an l-sorted representative of their 8-fold permutation orbit and grouped
+by angular class ``(la, lb, lc, ld)``, as in the reference. Every primitive
+quartet of a class is one row of a flat work list; the rows run through one
+batched McMurchie-Davidson computation per chunk (the reference ``vmap``s
+one row) and are summed into per-quartet cartesian blocks, which the
+per-shell cart2sph matrices turn spherical.
+
+The tensor is assembled by one gather: each of the nao^4 elements reads the
+one spherical value whose permutation orbit it lies in. The reference
+instead scatters every value to its 8 images with ``.at[].set``, where
+quartets with repeated shells write some elements twice; JAX's scatter JVP
+sends such an element's cotangent to the one update that wins, while
+torch's ``index_put`` backward would send it to every update and double the
+gradient. With the gather each element has exactly one source, and the
+backward (an index-add over the elements) sums the cotangents of all images
+of a value, which is the derivative. Everything is torch arithmetic on the
+coordinates, so autograd passes through; the SCF engine keeps the host C++
+engine for its own ERIs.
+"""
+
+from functools import lru_cache
+from itertools import product
+
+import numpy as np
+import torch
+
+from .._device import DTYPE, resolve_device
+from ..chem.molecule import Molecule
+from .core import _coords, _e3_tensor
+from .md import hermite_r_cross
+
+__all__ = ["eri_tensor"]
+
+_PERMS = ((0, 1, 2, 3), (1, 0, 2, 3), (0, 1, 3, 2), (1, 0, 3, 2),
+          (2, 3, 0, 1), (3, 2, 0, 1), (2, 3, 1, 0), (3, 2, 1, 0))
+
+
+def _l_sorted(q, shells):
+    """Rotate a quartet to the l-sorted representative of its 8-orbit:
+    l_a >= l_b, l_c >= l_d, (l_a, l_b) >= (l_c, l_d)."""
+    a, b, c, d = q
+    if shells[a].l < shells[b].l:
+        a, b = b, a
+    if shells[c].l < shells[d].l:
+        c, d = d, c
+    if (shells[a].l, shells[b].l) < (shells[c].l, shells[d].l):
+        a, b, c, d = c, d, a, b
+    return (a, b, c, d)
+
+
+def _canonical_quartets(nsh):
+    """Canonical (a, b, c, d) with a>=b, c>=d, pair(ab)>=pair(cd)."""
+    pairs = [(i, j) for i in range(nsh) for j in range(i + 1)]
+    return [(*pairs[pi], *pairs[qi]) for pi in range(len(pairs)) for qi in range(pi + 1)]
+
+
+class _AngularClass:
+    """Host arrays of one (la, lb, lc, ld) class: the flattened primitive
+    work list (``prim_*``, one row per primitive quartet, ``prim_qid`` its
+    quartet) and the per-quartet spherical rotations ``c2s``."""
+
+    def __init__(self, ls, quartets, shells):
+        self.ls = ls
+        sh = [[shells[i] for i in q] for q in quartets]
+        self.m = len(quartets)
+        self.c2s = [np.array([q[k].cart2sph for q in sh]) for k in range(4)]
+        self.ncart = [(l + 1) * (l + 2) // 2 for l in ls]
+        self.nsph = [2 * l + 1 for l in ls]
+        exps, coefs, qid, atoms = [], [], [], []
+        for mi, q in enumerate(sh):
+            for combo in product(*[list(zip(s.exps, s.coeffs)) for s in q]):
+                exps.append([p[0] for p in combo])
+                coefs.append(np.prod([p[1] for p in combo]))
+                qid.append(mi)
+                atoms.append([s.atom for s in q])
+        self.prim_exps = np.array(exps)  # (P, 4)
+        self.prim_coef = np.array(coefs)  # (P,)
+        self.prim_qid = np.array(qid, dtype=np.int64)  # (P,)
+        self.prim_atoms = np.array(atoms, dtype=np.int64)  # (P, 4)
+        self.n_prim = len(qid)
+        # AO index of each element of the (M, na, nb, nc, nd) spherical block
+        offs = [np.array([q[k].ao_offset for q in sh]) for k in range(4)]
+        grids = np.meshgrid(*[np.arange(n) for n in self.nsph], indexing="ij")
+        self.ao_index = [(offs[k][:, None, None, None, None] + grids[k][None]).reshape(-1)
+                         for k in range(4)]
+
+
+def _angular_classes(mol: Molecule):
+    """The classes of ``mol``, and for each element of the flat (nao^4,)
+    tensor the index of its value in the concatenation of the classes'
+    spherical blocks (every element lies in exactly one orbit)."""
+    shells = mol.shells
+    groups = {}
+    for q in _canonical_quartets(len(shells)):
+        q = _l_sorted(q, shells)
+        groups.setdefault(tuple(shells[i].l for i in q), []).append(q)
+    classes = [_AngularClass(ls, qs, shells) for ls, qs in sorted(groups.items())]
+    n = mol.nao
+    source = np.full(n ** 4, -1, dtype=np.int64)
+    offset = 0
+    for cls in classes:
+        idx = cls.ao_index
+        vals = offset + np.arange(idx[0].size)
+        for perm in _PERMS:
+            # the image puts the block's index k in slot perm.index(k)
+            i, j, k, l = (idx[perm.index(slot)] for slot in range(4))
+            # repeated shells map several (equal) values to one element:
+            # any of them is that element's one source
+            source[((i * n + j) * n + k) * n + l] = vals
+        offset += idx[0].size
+    assert (source >= 0).all(), "ERI orbits do not cover the tensor"
+    return classes, source
+
+
+@lru_cache(maxsize=4)
+def _device_tables(mol: Molecule, device: torch.device):
+    """The tables of :func:`_angular_classes` copied to ``device`` once per
+    (molecule, device), so that repeated calls (the displaced gradients of a
+    Hessian, the steps of an optimization) do only arithmetic: for each class
+    its (exps, coef, qid, atoms, c2s) tensors, then the gather index."""
+    classes, source = _angular_classes(mol)
+    tables = [(torch.as_tensor(cls.prim_exps, dtype=DTYPE, device=device),
+               torch.as_tensor(cls.prim_coef, dtype=DTYPE, device=device),
+               torch.as_tensor(cls.prim_qid, device=device),
+               torch.as_tensor(cls.prim_atoms, device=device),
+               [torch.as_tensor(m, dtype=DTYPE, device=device) for m in cls.c2s])
+              for cls in classes]
+    return classes, tables, torch.as_tensor(source, device=device)
+
+
+def _class_rows(ls, coords, exps, coef, atoms, omega):
+    """Cartesian blocks (rows, nca, ncb, ncc, ncd) of a chunk of primitive
+    quartet rows, each scaled by its contraction coefficient."""
+    la, lb, lc, ld = ls
+    ra, rb, rc, rd = (coords[atoms[:, k]] for k in range(4))
+    a, b, c, d = (exps[:, k] for k in range(4))
+    p, q = a + b, c + d
+    big_p = (a[:, None] * ra + b[:, None] * rb) / p[:, None]
+    big_q = (c[:, None] * rc + d[:, None] * rd) / q[:, None]
+    e_ab = _e3_tensor(la, lb, a, b, ra - rb)  # (rows, nca, ncb, T, T, T)
+    e_cd = _e3_tensor(lc, ld, c, d, rc - rd)
+    r4 = hermite_r_cross(la + lb, lc + ld, p * q / (p + q), big_p - big_q, omega=omega)
+    rows = exps.shape[0]
+    nab = e_ab.shape[1] * e_ab.shape[2]
+    ncd = e_cd.shape[1] * e_cd.shape[2]
+    t3 = (la + lb + 1) ** 3
+    u3 = (lc + ld + 1) ** 3
+    pref = coef * 2.0 * np.pi ** 2.5 / (p * q * torch.sqrt(p + q))
+    out = torch.bmm(torch.bmm(e_ab.reshape(rows, nab, t3), r4.reshape(rows, t3, u3)),
+                    e_cd.reshape(rows, ncd, u3).transpose(1, 2))
+    return (pref[:, None, None] * out).reshape(rows, *e_ab.shape[1:3], *e_cd.shape[1:3])
+
+
+def eri_tensor(mol: Molecule, coords=None, chunk_elems: int = 2**22, omega=None,
+               device="cuda"):
+    """Full AO ERI tensor (nao, nao, nao, nao), chemist notation (ij|kl), on
+    ``device``.
+
+    A pure function of ``coords`` (Bohr; the molecule's by default):
+    autograd gives its nuclear derivatives. Only canonical quartets are
+    computed. ``chunk_elems`` bounds the per-chunk intermediates: a chunk of
+    a class holds at most ``chunk_elems`` elements of the larger of its
+    cartesian block and its Hermite R4 tensor per row (at least 16 rows).
+    ``omega`` selects the long-range erf(omega*r12)/r12 kernel of
+    range-separated hybrids.
+    """
+    c = _coords(mol, coords, resolve_device(device))
+    dev = c.device
+    omega = None if omega is None else float(omega)
+    classes, tables, source = _device_tables(mol, dev)
+    vals = []
+    for cls, (exps, coef, qid, atoms, c2s) in zip(classes, tables):
+        la, lb, lc, ld = cls.ls
+        per_row = max(int(np.prod(cls.ncart)), (la + lb + 1) ** 3 * (lc + ld + 1) ** 3)
+        chunk = max(16, min(cls.n_prim, chunk_elems // per_row))
+        acc = torch.zeros((cls.m, *cls.ncart), dtype=DTYPE, device=dev)
+        for s in range(0, cls.n_prim, chunk):
+            sl = slice(s, s + chunk)
+            blocks = _class_rows(cls.ls, c, exps[sl], coef[sl], atoms[sl], omega)
+            acc = acc.index_add(0, qid[sl], blocks)
+        sph = torch.einsum("mabcd,map->mpbcd", acc, c2s[0])
+        sph = torch.einsum("mpbcd,mbq->mpqcd", sph, c2s[1])
+        sph = torch.einsum("mpqcd,mcr->mpqrd", sph, c2s[2])
+        sph = torch.einsum("mpqrd,mds->mpqrs", sph, c2s[3])
+        vals.append(sph.reshape(-1))
+    n = mol.nao
+    return torch.cat(vals)[source].reshape(n, n, n, n)

@@ -11,8 +11,9 @@ import torch
 from ._device import DTYPE, resolve_device
 from .chem.molecule import Molecule, Shell
 from .scf.engine import SCFEngine, SCFSolution
+from .scf.hf import SCFResult
 
-__all__ = ["molecule_from_reference", "solution_from_reference"]
+__all__ = ["molecule_from_reference", "solution_from_reference", "scf_result_from_reference"]
 
 
 def _optional_array(a):
@@ -71,7 +72,9 @@ def solution_from_reference(sol, device="cuda") -> SCFSolution:
         df_b=factor(ref._df_b) if density_fitting else None,
         df_b_lr=factor(ref._df_b_lr) if density_fitting and rsh else None,
         df_beta=float(ref.df_beta), max_memory_mb=float(ref.max_memory_mb),
-        rohf=bool(ref.rohf))
+        rohf=bool(ref.rohf), coords=np.array(ref.coords, dtype=np.float64),
+        grid_scheme=ref.grid_scheme, grid_level=int(ref.grid_level),
+        grid_size=tuple(int(x) for x in ref.grid_size))
     engine.s = tensor(ref.s)
     engine.hcore = tensor(ref.hcore)
     if not density_fitting:
@@ -88,3 +91,21 @@ def solution_from_reference(sol, device="cuda") -> SCFSolution:
         converged=bool(sol.converged), v_emb=tensor(sol.v_emb),
         huzinaga_op=tensor(sol.huzinaga_op),
     )
+
+
+def scf_result_from_reference(res, device="cuda") -> SCFResult:
+    """Port :class:`~nbed_tpu_torch.scf.hf.SCFResult` on ``device`` carrying
+    an ``nbed_tpu`` ``run_scf`` result: its density, MO coefficients,
+    energies and occupations, electronic energy, convergence flag, final
+    Fock, Huzinaga operator and cycle count (what ``hf_gradient`` takes as
+    ``scf_result``)."""
+    device = resolve_device(device)
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a), dtype=DTYPE, device=device)
+
+    return SCFResult(
+        mo_coeff=tensor(res.mo_coeff), mo_energy=tensor(res.mo_energy),
+        mo_occ=tensor(res.mo_occ), dm=tensor(res.dm), e_elec=float(res.e_elec),
+        converged=bool(res.converged), fock=tensor(res.fock),
+        huzinaga_op=tensor(res.huzinaga_op), n_iter=int(res.n_iter))

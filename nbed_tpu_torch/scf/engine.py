@@ -76,7 +76,7 @@ def _spinify(dm):
 
 
 def df_b_factor(mol, beta: float = 1.8, device="cuda",
-                timings: Optional[dict] = None, omega: float = 0.0):
+                timings: Optional[dict] = None, omega: float = 0.0, coords=None):
     """Metric-folded DF factor with (ab|cd) ~ sum_P B[a,P,b] B[c,P,d], as a
     float64 (nao, nkeep, nao) tensor on ``device`` (``nbed_tpu``'s
     ``df_b_factor``, ``engine.py:54-82``, stores the same numbers as
@@ -92,16 +92,17 @@ def df_b_factor(mol, beta: float = 1.8, device="cuda",
     on ``device``. B differs from the reference's by a rotation of the
     auxiliary axis (eigenvector freedom): compare B B^T, never B.
 
-    ``timings``, when given, receives the seconds of each part:
+    ``coords`` (Bohr) overrides the molecule's geometry. ``timings``, when
+    given, receives the seconds of each part:
     ``eri_3c``, ``eri_2c``, ``eigh`` (host) and ``product`` (device).
     """
     device = resolve_device(device)
     timings = {} if timings is None else timings
     aux = make_auxiliary_molecule(mol, beta=beta)
     t0 = time.perf_counter()
-    b3 = native.eri_3c(mol, aux, omega=omega)
+    b3 = native.eri_3c(mol, aux, coords, omega=omega)
     t1 = time.perf_counter()
-    m2 = native.eri_2c(aux, omega=omega)
+    m2 = native.eri_2c(aux, coords, omega=omega)
     t2 = time.perf_counter()
     w, v = np.linalg.eigh(m2)
     keep = w > 1e-10 * w.max()
@@ -204,6 +205,13 @@ class SCFEngine:
           J/K are exact even with density fitting, as in the reference:
           the float32 supermatrices are 2 * nao^4 * 4 bytes (2 GB at
           nao 126) beside the float64 ERI tensor they are cast from.
+        coords: geometry (Bohr) of every operator, the grid and the
+          nuclear repulsion, in place of ``mol.coords`` (the nuclear
+          gradients' displaced and optimized geometries).
+        grid_scheme, grid_level, grid_size: the XC grid (see
+          :func:`nbed_tpu_torch.grids.build_grid`): ``"reference"`` at
+          ``grid_level``, or ``"product"`` with ``grid_size`` = (radial
+          points, polar angles).
         incremental_jk: ``"on"``: the float64 SCF contracts each cycle's
           density change in float32 (exact or DF, as the engine is) and
           rebuilds J/K in float64 every ``rebase_every`` cycles, with
@@ -229,6 +237,10 @@ class SCFEngine:
     warmup_f32: bool = False
     incremental_jk: str = "off"  # "on" | "off" | "auto" (= off)
     rebase_every: int = 8  # float64 J/K rebuild period of the incremental SCF
+    grid_size: tuple = (96, 22)  # (n_radial, n_theta) for scheme="product"
+    grid_scheme: str = "reference"  # "reference" (PySCF-parity) | "product"
+    grid_level: int = 3  # per-element density level for scheme="reference"
+    coords: Optional[np.ndarray] = None  # geometry override (Bohr)
     # seconds of each part of this engine's factor builds (df_b_factor)
     df_timings: dict = field(default_factory=dict, init=False, repr=False)
     df_lr_timings: dict = field(default_factory=dict, init=False, repr=False)
@@ -240,7 +252,8 @@ class SCFEngine:
         if self.incremental_jk not in ("on", "off", "auto"):
             raise ValueError("incremental_jk must be 'on', 'off' or 'auto', "
                              f"got {self.incremental_jk!r}")
-        self.coords = self.mol.coords
+        self.coords = np.asarray(self.mol.coords if self.coords is None else self.coords,
+                                 dtype=np.float64)
 
     def _tensor(self, array):
         return torch.as_tensor(array, dtype=DTYPE, device=self.device)
@@ -291,7 +304,7 @@ class SCFEngine:
         """The DF factor B (nao, naux, nao), built on first use."""
         if self.df_b is None:
             self.df_b = df_b_factor(self.mol, self.df_beta, self.device,
-                                    timings=self.df_timings)
+                                    timings=self.df_timings, coords=self.coords)
         return self.df_b
 
     def df_factor_lr(self):
@@ -300,7 +313,7 @@ class SCFEngine:
         if self.df_b_lr is None:
             self.df_b_lr = df_b_factor(self.mol, self.df_beta, self.device,
                                        timings=self.df_lr_timings,
-                                       omega=self._rsh[1])
+                                       omega=self._rsh[1], coords=self.coords)
         return self.df_b_lr
 
     @property
@@ -318,7 +331,9 @@ class SCFEngine:
 
     @cached_property
     def _grid(self):
-        return build_grid(self.mol, self.device)
+        return build_grid(self.mol, self.coords, n_rad=self.grid_size[0],
+                          n_theta=self.grid_size[1], scheme=self.grid_scheme,
+                          level=self.grid_level, device=self.device)
 
     @cached_property
     def _xc_meta(self):
@@ -334,7 +349,7 @@ class SCFEngine:
 
     @cached_property
     def _ao_tables(self):
-        return eval_aos(self.mol, self._grid[0])
+        return eval_aos(self.mol, self._grid[0], self.coords)
 
     @property
     def _xc_streams(self) -> bool:
@@ -354,7 +369,7 @@ class SCFEngine:
         if self._xc_streams:
             return make_xc_fn_streaming(self.mol, points, weights, self.xc,
                                         chunk=chunk or STREAM_CHUNK, dtype=dtype,
-                                        differentiable=differentiable)
+                                        differentiable=differentiable, coords=self.coords)
         ao, ao_grad = self._ao_tables
         return make_xc_fn(ao.to(dtype), ao_grad.to(dtype), weights.to(dtype), self.xc,
                           chunk=chunk or TABLE_CHUNK, differentiable=differentiable)

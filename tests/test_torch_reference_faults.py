@@ -1,7 +1,7 @@
-"""Two faults of nbed_tpu's linear response, measured beside nbed_tpu_torch
-on the same water/STO-3G solution (float64 CPU). The port's side is
-asserted; the reference's readings are printed (``pytest -s``) and recorded
-in ROADMAP.md, queue 3.
+"""Faults of nbed_tpu, measured beside nbed_tpu_torch: two of its linear
+response on the same water/STO-3G solution (float64 CPU), and one of its
+Boys function's derivative. The port's side is asserted; the reference's
+readings are printed (``pytest -s``) and recorded in ROADMAP.md, queue 3.
 
 1. The density-fitted TDDFT exchange. On a Hartree-Fock engine TDA is CIS,
    and RPA-TDDFT is RPA, on the engine's own integrals. nbed_tpu's DF route
@@ -13,6 +13,13 @@ in ROADMAP.md, queue 3.
    |grad zeta|^2 in ``tpss_c`` sits at its tie at every closed-shell point,
    where the tie rule halves that term's curvature. The port's jvp is held
    to nbed_tpu's; SCAN, with no such clip, to 1e-12.
+3. The Boys function's derivative at t = 0. ``boys`` selects a Taylor
+   series below t = 0.1 with ``jnp.where``, and the unselected closed form's
+   derivative at the clamped t = 1e-30 divides by t^(2m+1), which underflows
+   to 0 from m = 5 on: the where passes 0 x inf, a NaN. One-centre
+   quartets of total angular momentum >= 5 (d shells) meet t = 0, so
+   nbed_tpu's analytic gradient of water/cc-pVDZ is NaN. The port evaluates
+   the closed form at t = 1 where the series is selected.
 """
 
 import jax
@@ -22,10 +29,12 @@ import pytest
 import torch
 
 from nbed_tpu import solvers as ref_solvers
+from nbed_tpu.integrals.md import boys as ref_boys
 from nbed_tpu.ham import HamiltonianBuilder as RefBuilder
 from nbed_tpu.scf.engine import SCFEngine as RefEngine
 from nbed_tpu_torch import solvers
 from nbed_tpu_torch.driver import NbedDriver
+from nbed_tpu_torch.integrals.md import boys
 from nbed_tpu_torch.ham import HamiltonianBuilder
 from nbed_tpu_torch.interop import solution_from_reference
 
@@ -95,3 +104,16 @@ def test_meta_gga_kernel_matches_nbed_tpu(water_molecule, xc, tol):
               f"{np.abs(jvp_port - fd).max() / scale:.3g}")
     print(f"{xc} jvp, nbed_tpu_torch vs nbed_tpu: {rel:.3g}")
     assert rel < tol
+
+
+@pytest.mark.parametrize("mmax", [4, 5, 8])
+def test_boys_derivative_at_zero_is_finite(mmax):
+    """dF_0/dt at t = 0 is -F_1(0) = -1/3 whatever the order the stack is
+    built from."""
+    jax.config.update("jax_enable_x64", True)
+    theirs = float(jax.grad(lambda t: ref_boys(mmax, t)[0])(0.0))
+    t = torch.zeros((), dtype=torch.float64, requires_grad=True)
+    (ours,) = torch.autograd.grad(boys(mmax, t)[0], t)
+    print(f"dF_0/dt at t=0 from order {mmax}: nbed_tpu {theirs}, "
+          f"nbed_tpu_torch {float(ours)}")
+    assert abs(float(ours) + 1.0 / 3.0) < 1e-14

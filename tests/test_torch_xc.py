@@ -27,7 +27,7 @@ torch.set_num_threads(1)
 @pytest.fixture(scope="module")
 def grids(water_molecule):
     ref_pts, ref_w = ref_build_grid(water_molecule)
-    pts, w = build_grid(molecule_from_reference(water_molecule), "cpu")
+    pts, w = build_grid(molecule_from_reference(water_molecule), device="cpu")
     return (np.asarray(ref_pts), np.asarray(ref_w)), (pts, w)
 
 
