@@ -56,10 +56,25 @@ torch ERI tensor and V against the C++ engine, the seconds of one ERI
 tensor's forward and backward pass, and its UHF gradient. Every SCF of
 these phases builds its J/K in the fused kernel.
 
+The batching and parallel slice comes first after the kernel phase: the
+water fleet's UHF energies over 8 lanes (one lane SCF, one fused J/K launch
+per cycle for the batch) against single-geometry runs and on a mesh of two
+lane groups; batched UHF gradients over 4 lanes; the geometry-
+differentiable embedding program over 8 lanes, against the program run
+alone and the host driver, with its forward-mode derivative against a
+central difference; and the SCFs split over a mesh's model axis (the one
+card named twice): acetonitrile's ERI row slabs, water's DF factor and
+grid, and, after the pfoa run, pfoa's DF-UKS. The Hessians and dipole
+derivatives of the derivatives phases run as batched lanes, and
+acetonitrile's Hessian again on a mesh of two lane groups.
+
     python3 chip_smoke.py
 
-The kernel phase holds the fused J/K kernel (``ops.jk.FusedJK``, as the
-engines prepare it) against its plain version at every case and dtype, on
+The kernel phases hold the fused J/K kernel (``ops.jk.FusedJK``, as the
+engines prepare it; then its lane/slab entry on (B, R, M) supermatrices:
+the water fleet's B = 8 at M = 49, the acetonitrile Hessian's B = 36 at
+M = 324 and R = M/2 slabs at M = 324, 576 and 4096) against its plain
+version at every case and dtype, on
 its own path and on each path forced (vector loads, bulk-copy ring,
 chunked densities), checks that two launches are bitwise equal and that
 a CUDA-graph replay equals the eager call, and times the kernel, the plain
@@ -73,10 +88,12 @@ them: the kernel's self device time (torch.profiler) and its bound.
 Every phase raises on failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the one before that lists each kernel (the fused J/K
-build's float64 and float32 entries) with its launches in the pipeline
+build's float64 and float32 entries, and its float64 lane/slab entry at
+the Hessian's B = 36, M = 324) with its launches in the pipeline
 runs, its error against the plain version, its times beside the plain
 version's and one library call's, its self device time and its bound.
-The pipeline phases' launches are also printed by dtype and M.
+The pipeline phases' launches are also printed by dtype and M, and by
+(dtype, M, R, B).
 Exits non-zero, printing no result, where CUDA is unavailable.
 """
 
@@ -1657,9 +1674,10 @@ def run_water_derivatives(device="cuda"):
 def run_acetonitrile_derivatives(device="cuda"):
     """The acetonitrile molecule (STO-3G, nao 18, M = 324): UHF and
     B3LYP5 gradients within 1e-7 Ha/bohr of nbed_tpu's; the HF Hessian by
-    central differences over 36 displaced SCFs, symmetric to 1e-12, its
-    translational sum rule within 5e-6 and within 1e-6 Ha/bohr^2 of
-    nbed_tpu's."""
+    central differences over 36 displaced SCFs (one batched call: a lane
+    SCF and its reverse-mode passes), symmetric to 1e-12, its translational
+    sum rule within 5e-6 and within 1e-6 Ha/bohr^2 of nbed_tpu's; returns
+    it for :func:`run_hessian_mesh`."""
     from nbed_tpu_torch.chem import build_molecule
     from nbed_tpu_torch.solvers import hessian_fd, hf_gradient, ks_gradient
 
@@ -1686,6 +1704,36 @@ def run_acetonitrile_derivatives(device="cuda"):
     ref = ref + np.triu(ref, 1).T
     out["hessian_dev"] = _gate_array("acetonitrile Hessian", hess, ref, 1e-6)
     print("acetonitrile_derivatives", json.dumps(out), flush=True)
+    return hess
+
+
+def run_hessian_mesh(hess, device="cuda"):
+    """The acetonitrile Hessian's 36 displaced lanes in two groups of a
+    mesh's 'batch' axis. The mesh changes only how the lanes' gradients are
+    batched, so those are held to the one-group gradients at 1e-12
+    Ha/bohr; the Hessian divides their differences by 2h = 0.01, so the
+    same 1e-12 is 1e-10 Ha/bohr^2 there. Also printed: how far a repeat of
+    the one-group gradients lands (the ERI accumulation adds with atomics
+    on the card, in no fixed order)."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.parallel import batched_hf_gradients
+    from nbed_tpu_torch.solvers import hessian_fd
+    from nbed_tpu_torch.solvers.hessian import _displacements
+
+    mol = build_molecule(ACETONITRILE, "sto-3g")
+    disp = _displacements(np.asarray(mol.coords), 5e-3)
+    one = batched_hf_gradients(mol, disp, device=device)[1].cpu().numpy()
+    again = batched_hf_gradients(mol, disp, device=device)[1].cpu().numpy()
+    t0 = time.perf_counter()
+    meshed = batched_hf_gradients(mol, disp, mesh=_cuda_mesh(2), device=device)[1]
+    out = {"mesh_gradients_s": _sync_s(t0, device),
+           "repeat_grad_dev": float(np.max(np.abs(again - one)))}
+    out["mesh_grad_dev"] = _gate_array("acetonitrile Hessian lanes' gradients on a mesh",
+                                       meshed.cpu().numpy(), one, 1e-12)
+    hess_mesh = hessian_fd(mol, mesh=_cuda_mesh(2), device=device)
+    out["mesh_hessian_dev"] = _gate_array("acetonitrile Hessian on a mesh", hess_mesh, hess,
+                                          1e-10)
+    print("hessian_mesh", json.dumps(out), flush=True)
 
 
 def run_water_ccpvdz_gradient(device="cuda"):
@@ -1864,6 +1912,409 @@ def run_pfoa_post(driver):
     print("pfoa_post", json.dumps(out), flush=True)
 
 
+# --------------------------------------------------------------------------
+# the batching and parallel slice
+# --------------------------------------------------------------------------
+
+def water_fleet_coords(mol, b: int = 8):
+    """bench.py:427-440's fleet: water/STO-3G jittered by 0.02 bohr
+    (np.random.default_rng(11)), lane 0 the unperturbed geometry."""
+    base = np.asarray(mol.coords)
+    x = base[None] + 0.02 * np.random.default_rng(11).standard_normal((b, *base.shape))
+    x[0] = base
+    return x
+
+
+def stretch_coords(mol, b: int, top: float):
+    """b lanes stretching the second O-H bond (atom 2, z) from 0 to ``top``
+    bohr (tests/test_parallel.py:40-57, scripts/embed_fleet_tpu.py)."""
+    x = np.repeat(np.asarray(mol.coords)[None], b, axis=0)
+    x[:, 2, 2] += np.linspace(0.0, top, b)
+    return x
+
+
+def lane_cases():
+    """(label, g_j, g_k, dm, dtypes) of the lane/slab entry in float64 on the
+    card: the ERI supermatrices of the water fleet (B = 8, M = 49) and of
+    the acetonitrile Hessian's 36 displaced geometries (B = 36, M = 324),
+    made by the batched torch integrals on the card; R = M/2 slabs of
+    acetonitrile's (M = 324, vector path), water cc-pVDZ's (M = 576) and of
+    random supermatrices at nao = 64 (M = 4096, ring path)."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.integrals import eri_tensor
+    from nbed_tpu_torch.parallel.sharding import _supermatrices
+    from nbed_tpu_torch.solvers.hessian import _displacements
+
+    both = (torch.float64, torch.float32)
+    rng = np.random.default_rng(12)
+
+    def dms(b, n):
+        d = rng.standard_normal((b, 2, n, n))
+        return torch.tensor(0.5 * (d + d.swapaxes(-1, -2)), device="cuda")
+
+    water = build_molecule(WATER.read_text(), "sto-3g")
+    pra = build_molecule(ACETONITRILE, "sto-3g")
+    dz = build_molecule(WATER.read_text(), "cc-pvdz")
+    cases = []
+    with torch.no_grad():
+        for label, mol, x in (
+                ("water fleet B=8", water, water_fleet_coords(water)),
+                ("acetonitrile Hessian B=36", pra,
+                 _displacements(np.asarray(pra.coords), 5e-3))):
+            g_j, g_k = _supermatrices(eri_tensor(mol, x, device="cuda"))
+            cases.append((label, g_j, g_k, dms(len(x), mol.nao), both))
+        for label, mol in (("acetonitrile slab R=M/2", pra), ("water cc-pVDZ slab R=M/2", dz)):
+            g_j, g_k = _supermatrices(eri_tensor(mol, device="cuda"))
+            r = g_j.shape[0] // 2
+            cases.append((label, g_j[None, :r].contiguous(), g_k[None, :r].contiguous(),
+                          dms(1, mol.nao), both))
+    _, g_j, g_k, dm, _ = random_case("random nao=64 slab R=M/2", 64, 64, both)
+    cases.append(("random nao=64 slab R=M/2", g_j[None, :2048].contiguous(),
+                  g_k[None, :2048].contiguous(), dm[None], both))
+    return cases
+
+
+def lane_bound(b: int, r: int, m: int, dtype):
+    """(ms, "bytes" or "operations"): the least time of one lane/slab build,
+    the larger of its bytes (2 B R M words of G, B 2 M of densities, B 3 R
+    of output) at 3.35 TB/s and its 6 B R M operations at 67 TFLOP/s."""
+    word = 8 if dtype == torch.float64 else 4
+    by_bytes = (2 * b * r * m + 2 * b * m + 3 * b * r) * word / HBM_BYTES_PER_S
+    by_ops = 6 * b * r * m / PEAK_FLOP_PER_S
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def hold_lanes(label, gj, gk, dm) -> float:
+    """The lane/slab kernel (its own path and every path forced) against the
+    plain version; two launches bitwise equal; a CUDA-graph replay equal to
+    the eager call. Raises on a miss; returns the largest absolute error."""
+    from nbed_tpu_torch.ops.jk import FusedJK, fused_jk_reference
+
+    rtol, atol = TOLERANCES[dm.dtype]
+    ref = fused_jk_reference(gj, gk, dm)
+    m = gj.shape[-1]
+    prepared = FusedJK(gj, gk)
+    err = 0.0
+    for path in (None, "vector", "ring", "chunked"):
+        jk = prepared if path is None else FusedJK(gj, gk, path=path,
+                                                   chunk_cols=max(1, m // 3 + 1))
+        out = jk(dm)
+        torch.cuda.synchronize()
+        what = f"fused_jk lanes {label} {dm.dtype} path {jk.plan.path}"
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"{what}: non-finite output")
+        e = float(torch.max(torch.abs(out - ref)))
+        if not torch.allclose(out, ref, rtol=rtol, atol=atol):
+            raise RuntimeError(f"{what}: max abs err {e} exceeds rtol={rtol}, atol={atol}")
+        err = max(err, e)
+        if not torch.equal(out, jk(dm)):
+            raise RuntimeError(f"{what}: two launches differ")
+    eager = prepared(dm)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        replayed = prepared(dm)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(replayed, eager):
+        raise RuntimeError(f"fused_jk lanes {label} {dm.dtype}: CUDA-graph replay differs")
+    return err
+
+
+def lane_library_call(gj, gk, dm):
+    """The yardstick for lanes: one batched GEMM of [G_J; G_K] (2B, R, M)
+    against [[D_a + D_b, 0], [D_a, D_b]] per lane."""
+    b, m = gj.shape[0], gj.shape[-1]
+    g2 = torch.cat([gj, gk])
+    rhs = torch.zeros((2 * b, m, 2), dtype=dm.dtype, device="cuda")
+    rhs[:b, :, 0] = (dm[:, 0] + dm[:, 1]).reshape(b, m)
+    rhs[b:] = dm.reshape(b, 2, m).transpose(1, 2)
+    return lambda: torch.bmm(g2, rhs)
+
+
+def check_lane_kernels() -> list:
+    """:func:`hold_lanes` at every lane/slab case and dtype, then the times
+    of the prepared kernel, the plain version and the library call, the
+    self device time and the bound; returns rows."""
+    from nbed_tpu_torch.ops.jk import FusedJK, fused_jk_reference
+
+    rows = []
+    for label, gj64, gk64, dm64, dtypes in lane_cases():
+        for dtype in dtypes:
+            gj, gk, dm = (t.to(dtype).contiguous() for t in (gj64, gk64, dm64))
+            err = hold_lanes(label, gj, gk, dm)
+            b, r, m = gj.shape
+            prepared = FusedJK(gj, gk)
+            kernel = lambda: prepared(dm)  # noqa: E731
+            lib = lane_library_call(gj, gk, dm)
+            row = {"case": label, "m": m, "rows": r, "batch": b,
+                   "dtype": str(dtype).removeprefix("torch."), "path": prepared.plan.path,
+                   "max_abs_err": err, **timings(kernel, m),
+                   **{f"plain_{k}": v for k, v in timings(
+                       lambda: fused_jk_reference(gj, gk, dm), m).items()},
+                   **{f"library_{k}": v for k, v in timings(lib, m).items()},
+                   "kernel_device_us": device_us(kernel, "fused_jk"),
+                   **dict(zip(("bound_ms", "bound_by"), lane_bound(b, r, m, dtype)))}
+            row["share_of_bound"] = row["bound_ms"] * 1e3 / row["kernel_device_us"]
+            del lib
+            print("fused_jk_lanes", json.dumps(row), flush=True)
+            rows.append(row)
+        del gj64, gk64
+    return rows
+
+
+def lane_launches(by_shape=None) -> int:
+    """Launches of the lane/slab entry (B > 1 or R < M) in ``by_shape``
+    (default: the counts since they were last cleared)."""
+    from nbed_tpu_torch.ops import jk
+
+    by_shape = jk.LAUNCHES_BY_SHAPE if by_shape is None else by_shape
+    return sum(n for (_, m, r, b), n in by_shape.items() if b > 1 or r < m)
+
+
+def _cuda_mesh(batch: int):
+    """The one card named twice: a mesh of two slots for the slab and
+    lane-group logic (a real multi-card run needs a machine with more than
+    one card)."""
+    from nbed_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=["cuda", "cuda"], batch=batch)
+
+
+def run_water_fleet(device="cuda"):
+    """batched_hf_energies at B = 8 (bench.py:427-470): lane 0 within 1e-6
+    of the water UHF oracle, every lane within 1e-10 of the port's
+    single-geometry UHF on the card, one lane launch per SCF cycle (and
+    one for the final build); conformers/s and the lane efficiency
+    t_single * B / t_batch, warm; the same on a mesh of two lane groups,
+    equal to 1e-12."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.ops import jk
+    from nbed_tpu_torch.parallel import batched_hf_energies
+    from nbed_tpu_torch.parallel.sharding import _lane_scf
+    from nbed_tpu_torch.solvers.gradients import _hf_scf
+
+    mol = build_molecule(WATER.read_text(), "sto-3g")
+    x = water_fleet_coords(mol)
+    kw = dict(conv_tol=1e-8, max_cycle=100, device=device)
+    e, conv = batched_hf_energies(mol, x, **kw)
+    if not bool(conv.all()):
+        raise RuntimeError(f"water_fleet: lanes converged {conv.tolist()}")
+    _gate("water_fleet lane 0", [("e_tot", float(e[0]), E_UHF_WATER)], 1e-6)
+    singles = []
+    for xb in x:
+        res, _ = _hf_scf(mol, torch.tensor(xb, device=device), conv_tol=1e-8,
+                         dm_conv_tol=1e-6, max_cycle=100)
+        singles.append(res.e_elec + mol.energy_nuc(xb))
+    dev = _gate_array("water_fleet lanes vs single-geometry UHF", e.cpu().numpy(), singles,
+                      1e-10)
+    before = dict(jk.LAUNCHES_BY_SHAPE)
+    res, _ = _lane_scf(mol, torch.tensor(x, device=device), conv_tol=1e-8, max_cycle=100)
+    key = ("fused_jk_f64", 49, 49, 8)
+    launched = jk.LAUNCHES_BY_SHAPE[key] - before.get(key, 0)
+    if torch.device(device).type == "cuda" and launched != int(res.n_iter.max()) + 1:
+        raise RuntimeError(f"water_fleet: {launched} lane launches for "
+                           f"{int(res.n_iter.max())} cycles")
+
+    def timed(coords):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batched_hf_energies(mol, coords, **kw)[0].cpu()
+        return time.perf_counter() - t0
+
+    timed(x[:1])
+    t_batch, t_single = timed(x), timed(x[:1])
+    e_mesh, _ = batched_hf_energies(mol, x, mesh=_cuda_mesh(2), **kw)
+    mesh_dev = _gate_array("water_fleet mesh vs one group", e_mesh.cpu().numpy(),
+                           e.cpu().numpy(), 1e-12)
+    print("water_fleet", json.dumps({
+        "batch": len(x), "cycles": res.n_iter.tolist(), "lane_launches": launched,
+        "lanes_vs_single_max": dev, "mesh_vs_one_group_max": mesh_dev,
+        "batch_s": t_batch, "single_s": t_single, "conformers_per_s": len(x) / t_batch,
+        "lane_efficiency": t_single * len(x) / t_batch, "e": e.tolist()}), flush=True)
+
+
+def run_water_fleet_gradients(device="cuda"):
+    """batched_hf_gradients at B = 4, the second O-H bond stretched 0-0.03
+    bohr (tests/test_parallel.py:40-57): lanes 0 and 3 within 1e-10 Ha and
+    1e-9 Ha/bohr of hf_gradient, translational sums below 1e-9."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.parallel import batched_hf_gradients
+    from nbed_tpu_torch.solvers import hf_gradient
+
+    mol = build_molecule(WATER.read_text(), "sto-3g")
+    x = stretch_coords(mol, 4, 0.03)
+    t0 = time.perf_counter()
+    e, grad, conv = batched_hf_gradients(mol, x, device=device)
+    wall = _sync_s(t0, device)
+    if not bool(conv.all()):
+        raise RuntimeError(f"water_fleet_gradients: lanes converged {conv.tolist()}")
+    out = {"batch_s": wall}
+    for b in (0, 3):
+        e1, g1, _ = hf_gradient(mol, coords=x[b], device=device)
+        _gate(f"water_fleet_gradients lane {b}", [("e_tot", float(e[b]), e1)], 1e-10)
+        out[f"lane{b}_grad_dev"] = _gate_array(f"water_fleet_gradients lane {b}",
+                                               grad[b].cpu().numpy(), g1.cpu().numpy(), 1e-9)
+    out["sum_max"] = _gate_array("water_fleet_gradients translational sums",
+                                 grad.sum(dim=1).cpu().numpy(), 0.0, 1e-9)
+    print("water_fleet_gradients", json.dumps(out), flush=True)
+
+
+def run_water_embed_fleet(device="cuda"):
+    """batched_embedding_energies at B = 8 with B3LYP at grid level 1 and
+    n_act_mos from the host driver, the second O-H bond stretched 0-0.04
+    (scripts/embed_fleet_tpu.py): lane 0 within 1e-8 of the program run
+    alone, e_global increasing along the stretch; at the driver's grid
+    (level 3) the program within 5e-6 of the host driver's mu and
+    Huzinaga e_rhf (tests/test_parallel.py:202-203); with CAM-B3LYP the
+    partition identity to 1e-9; the forward-mode derivative of e_emb_rhf
+    along the stretch (the fleet's program with grad_cycles 40, conv_tol
+    1e-10 and dm_conv_tol 1e-8) within 1e-6 of a five-point difference (h
+    = 1e-3) of the same program, printed also against a central difference
+    at h = 1e-4, and both at grad_cycles 0. At the driver's three active
+    MOs, 20 polish cycles leave the tangent 1.8e-6 off on the CPU, 40
+    leave 5e-7."""
+    from torch.autograd import forward_ad
+
+    from nbed_tpu_torch import nbed
+    from nbed_tpu_torch.parallel import batched_embedding_energies, make_mu_embed_energy
+
+    driver = nbed(**CONFIGS["water"], device=device)
+    mol = driver._ks_engine.mol
+    inds = driver.localized_system.active_mo_inds
+    n_act = len(inds) if np.ndim(inds) == 1 else (len(inds[0]), len(inds[1]))
+    x = stretch_coords(mol, 8, 0.04)
+    kw = dict(xc="b3lyp", grid_level=1, conv_tol=1e-9, dm_conv_tol=1e-7, device=device)
+    out = {"n_act_mos": n_act}
+    t0 = time.perf_counter()
+    fleet = batched_embedding_energies(mol, x, 1, n_act, **kw)
+    out["fleet_cold_s"] = _sync_s(t0, device)
+    t0 = time.perf_counter()
+    fleet = batched_embedding_energies(mol, x, 1, n_act, **kw)
+    out["fleet_warm_s"] = _sync_s(t0, device)
+    out["embedded_conformers_per_s"] = len(x) / out["fleet_warm_s"]
+    if not bool(fleet["converged"].all()):
+        raise RuntimeError("water_embed_fleet: a lane did not converge")
+    single = make_mu_embed_energy(mol, 1, n_act, **kw)(torch.tensor(x[0]))
+    _gate("water_embed_fleet lane 0 vs the single program",
+          [(k, float(fleet[k][0]), float(single[k])) for k in
+           ("e_emb_rhf", "e_global", "e_act", "e_env", "two_e_cross")], 1e-8)
+    if not np.all(np.diff(fleet["e_global"].cpu().numpy()) > 0):
+        raise RuntimeError(f"water_embed_fleet: e_global not increasing {fleet['e_global']}")
+    tight = dict(conv_tol=1e-10, dm_conv_tol=1e-8, device=device)
+    x0 = torch.tensor(np.asarray(mol.coords), device=device)
+    for proj, res in (("mu", driver.mu), ("huzinaga", driver.huzinaga)):
+        e = float(make_mu_embed_energy(mol, 1, n_act, projector=proj, **tight)(x0)["e_emb_rhf"])
+        _gate(f"water_embed_fleet {proj} program vs the host driver",
+              [("e_rhf", e, res["e_rhf"])], 5e-6)
+        out[f"{proj}_vs_driver"] = e - res["e_rhf"]
+    cam = make_mu_embed_energy(mol, 1, n_act, xc="camb3lyp", **tight)(x0)
+    _gate("water_embed_fleet camb3lyp partition", [(
+        "e_act + e_env + two_e_cross + e_nuc",
+        float(cam["e_act"] + cam["e_env"] + cam["two_e_cross"]) + mol.energy_nuc(),
+        float(cam["e_global"]))], 1e-9)
+    t = torch.zeros_like(x0)
+    t[2, 2] = 1.0
+    for cycles in (40, 0):
+        fn = make_mu_embed_energy(mol, 1, n_act, grad_cycles=cycles,
+                                  **{**kw, "conv_tol": 1e-10, "dm_conv_tol": 1e-8})
+        t0 = time.perf_counter()
+        with forward_ad.dual_level():
+            d = float(forward_ad.unpack_dual(
+                fn(forward_ad.make_dual(x0, t))["e_emb_rhf"]).tangent)
+        out[f"jvp_s_grad_cycles_{cycles}"] = _sync_s(t0, device)
+
+        def e(step):
+            return float(fn(x0 + step * t)["e_emb_rhf"])
+
+        # the energies carry ~1e-10 Ha of SCF noise (the 1e6 mu shift), which
+        # an h = 1e-4 central difference turns into ~1e-6 Ha/bohr; the
+        # five-point difference at h = 1e-3 keeps it near 1e-7, its O(h^4)
+        # truncation far below that
+        fd = (e(1e-4) - e(-1e-4)) / 2e-4
+        fd5 = (8 * (e(1e-3) - e(-1e-3)) - (e(2e-3) - e(-2e-3))) / 12e-3
+        out[f"jvp_vs_fd_h1e-4_grad_cycles_{cycles}"] = d - fd
+        out[f"jvp_vs_fd5_h1e-3_grad_cycles_{cycles}"] = d - fd5
+        if cycles:
+            _gate("water_embed_fleet forward-mode derivative", [("de/dz", d, fd5)], 1e-6)
+    out["e_emb_rhf"] = fleet["e_emb_rhf"].tolist()
+    print("water_embed_fleet", json.dumps(out), flush=True)
+
+
+def run_sharded(device="cuda"):
+    """Split SCFs on a model axis of 2 (the one card named twice): the
+    acetonitrile molecule's sharded_scf within 1e-9 Ha of the engine's UHF
+    with (162, 324) slabs, one slab launch each per cycle; water's
+    sharded_df_scf and sharded_df_ks (B3LYP, CAM-B3LYP) within 1e-8 of the
+    DF engine, at the engine's default grid (reference scheme, level 3)."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.ops import jk
+    from nbed_tpu_torch.parallel import make_sharded_scf, sharded_df_ks, sharded_df_scf
+    from nbed_tpu_torch.scf import SCFEngine
+
+    mesh = _cuda_mesh(1)
+    tight = dict(conv_tol=1e-10, dm_conv_tol=1e-8, max_cycle=100)
+    pra = build_molecule(ACETONITRILE, "sto-3g")
+    fn, args = make_sharded_scf(pra, mesh, **tight)
+    shapes = [tuple(a.shape) for a in args[2] + args[3]]
+    if shapes != [(162, 324)] * 4:
+        raise RuntimeError(f"sharded_scf slabs {shapes}")
+    before = jk.LAUNCHES_BY_SHAPE[("fused_jk_f64", 324, 162, 1)]
+    t0 = time.perf_counter()
+    res = fn(*args)
+    out = {"sharded_scf_s": _sync_s(t0, device), "slabs": shapes[:2]}
+    slab_launches = jk.LAUNCHES_BY_SHAPE[("fused_jk_f64", 324, 162, 1)] - before
+    if torch.device(device).type == "cuda" and slab_launches != 2 * (res.n_iter + 1):
+        raise RuntimeError(f"sharded_scf: {slab_launches} slab launches, {res.n_iter} cycles")
+    e_eng = SCFEngine(pra, device=device, **tight).kernel().e_tot
+    _gate("sharded_scf vs the engine's UHF",
+          [("e_tot", res.e_elec + pra.energy_nuc(), e_eng)], 1e-9)
+    water = build_molecule(WATER.read_text(), "sto-3g")
+    res = sharded_df_scf(water, mesh, **tight)
+    e_eng = SCFEngine(water, density_fitting=True, device=device, **tight).kernel().e_tot
+    _gate("sharded_df_scf vs the DF engine", [("e_tot", res.e_elec + water.energy_nuc(),
+                                               e_eng)], 1e-8)
+    out["df_scf_dev"] = res.e_elec + water.energy_nuc() - e_eng
+    for xc in ("b3lyp", "camb3lyp"):
+        res = sharded_df_ks(water, mesh, xc=xc, **tight)
+        e_eng = SCFEngine(water, xc=xc, density_fitting=True, device=device,
+                          **tight).kernel().e_tot
+        _gate(f"sharded_df_ks {xc} vs the DF engine",
+              [("e_tot", res.e_elec + water.energy_nuc(), e_eng)], 1e-8)
+        out[f"df_ks_{xc}_dev"] = res.e_elec + water.energy_nuc() - e_eng
+    print("sharded", json.dumps(out), flush=True)
+
+
+def run_pfoa_sharded(driver, device="cuda"):
+    """pfoa (126 AOs) sharded_df_ks with B3LYP on a model axis of 2, from
+    the driver's converged density to conv_tol 1e-10: within 1e-8 of the
+    pfoa driver's global DF-UKS, with the factor's auxiliary axis and the
+    grid split in two."""
+    from nbed_tpu_torch.parallel import make_sharded_df_ks
+
+    eng = driver._ks_engine
+    mol = eng.mol
+    t0 = time.perf_counter()
+    fn, args = make_sharded_df_ks(mol, _cuda_mesh(1), xc="b3lyp", df_beta=eng.df_beta,
+                                  grid_level=eng.grid_level, conv_tol=1e-10,
+                                  dm_conv_tol=1e-8, max_cycle=100,
+                                  dm0=driver._global_ks.make_rdm1())
+    build_s = _sync_s(t0, device)
+    t0 = time.perf_counter()
+    res = fn(*args)
+    scf_s = _sync_s(t0, device)
+    if not res.converged:
+        raise RuntimeError("pfoa_sharded: the split DF-UKS did not converge")
+    e = res.e_elec + mol.energy_nuc()
+    _gate("pfoa_sharded vs the driver's global DF-UKS",
+          [("e_tot", e, driver._global_ks.e_tot)], 1e-8)
+    print("pfoa_sharded", json.dumps({
+        "build_s": build_s, "scf_s": scf_s, "cycles": res.n_iter,
+        "b_slab": list(args[2][0].shape), "grid_slab": list(args[3][0].shape),
+        "dev": e - driver._global_ks.e_tot}), flush=True)
+
+
 def build_all():
     """Build the CUDA kernel library and the two host C++ libraries, each
     compiler started at once."""
@@ -1884,9 +2335,13 @@ def build_all():
 # plain torch, as they are XLA in the reference
 F64 = ("fused_jk_f64",)
 MIXED = ("fused_jk_f64", "fused_jk_f32")
-# the phases of the post-SCF and derivatives slices, summarised at the end
+LANES = ("fused_jk_f64", "lanes")  # and the lane/slab entry (B > 1 or R < M)
+# the phases of the post-SCF, derivatives and parallel slices, summarised
+# at the end
 NEW_PHASES = ("water_global", "acetonitrile_post", "h2_stability", "water_qse", "pfoa_post",
-              "water_derivatives", "acetonitrile_derivatives", "water_ccpvdz_gradient")
+              "water_derivatives", "acetonitrile_derivatives", "water_ccpvdz_gradient",
+              "water_fleet", "water_fleet_gradients", "water_embed_fleet", "sharded",
+              "pfoa_sharded", "hessian_mesh")
 
 
 def main():
@@ -1908,20 +2363,33 @@ def main():
     t0 = time.perf_counter()
     rows = check_kernels()
     phase_s["kernel_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lane_rows = check_lane_kernels()
+    phase_s["lane_kernel_check"] = time.perf_counter() - t0
 
     # each pipeline is a cold run (its atoms' SAD SCFs included), with the
     # launch counts set to 0 just before it and read just after
     f64, keep = {}, {}
-    per_phase, by_m, peak_gb = {}, {}, {}
+    per_phase, by_m, by_shape, peak_gb = {}, {}, {}, {}
 
     def count(name):
-        per_phase[name] = dict(jk.LAUNCHES)
+        per_phase[name] = {**jk.LAUNCHES, "lanes": lane_launches()}
         for (key, m), n in jk.LAUNCHES_BY_M.items():
             by_m[f"{key} M={m}"] = by_m.get(f"{key} M={m}", 0) + n
+        for (key, m, r, b), n in jk.LAUNCHES_BY_SHAPE.items():
+            label = f"{key} M={m} R={r} B={b}"
+            by_shape[label] = by_shape.get(label, 0) + n
+
+    def clear():
+        jk.LAUNCHES.clear()
+        jk.LAUNCHES_BY_M.clear()
+        jk.LAUNCHES_BY_SHAPE.clear()
 
     def remember(name, driver):
         if name in ("water", "acetonitrile"):
             f64[name] = pipeline_energies(driver)
+        elif name == "acetonitrile_derivatives":
+            keep["hessian_pra"] = driver
         elif name == "acetonitrile_taper":
             keep["pra_scf"] = driver.huzinaga["scf"]
         elif name == "water_vqe":
@@ -1932,6 +2400,10 @@ def main():
                                  driver.mu["vqe"].params, driver.mu["e_vqe"])
 
     phases = (
+        ("water_fleet", run_water_fleet, LANES),
+        ("water_fleet_gradients", run_water_fleet_gradients, LANES),
+        ("water_embed_fleet", run_water_embed_fleet, LANES),
+        ("sharded", run_sharded, LANES),
         ("water", run_water, F64),
         ("water_mixed", lambda: run_mixed("water", f64["water"]), MIXED),
         ("acetonitrile", run_acetonitrile, F64),
@@ -1947,8 +2419,8 @@ def main():
         ("water_global", run_water_global, F64),
         ("acetonitrile_post", run_acetonitrile_post, F64),
         ("h2_stability", run_h2_stability, F64),
-        ("water_derivatives", run_water_derivatives, F64),
-        ("acetonitrile_derivatives", run_acetonitrile_derivatives, F64),
+        ("water_derivatives", run_water_derivatives, LANES),
+        ("acetonitrile_derivatives", run_acetonitrile_derivatives, LANES),
         ("water_ccpvdz_gradient", run_water_ccpvdz_gradient, F64),
         ("water_functionals", run_water_functionals, F64),
         ("methyl_rohf", run_methyl_rohf, F64), ("water_qmmm", run_water_qmmm, F64),
@@ -1959,14 +2431,13 @@ def main():
         driver = None  # the previous pipeline's memory is not this one's peak
         _atomic_density.cache_clear()
         torch.cuda.reset_peak_memory_stats()
-        jk.LAUNCHES.clear()
-        jk.LAUNCHES_BY_M.clear()
+        clear()
         t0 = time.perf_counter()
         driver = run()
         phase_s[name] = time.perf_counter() - t0
         count(name)
         peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
-        missing = [k for k in needs if not jk.LAUNCHES[k]]
+        missing = [k for k in needs if not per_phase[name].get(k, 0)]
         if missing:
             raise RuntimeError(f"the {name} pipeline ran without launching {missing}")
         remember(name, driver)
@@ -1984,8 +2455,7 @@ def main():
     peak_gb["pfoa_one_electron"] = torch.cuda.max_memory_allocated() / 1e9
 
     torch.cuda.reset_peak_memory_stats()
-    jk.LAUNCHES.clear()
-    jk.LAUNCHES_BY_M.clear()
+    clear()
     t0 = time.perf_counter()
     run_pfoa_incremental(driver)
     phase_s["pfoa_incremental"] = time.perf_counter() - t0
@@ -1995,18 +2465,38 @@ def main():
     # the post-SCF slice on the pfoa driver: DF throughout, so no fused
     # J/K launch is expected; its count is read all the same
     torch.cuda.reset_peak_memory_stats()
-    jk.LAUNCHES.clear()
-    jk.LAUNCHES_BY_M.clear()
+    clear()
     t0 = time.perf_counter()
     run_pfoa_post(driver)
     phase_s["pfoa_post"] = time.perf_counter() - t0
     count("pfoa_post")
     peak_gb["pfoa_post"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # the split DF-UKS at pfoa's size: DF J/K and XC, no fused J/K launch
+    torch.cuda.reset_peak_memory_stats()
+    clear()
+    t0 = time.perf_counter()
+    run_pfoa_sharded(driver)
+    phase_s["pfoa_sharded"] = time.perf_counter() - t0
+    count("pfoa_sharded")
+    peak_gb["pfoa_sharded"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # the acetonitrile Hessian's lanes in two groups of a mesh
+    torch.cuda.reset_peak_memory_stats()
+    clear()
+    t0 = time.perf_counter()
+    run_hessian_mesh(keep.pop("hessian_pra"))
+    phase_s["hessian_mesh"] = time.perf_counter() - t0
+    count("hessian_mesh")
+    peak_gb["hessian_mesh"] = torch.cuda.max_memory_allocated() / 1e9
+    if not per_phase["hessian_mesh"]["lanes"]:
+        raise RuntimeError("the hessian_mesh phase ran without a lane launch")
     for name in NEW_PHASES:
         print(f"{name}_summary", json.dumps({"s": phase_s[name], "peak_gb": peak_gb[name],
                                              "fused_jk": per_phase[name]}), flush=True)
     print(f"fused_jk launches: {json.dumps(per_phase)}", flush=True)
     print(f"fused_jk launches by M: {json.dumps(by_m)}", flush=True)
+    print(f"fused_jk launches by (dtype, M, R, B): {json.dumps(by_shape)}", flush=True)
     print("max_memory_allocated_gb", json.dumps(peak_gb), flush=True)
     print("phase_s", json.dumps(phase_s), flush=True)
 
@@ -2030,6 +2520,19 @@ def main():
             "kernel_device_us": main_row["kernel_device_us"],
             "m": main_row["m"], "dtype": dtype, "path": main_row["path"],
         })
+    # the lane/slab entry of the same kernel at the acetonitrile Hessian's
+    # shape (B = 36 lanes of M = 324), the largest batch of the main path
+    lane_row = next(r for r in lane_rows if r["batch"] == 36 and r["dtype"] == "float64")
+    kernels.append({
+        "name": "fused_jk_lanes_f64", "route": "cuda",
+        "source": "nbed_tpu_torch/csrc/fused_jk.cu",
+        "replaces": "nbed_tpu/ops/pallas_jk.py:82",
+        "launches": sum(c.get("lanes", 0) for c in per_phase.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in lane_rows if r["dtype"] == "float64"),
+        **{k: lane_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "ms_stream", "host_us", "kernel_device_us", "m", "rows",
+                                    "batch", "dtype", "path")},
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -240,21 +240,22 @@ class Molecule:
 
     def energy_nuc_tensor(self, coords=None) -> torch.Tensor:
         """:meth:`energy_nuc` as a 0-d tensor on the device of ``coords``
-        (a tensor that autograd follows, or an array for the CPU)."""
+        (a tensor that autograd follows, or an array for the CPU); (B,
+        natm, 3) coordinates give a (B,) tensor, one energy per lane."""
         r = torch.as_tensor(self.coords if coords is None else coords, dtype=DTYPE)
         dev = r.device
         z = torch.tensor(self.atom_charges, dtype=DTYPE, device=dev)
         eye = torch.eye(self.natm, dtype=DTYPE, device=dev)
-        diff = r[:, None, :] - r[None, :, :]
+        diff = r[..., :, None, :] - r[..., None, :, :]
         dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + eye)
         pair = z[:, None] * z[None, :] / dist
-        e = 0.5 * torch.sum(pair * (1.0 - eye))
+        e = 0.5 * torch.sum(pair * (1.0 - eye), dim=(-2, -1))
         if self.mm_coords is not None:
             d_mm = torch.linalg.norm(
-                r[:, None, :] - torch.as_tensor(self.mm_coords, dtype=DTYPE, device=dev)[None],
-                dim=-1)
+                r[..., :, None, :]
+                - torch.as_tensor(self.mm_coords, dtype=DTYPE, device=dev)[None], dim=-1)
             e = e + torch.sum(z[:, None] * torch.as_tensor(
-                self.mm_charges, dtype=DTYPE, device=dev)[None] / d_mm)
+                self.mm_charges, dtype=DTYPE, device=dev)[None] / d_mm, dim=(-2, -1))
         return e
 
 

@@ -21,7 +21,8 @@ from pathlib import Path
 logger = logging.getLogger(__name__)
 
 __all__ = ["NbedConfig", "ProjectorTypes", "OccupiedLocalizerTypes",
-           "VirtualLocalizerTypes", "parse_config", "overwrite_config_kwargs"]
+           "VirtualLocalizerTypes", "parse_config", "overwrite_config_kwargs",
+           "validate_xyz_file"]
 
 
 class ProjectorTypes(Enum):
@@ -49,6 +50,23 @@ _XYZ_RE = re.compile("^\\d+\n\\s?\n(?:\\w(?:\\s+\\-?\\d\\.\\d+){3}\n?)*")
 # {field: ROADMAP item} of fields whose non-default values need code the
 # port does not have yet; empty since every field's feature is ported
 _NOT_PORTED: dict = {}
+
+
+def validate_xyz_file(maybe_xyz):
+    """Coerce a path to an XYZ file into its contents; pass anything else
+    through (``nbed_tpu/config.py:61-78``): an existing path is read and
+    checked against the XYZ pattern (ValueError if it does not match); a
+    string that names no file is returned unchanged, for the geometry check
+    to judge."""
+    if isinstance(maybe_xyz, (str, Path)):
+        if os.path.exists(maybe_xyz):
+            with open(maybe_xyz) as f:
+                content = f.read()
+            if not _XYZ_RE.match(content):
+                raise ValueError(f"{maybe_xyz} does not hold XYZ text")
+            return content
+        return str(maybe_xyz)
+    return maybe_xyz
 
 
 def _coerce_geometry(value) -> str:

@@ -9,6 +9,14 @@
 //     out[1, r] = sum_c G_K[r, c] * D_a[c]             (K alpha)
 //     out[2, r] = sum_c G_K[r, c] * D_b[c]             (K beta)
 //
+// over B lanes and R rows: G_J and G_K are (B, R, M), the densities
+// (B, 2, M) and out (B, 3, R), each contiguous. B = 1, R = M is one SCF's
+// build; B > 1 is a batch of conformers (one launch per SCF cycle for the
+// whole batch); R < M is a row slab of a supermatrix split over devices.
+// Row i of the flattened (B * R, M) matrix is lane i / R, row i % R, so
+// the alignment split below follows i; B = 1, R = M runs the same
+// arithmetic in the same order as the single build.
+//
 // What bounds it on the card: it reads 2 * M^2 words of G and does 6 * M^2
 // flops, 0.375 flop/byte in float64, far below the H100's ridge point, so
 // device-memory bytes bound it. Tensor cores do not help: wgmma has no
@@ -26,7 +34,9 @@
 //   - small M (path 0, fused_jk_vec_kernel): one warp per row, 16-byte
 //     vector loads straight from device memory, densities read through the
 //     read-only cache, several rows per block and persistent warps; the
-//     head and tail are loaded before the body and used after it;
+//     head and tail are loaded before the body and used after it; the
+//     warps walk the B * R rows of all lanes, the lane folded into the
+//     row index;
 //   - large M (path 1, fused_jk_ring_kernel): one persistent block per SM
 //     walks rows r = blockIdx.x + i * gridDim.x. The densities are staged
 //     into dynamic shared memory once per block. One producer thread streams
@@ -35,7 +45,9 @@
 //     mbarriers; eight consumer warps multiply out of shared memory and
 //     release each stage on an "empty" mbarrier. Where the densities do
 //     not fit beside the ring, they are staged in column chunks and a
-//     block adds each chunk's partial sums into its own rows of out;
+//     block adds each chunk's partial sums into its own rows of out; for
+//     B > 1 each block loops over the lanes, staging each lane's
+//     densities in turn (one launch for the batch, not one per lane);
 //   - no atomics: every output element has one writer and the summation
 //     order is fixed, so results are bitwise reproducible from run to run.
 //
@@ -64,7 +76,8 @@ constexpr int kRingThreads = (kMaxConsumerWarps + 1) * 32;
 
 // Mirrors ops/jk.py::_PlanC.
 struct Plan {
-  int64_t m;           // rows and columns of G (nao^2)
+  int64_t m;           // columns of G (nao^2)
+  int64_t rows;        // rows of G per lane (m, or a slab's rows)
   int32_t path;        // 0: vector loads from device memory; 1: bulk-copy ring
   int32_t grid;        // blocks
   int32_t warps;       // warps per block (path 1: consumer warps; one more produces)
@@ -72,6 +85,7 @@ struct Plan {
   int32_t seg_elems;   // path 1: G elements per stage and matrix (128-byte multiple)
   int32_t chunk_cols;  // path 1: density columns resident at once (m when all fit)
   int32_t smem_bytes;  // dynamic shared memory
+  int32_t batch;       // lanes
 };
 
 template <typename T> struct Vec;
@@ -106,19 +120,24 @@ __device__ __forceinline__ void split(int64_t r, int64_t m, int64_t c0, int64_t 
 template <typename T>
 __global__ void __launch_bounds__(kVecThreads)
 fused_jk_vec_kernel(const T* __restrict__ g_j, const T* __restrict__ g_k,
-                    const T* __restrict__ dm, T* __restrict__ out, int64_t m) {
+                    const T* __restrict__ dm, T* __restrict__ out, int64_t m,
+                    int64_t rows, int64_t batch) {
   using V = typename Vec<T>::type;
   constexpr int vw = Vec<T>::n;
   const int lane = threadIdx.x & 31;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
-  const T* d_a = dm;
-  const T* d_b = dm + m;
-  for (int64_t r = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
-       r < m; r += warps) {
-    const T* gj = g_j + r * m;
-    const T* gk = g_k + r * m;
+  const int64_t total = batch * rows;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       i < total; i += warps) {
+    const int64_t b = i / rows;  // the lane
+    const int64_t r = i - b * rows;
+    const T* d_a = dm + b * 2 * m;
+    const T* d_b = d_a + m;
+    T* o = out + b * 3 * rows;
+    const T* gj = g_j + i * m;
+    const T* gk = g_k + i * m;
     int64_t head, body;
-    split(r, m, 0, m, vw, head, body);
+    split(i, m, 0, m, vw, head, body);
     const int64_t tail0 = head + body;
     // the head and tail scalars (lane < head, lane < tail) are loaded first
     // and used last, so their latency overlaps the body's loads
@@ -165,9 +184,9 @@ fused_jk_vec_kernel(const T* __restrict__ g_j, const T* __restrict__ g_k,
     acc_ka = warp_sum(acc_ka);
     acc_kb = warp_sum(acc_kb);
     if (lane == 0) {
-      out[r] = acc_j;
-      out[m + r] = acc_ka;
-      out[2 * m + r] = acc_kb;
+      o[r] = acc_j;
+      o[rows + r] = acc_ka;
+      o[2 * rows + r] = acc_kb;
     }
   }
 }
@@ -237,6 +256,7 @@ fused_jk_ring_kernel(const T* __restrict__ g_j, const T* __restrict__ g_k,
   const int lane = threadIdx.x & 31;
   const int nc = p.warps;
   const int64_t m = p.m;
+  const int64_t rows = p.rows;
   const int64_t seg = p.seg_elems;
   const int ns = p.stages;
 
@@ -252,13 +272,15 @@ fused_jk_ring_kernel(const T* __restrict__ g_j, const T* __restrict__ g_k,
   if (warp == nc) {  // the producer: one thread keeps the ring full
     if (lane != 0) return;
     int64_t k = 0;
+    for (int64_t b = 0; b < p.batch; ++b) {
     for (int64_t c0 = 0; c0 < m; c0 += p.chunk_cols) {
       const int64_t c1 = c0 + p.chunk_cols < m ? c0 + p.chunk_cols : m;
-      for (int64_t r = blockIdx.x; r < m; r += gridDim.x) {
+      for (int64_t r = blockIdx.x; r < rows; r += gridDim.x) {
+        const int64_t gr = b * rows + r;  // row of the flattened (B * R, M) matrix
         int64_t head, body;
-        split(r, m, c0, c1, vw, head, body);
-        const T* src_j = g_j + r * m + c0 + head;
-        const T* src_k = g_k + r * m + c0 + head;
+        split(gr, m, c0, c1, vw, head, body);
+        const T* src_j = g_j + gr * m + c0 + head;
+        const T* src_k = g_k + gr * m + c0 + head;
         for (int64_t off = 0; off < body; off += seg, ++k) {
           const int s = static_cast<int>(k % ns);
           mbar_wait(&empty[s], static_cast<uint32_t>((k / ns) & 1) ^ 1u);
@@ -271,6 +293,7 @@ fused_jk_ring_kernel(const T* __restrict__ g_j, const T* __restrict__ g_k,
         }
       }
     }
+    }
     return;
   }
 
@@ -279,34 +302,39 @@ fused_jk_ring_kernel(const T* __restrict__ g_j, const T* __restrict__ g_k,
   const int nthreads = nc * 32;
   int64_t k = 0;
   int64_t rows_done = 0;
+  for (int64_t b = 0; b < p.batch; ++b) {
+  const T* dml = dm + b * 2 * m;  // this lane's densities and output
+  T* o = out + b * 3 * rows;
   for (int64_t c0 = 0; c0 < m; c0 += p.chunk_cols) {
     const int64_t c1 = c0 + p.chunk_cols < m ? c0 + p.chunk_cols : m;
     const int64_t width = c1 - c0;
-    if (c0 > 0) consumer_sync(nthreads);  // the previous chunk is no longer read
+    // the previous chunk (or lane) is no longer read
+    if (b > 0 || c0 > 0) consumer_sync(nthreads);
     // stage the chunk's densities, kStageUnroll loads in flight per thread
     for (int64_t i0 = 0; i0 < width; i0 += kStageUnroll * nthreads) {
-      T a[kStageUnroll], b[kStageUnroll];
+      T a[kStageUnroll], bb[kStageUnroll];
 #pragma unroll
       for (int u = 0; u < kStageUnroll; ++u) {
         const int64_t i = i0 + u * nthreads + tid;
-        a[u] = i < width ? __ldg(dm + c0 + i) : T(0);
-        b[u] = i < width ? __ldg(dm + m + c0 + i) : T(0);
+        a[u] = i < width ? __ldg(dml + c0 + i) : T(0);
+        bb[u] = i < width ? __ldg(dml + m + c0 + i) : T(0);
       }
 #pragma unroll
       for (int u = 0; u < kStageUnroll; ++u) {
         const int64_t i = i0 + u * nthreads + tid;
         if (i < width) {
           s_da[i] = a[u];
-          s_db[i] = b[u];
+          s_db[i] = bb[u];
         }
       }
     }
     consumer_sync(nthreads);
-    for (int64_t r = blockIdx.x; r < m; r += gridDim.x) {
+    for (int64_t r = blockIdx.x; r < rows; r += gridDim.x) {
+      const int64_t gr = b * rows + r;
       int64_t head, body;
-      split(r, m, c0, c1, vw, head, body);
-      const T* gj = g_j + r * m + c0;
-      const T* gk = g_k + r * m + c0;
+      split(gr, m, c0, c1, vw, head, body);
+      const T* gj = g_j + gr * m + c0;
+      const T* gk = g_k + gr * m + c0;
       // the head and tail scalars come from device memory: loaded now,
       // used after the stages, so their latency never holds a stage back
       const int64_t tail0 = head + body;
@@ -317,8 +345,8 @@ fused_jk_ring_kernel(const T* __restrict__ g_j, const T* __restrict__ g_k,
       // a later column chunk adds to the row's earlier sums (written by this
       // same thread), loaded now for the same reason
       const bool add = tid == 0 && c0 > 0;
-      const T prev_j = add ? out[r] : T(0), prev_ka = add ? out[m + r] : T(0),
-              prev_kb = add ? out[2 * m + r] : T(0);
+      const T prev_j = add ? o[r] : T(0), prev_ka = add ? o[rows + r] : T(0),
+              prev_kb = add ? o[2 * rows + r] : T(0);
       T acc_j = T(0), acc_ka = T(0), acc_kb = T(0);
       for (int64_t off = 0; off < body; off += seg, ++k) {
         const int s = static_cast<int>(k % ns);
@@ -372,19 +400,20 @@ fused_jk_ring_kernel(const T* __restrict__ g_j, const T* __restrict__ g_k,
           ska += rb[3 * w + 1];
           skb += rb[3 * w + 2];
         }
-        out[r] = prev_j + sj;
-        out[m + r] = prev_ka + ska;
-        out[2 * m + r] = prev_kb + skb;
+        o[r] = prev_j + sj;
+        o[rows + r] = prev_ka + ska;
+        o[2 * rows + r] = prev_kb + skb;
       }
       ++rows_done;
     }
+  }
   }
 }
 
 template <typename T>
 int launch(const void* g_j, const void* g_k, const void* dm, void* out, const Plan* p,
            void* stream) {
-  if (p->m <= 0 || p->grid <= 0 || p->warps <= 0) {
+  if (p->m <= 0 || p->rows <= 0 || p->batch <= 0 || p->grid <= 0 || p->warps <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -394,7 +423,8 @@ int launch(const void* g_j, const void* g_k, const void* dm, void* out, const Pl
   T* o = static_cast<T*>(out);
   if (p->path == 0) {
     if (p->warps * 32 > kVecThreads) return static_cast<int>(cudaErrorInvalidValue);
-    fused_jk_vec_kernel<T><<<p->grid, p->warps * 32, 0, st>>>(gj, gk, d, o, p->m);
+    fused_jk_vec_kernel<T><<<p->grid, p->warps * 32, 0, st>>>(gj, gk, d, o, p->m, p->rows,
+                                                               p->batch);
   } else {
     if (p->warps > kMaxConsumerWarps || p->stages < 1 || p->stages > kMaxStages ||
         p->seg_elems <= 0 || p->chunk_cols <= 0 || p->smem_bytes > kSmemMax) {
@@ -420,8 +450,9 @@ extern "C" int nbed_jk_init(void) {
   return static_cast<int>(err);
 }
 
-// g_j, g_k: (m, m) row-major, 16-byte aligned; dm: (2, m) spin densities;
-// out: (3, m); plan: the launch plan of ops/jk.py::plan.
+// g_j, g_k: (batch, rows, m) row-major, 16-byte aligned; dm: (batch, 2, m)
+// spin densities; out: (batch, 3, rows); plan: the launch plan of
+// ops/jk.py::plan.
 extern "C" int nbed_jk_f64(const void* g_j, const void* g_k, const void* dm, void* out,
                            const void* plan, void* stream) {
   return launch<double>(g_j, g_k, dm, out, static_cast<const Plan*>(plan), stream);

@@ -53,9 +53,16 @@ def _chunk_math(terms, thresh: float, differentiable: bool = False):
 
     ``differentiable``: the input derivatives come from
     ``torch.func.grad_and_value`` on the attached inputs, so (exc, vxc)
-    carry their dependence on ``dm`` into an enclosing ``torch.func``
-    transform; otherwise the inputs are detached and differentiated by
+    carry their dependence on ``dm`` (and on the tables) into an enclosing
+    ``torch.func`` transform or ``torch.autograd.forward_ad`` level;
+    otherwise the inputs are detached and differentiated by
     ``torch.autograd.grad``.
+
+    Leading lane axes ride along: tables (B, C, nao) and (B, 3, C, nao),
+    weights (B, C) and densities (B, 2, nao, nao) give exc (B,) and vxc
+    (B, 2, nao, nao), each lane's own. Points of zero weight and zero AO
+    values (the padding of a grid split over devices) fall under the
+    density mask and add exactly zero.
     """
     needs_tau = any(getattr(fn, "needs_tau", False) for _, fn in terms)
 
@@ -74,47 +81,57 @@ def _chunk_math(terms, thresh: float, differentiable: bool = False):
         return torch.where(mask, out, torch.zeros_like(out))
 
     def one_chunk(ao_c, grad_c, w_c, dm):
-        ao_d = torch.einsum("gp,spq->sgq", ao_c, dm)  # (2, C, nao)
-        rho = torch.einsum("sgq,gq->sg", ao_d, ao_c)
-        grho = 2.0 * torch.einsum("dgq,sgq->sdg", grad_c, ao_d)  # (2, 3, C)
-        gaa = torch.einsum("dg,dg->g", grho[0], grho[0])
-        gbb = torch.einsum("dg,dg->g", grho[1], grho[1])
-        gab = torch.einsum("dg,dg->g", grho[0], grho[1])
-        base = [rho[0], rho[1], gaa, gab, gbb]
+        lanes = w_c.ndim > 1
+        ao_d = torch.einsum("...gp,...spq->...sgq", ao_c, dm)  # (2, C, nao)
+        rho = torch.einsum("...sgq,...gq->...sg", ao_d, ao_c)
+        grho = 2.0 * torch.einsum("...dgq,...sgq->...sdg", grad_c, ao_d)  # (2, 3, C)
+        grho_a, grho_b = grho[..., 0, :, :], grho[..., 1, :, :]
+        gaa = torch.einsum("...dg,...dg->...g", grho_a, grho_a)
+        gbb = torch.einsum("...dg,...dg->...g", grho_b, grho_b)
+        gab = torch.einsum("...dg,...dg->...g", grho_a, grho_b)
+        base = [rho[..., 0, :], rho[..., 1, :], gaa, gab, gbb]
         if needs_tau:
-            grad_d = torch.einsum("dgp,spq->sdgq", grad_c, dm)  # (2, 3, C, nao)
-            tau = 0.5 * torch.einsum("sdgq,dgq->sg", grad_d, grad_c)
+            grad_d = torch.einsum("...dgp,...spq->...sdgq", grad_c, dm)  # (2, 3, C, nao)
+            tau = 0.5 * torch.einsum("...sdgq,...dgq->...sg", grad_d, grad_c)
             del grad_d
-            base += [tau[0], tau[1]]
+            base += [tau[..., 0, :], tau[..., 1, :]]
 
         def energy(*inputs):
-            return torch.sum(w_c * e_density(*inputs))
+            """(the sum that is differentiated, each lane's energy): the
+            lanes are independent, so the sum's input derivatives are each
+            lane's own."""
+            if not lanes:
+                e = torch.sum(w_c * e_density(*inputs))
+                return e, e
+            e = torch.sum(w_c * e_density(*inputs), dim=-1)
+            return torch.sum(e), e
 
         if differentiable:
-            grads, exc = torch.func.grad_and_value(
-                energy, argnums=tuple(range(len(base))))(*base)
+            grads, (_, exc) = torch.func.grad_and_value(
+                energy, argnums=tuple(range(len(base))), has_aux=True)(*base)
         else:
             inputs = [t.detach().requires_grad_(True) for t in base]
             with torch.enable_grad():
-                exc = energy(*inputs)
-                grads = torch.autograd.grad(exc, inputs, allow_unused=True,
+                total, exc = energy(*inputs)
+                grads = torch.autograd.grad(total, inputs, allow_unused=True,
                                             materialize_grads=True)
             exc = exc.detach()
         vra, vrb, vgaa, vgab, vgbb, *v_tau = grads
         vta, vtb = v_tau if needs_tau else (None, None)
 
         def vmat(vr, vg_ss, vg_ab, grho_s, grho_t, vt):
-            m = torch.einsum("g,gp,gq->pq", vr, ao_c, ao_c)
-            vec = 2.0 * vg_ss[None, :] * grho_s + vg_ab[None, :] * grho_t
-            half = torch.einsum("dg,dgp,gq->pq", vec, grad_c, ao_c)
-            out = m + half + half.T
+            m = torch.einsum("...g,...gp,...gq->...pq", vr, ao_c, ao_c)
+            vec = 2.0 * vg_ss[..., None, :] * grho_s + vg_ab[..., None, :] * grho_t
+            half = torch.einsum("...dg,...dgp,...gq->...pq", vec, grad_c, ao_c)
+            out = m + half + half.transpose(-1, -2)
             if needs_tau:
-                out = out + 0.5 * torch.einsum("g,dgp,dgq->pq", vt, grad_c, grad_c)
+                out = out + 0.5 * torch.einsum("...g,...dgp,...dgq->...pq", vt, grad_c,
+                                               grad_c)
             return out
 
-        va = vmat(vra, vgaa, vgab, grho[0], grho[1], vta)
-        vb = vmat(vrb, vgbb, vgab, grho[1], grho[0], vtb)
-        return exc, torch.stack([va, vb])
+        va = vmat(vra, vgaa, vgab, grho_a, grho_b, vta)
+        vb = vmat(vrb, vgbb, vgab, grho_b, grho_a, vtb)
+        return exc, torch.stack([va, vb], dim=-3)
 
     return one_chunk
 
@@ -125,20 +142,21 @@ def make_xc_fn(ao, ao_grad, weights, xc_name: str, chunk: int = TABLE_CHUNK,
     (``ao`` (G, nao), ``ao_grad`` (3, G, nao), ``weights`` (G,)), or None
     for a functional with no grid terms (``hf``). It computes in the
     tables' dtype and takes a density of that dtype; ``differentiable``
-    as in :func:`_chunk_math`."""
+    and lane axes in front of every argument as in :func:`_chunk_math`."""
     terms = resolve_functional(xc_name)[0]
     if not terms:
         return None
     one_chunk = _chunk_math(terms, _mask_thresh(ao.dtype), differentiable)
-    n_points = ao.shape[0]
+    n_points = ao.shape[-2]
+    lead = tuple(weights.shape[:-1])
 
     def xc_fn(dm):
-        exc = torch.zeros((), dtype=ao.dtype, device=ao.device)
-        v = torch.zeros((2,) + tuple(dm.shape[-2:]), dtype=ao.dtype,
+        exc = torch.zeros(lead, dtype=ao.dtype, device=ao.device)
+        v = torch.zeros(lead + (2,) + tuple(dm.shape[-2:]), dtype=ao.dtype,
                         device=ao.device)
         for g0 in range(0, n_points, chunk):
             sl = slice(g0, g0 + chunk)
-            exc_c, v_c = one_chunk(ao[sl], ao_grad[:, sl], weights[sl], dm)
+            exc_c, v_c = one_chunk(ao[..., sl, :], ao_grad[..., sl, :], weights[..., sl], dm)
             exc = exc + exc_c
             v = v + v_c
         return exc, v

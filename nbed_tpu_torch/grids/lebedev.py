@@ -14,7 +14,8 @@ import numpy as np
 
 from .data_lebedev import LEBEDEV_PARAMS
 
-__all__ = ["lebedev_grid", "LEBEDEV_PARAMS"]
+__all__ = ["lebedev_grid", "LEBEDEV_PARAMS", "available_orders", "DEGREE_TO_N",
+           "order_for_degree"]
 
 _SQ2 = 1.0 / math.sqrt(2.0)
 _SQ3 = 1.0 / math.sqrt(3.0)
@@ -126,3 +127,21 @@ def lebedev_grid(n: int):
     if len(pts) != n:
         raise ValueError(f"Lebedev rule {n} expanded to {len(pts)} points")
     return pts, wts
+
+
+def available_orders():
+    """The point counts of the tabulated rules, ascending."""
+    return sorted(LEBEDEV_PARAMS)
+
+
+# algebraic degree -> point count for the standard rule sequence
+DEGREE_TO_N = {deg: n for n, (deg, _, _) in LEBEDEV_PARAMS.items()}
+
+
+def order_for_degree(degree: int) -> int:
+    """Point count of the smallest rule with algebraic degree >= ``degree``
+    (the largest rule when none reaches it)."""
+    for deg in sorted(DEGREE_TO_N):
+        if deg >= degree:
+            return DEGREE_TO_N[deg]
+    return DEGREE_TO_N[max(DEGREE_TO_N)]

@@ -8,7 +8,9 @@ over its whole pair list (the reference ``vmap``s one pair), contracted
 over primitives, turned spherical and accumulated into the AO matrix by
 the class's precomputed indices. Every function is pure torch arithmetic
 on the coordinates (the molecule's and the point charges'), so autograd
-passes through it. The SCF engine keeps the host C++ engine
+passes through it. Coordinates of shape (B, natm, 3) give B lanes (a batch
+of conformers) in the same computations, the lane axis leading every
+primitive tensor, and a (B, ...) result. The SCF engine keeps the host C++ engine
 (``integrals.native``) for its own V; these serve the nuclear gradients.
 """
 
@@ -203,19 +205,24 @@ def _dipole_prim(la, lb):
 
 def _contract_pairs(table: _PairTable, coords_a, coords_b, prim_factory, extra=()):
     """One class: primitive integrals over the whole pair list, contracted
-    and made spherical -> (P, [3,] nsa, nsb). ``extra`` tensors (point
-    charges) follow the primitive arguments."""
+    and made spherical -> ([B,] P, [3,] nsa, nsb), B the lanes of (B, natm,
+    3) coordinates. ``extra`` tensors (point charges) follow the primitive
+    arguments."""
     dev = coords_a.device
+    lanes = coords_a.ndim == 3
 
     def t(a):
         return torch.as_tensor(a, dtype=DTYPE, device=dev)
 
-    ra = coords_a[torch.as_tensor(table.atom_a, device=dev)][:, None, None, :]
-    rb = coords_b[torch.as_tensor(table.atom_b, device=dev)][:, None, None, :]
+    ra = coords_a[..., torch.as_tensor(table.atom_a, device=dev), :][..., :, None, None, :]
+    rb = coords_b[..., torch.as_tensor(table.atom_b, device=dev), :][..., :, None, None, :]
     fij = prim_factory(table.la, table.lb)(
         ra, rb, t(table.exps_a)[:, :, None], t(table.exps_b)[:, None, :], *extra)
+    if lanes:  # (B, P, Ka, Kb, ...) -> (P, Ka, Kb, B, ...): the lane rides in "..."
+        fij = fij.movedim(0, 3)
     block = torch.einsum("pi,pj,pij...->p...", t(table.coefs_a), t(table.coefs_b), fij)
-    return torch.einsum("p...ab,pax,pby->p...xy", block, t(table.c2s_a), t(table.c2s_b))
+    out = torch.einsum("p...ab,pax,pby->p...xy", block, t(table.c2s_a), t(table.c2s_b))
+    return out.movedim(1, 0) if lanes else out
 
 
 def _assemble(mol_a, mol_b, coords_a, coords_b, prim_factory, symmetric, n_ops=None,
@@ -223,16 +230,19 @@ def _assemble(mol_a, mol_b, coords_a, coords_b, prim_factory, symmetric, n_ops=N
     """Accumulate every class into the (nao_a, nao_b) matrix, or the
     (n_ops, nao_a, nao_b) stack, by index addition: several classes write
     the same entries only through the mirror of the symmetric case, and
-    ``index_add`` sums repeated indices."""
+    ``index_add`` sums repeated indices. (B, natm, 3) coordinates put a
+    lane axis in front."""
     dev = coords_a.device
-    shape = (mol_a.nao * mol_b.nao,) if n_ops is None else (n_ops, mol_a.nao * mol_b.nao)
+    lead = tuple(coords_a.shape[:-2])
+    shape = lead + ((mol_a.nao * mol_b.nao,) if n_ops is None
+                    else (n_ops, mol_a.nao * mol_b.nao))
     out = torch.zeros(shape, dtype=DTYPE, device=dev)
     for table in _pair_tables(mol_a, mol_b, symmetric):
         blocks = _contract_pairs(table, coords_a, coords_b, prim_factory, extra)
         if n_ops is None:
-            vals = blocks.reshape(-1)
+            vals = blocks.reshape(*lead, -1)
         else:
-            vals = blocks.movedim(1, 0).reshape(n_ops, -1)
+            vals = blocks.movedim(len(lead) + 1, len(lead)).reshape(*lead, n_ops, -1)
         out = out.index_add(-1, torch.as_tensor(table.flat, device=dev), vals)
         if symmetric:
             mask = torch.as_tensor(table.mirror_mask, dtype=DTYPE, device=dev)
@@ -248,7 +258,8 @@ def _coords(mol, coords, device):
 
 def overlap(mol: Molecule, coords=None, device="cuda"):
     """AO overlap matrix S (nao, nao) on ``device``; ``coords`` (Bohr)
-    defaults to the molecule's."""
+    defaults to the molecule's. Coordinates (B, natm, 3) give (B, nao, nao),
+    as for every function of this module."""
     c = _coords(mol, coords, resolve_device(device))
     return _assemble(mol, mol, c, c, _overlap_prim, symmetric=True)
 
@@ -274,7 +285,9 @@ def nuclear_attraction(mol: Molecule, coords=None, device="cuda"):
     :func:`point_charge_attraction`)."""
     c = _coords(mol, coords, resolve_device(device))
     z = torch.as_tensor(mol.atom_charges, dtype=DTYPE, device=c.device)
-    return _assemble(mol, mol, c, c, _nuclear_prim, symmetric=True, extra=(c, z))
+    # the nuclei of a lane align with its (P, Ka, Kb) primitives
+    centers = c[:, None, None, None] if c.ndim == 3 else c
+    return _assemble(mol, mol, c, c, _nuclear_prim, symmetric=True, extra=(centers, z))
 
 
 def point_charge_attraction(mol: Molecule, centers, charges, radii=None, coords=None,

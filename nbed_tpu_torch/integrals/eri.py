@@ -133,26 +133,30 @@ def _device_tables(mol: Molecule, device: torch.device):
 
 
 def _class_rows(ls, coords, exps, coef, atoms, omega):
-    """Cartesian blocks (rows, nca, ncb, ncc, ncd) of a chunk of primitive
-    quartet rows, each scaled by its contraction coefficient."""
+    """Cartesian blocks ([B,] rows, nca, ncb, ncc, ncd) of a chunk of
+    primitive quartet rows, each scaled by its contraction coefficient; B
+    the lanes of (B, natm, 3) coordinates."""
     la, lb, lc, ld = ls
-    ra, rb, rc, rd = (coords[atoms[:, k]] for k in range(4))
+    lead = tuple(coords.shape[:-2])
+    ra, rb, rc, rd = (coords[..., atoms[:, k], :] for k in range(4))
     a, b, c, d = (exps[:, k] for k in range(4))
     p, q = a + b, c + d
     big_p = (a[:, None] * ra + b[:, None] * rb) / p[:, None]
     big_q = (c[:, None] * rc + d[:, None] * rd) / q[:, None]
-    e_ab = _e3_tensor(la, lb, a, b, ra - rb)  # (rows, nca, ncb, T, T, T)
+    e_ab = _e3_tensor(la, lb, a, b, ra - rb)  # ([B,] rows, nca, ncb, T, T, T)
     e_cd = _e3_tensor(lc, ld, c, d, rc - rd)
     r4 = hermite_r_cross(la + lb, lc + ld, p * q / (p + q), big_p - big_q, omega=omega)
     rows = exps.shape[0]
-    nab = e_ab.shape[1] * e_ab.shape[2]
-    ncd = e_cd.shape[1] * e_cd.shape[2]
+    cart_ab, cart_cd = e_ab.shape[-5:-3], e_cd.shape[-5:-3]
+    nab = cart_ab[0] * cart_ab[1]
+    ncd = cart_cd[0] * cart_cd[1]
     t3 = (la + lb + 1) ** 3
     u3 = (lc + ld + 1) ** 3
     pref = coef * 2.0 * np.pi ** 2.5 / (p * q * torch.sqrt(p + q))
-    out = torch.bmm(torch.bmm(e_ab.reshape(rows, nab, t3), r4.reshape(rows, t3, u3)),
-                    e_cd.reshape(rows, ncd, u3).transpose(1, 2))
-    return (pref[:, None, None] * out).reshape(rows, *e_ab.shape[1:3], *e_cd.shape[1:3])
+    out = torch.bmm(torch.bmm(e_ab.reshape(-1, nab, t3), r4.reshape(-1, t3, u3)),
+                    e_cd.reshape(-1, ncd, u3).transpose(1, 2))
+    out = pref[:, None, None] * out.reshape(*lead, rows, nab, ncd)
+    return out.reshape(*lead, rows, *cart_ab, *cart_cd)
 
 
 def eri_tensor(mol: Molecule, coords=None, chunk_elems: int = 2**22, omega=None,
@@ -164,28 +168,35 @@ def eri_tensor(mol: Molecule, coords=None, chunk_elems: int = 2**22, omega=None,
     autograd gives its nuclear derivatives. Only canonical quartets are
     computed. ``chunk_elems`` bounds the per-chunk intermediates: a chunk of
     a class holds at most ``chunk_elems`` elements of the larger of its
-    cartesian block and its Hermite R4 tensor per row (at least 16 rows).
-    ``omega`` selects the long-range erf(omega*r12)/r12 kernel of
+    cartesian block and its Hermite R4 tensor per row and lane (at least
+    16 rows). ``omega`` selects the long-range erf(omega*r12)/r12 kernel of
     range-separated hybrids.
+
+    Coordinates of shape (B, natm, 3) give (B, nao, nao, nao, nao): the B
+    lanes ride through each class's chunks in one computation, and a
+    chunk holds chunk_elems / B rows, so its memory is the single
+    geometry's.
     """
     c = _coords(mol, coords, resolve_device(device))
     dev = c.device
+    lead = tuple(c.shape[:-2])
+    lanes = int(np.prod(lead))
     omega = None if omega is None else float(omega)
     classes, tables, source = _device_tables(mol, dev)
     vals = []
     for cls, (exps, coef, qid, atoms, c2s) in zip(classes, tables):
         la, lb, lc, ld = cls.ls
         per_row = max(int(np.prod(cls.ncart)), (la + lb + 1) ** 3 * (lc + ld + 1) ** 3)
-        chunk = max(16, min(cls.n_prim, chunk_elems // per_row))
-        acc = torch.zeros((cls.m, *cls.ncart), dtype=DTYPE, device=dev)
+        chunk = max(16, min(cls.n_prim, chunk_elems // (per_row * lanes)))
+        acc = torch.zeros((*lead, cls.m, *cls.ncart), dtype=DTYPE, device=dev)
         for s in range(0, cls.n_prim, chunk):
             sl = slice(s, s + chunk)
             blocks = _class_rows(cls.ls, c, exps[sl], coef[sl], atoms[sl], omega)
-            acc = acc.index_add(0, qid[sl], blocks)
-        sph = torch.einsum("mabcd,map->mpbcd", acc, c2s[0])
-        sph = torch.einsum("mpbcd,mbq->mpqcd", sph, c2s[1])
-        sph = torch.einsum("mpqcd,mcr->mpqrd", sph, c2s[2])
-        sph = torch.einsum("mpqrd,mds->mpqrs", sph, c2s[3])
-        vals.append(sph.reshape(-1))
+            acc = acc.index_add(len(lead), qid[sl], blocks)
+        sph = torch.einsum("...mabcd,map->...mpbcd", acc, c2s[0])
+        sph = torch.einsum("...mpbcd,mbq->...mpqcd", sph, c2s[1])
+        sph = torch.einsum("...mpqcd,mcr->...mpqrd", sph, c2s[2])
+        sph = torch.einsum("...mpqrd,mds->...mpqrs", sph, c2s[3])
+        vals.append(sph.reshape(*lead, -1))
     n = mol.nao
-    return torch.cat(vals)[source].reshape(n, n, n, n)
+    return torch.cat(vals, dim=-1)[..., source].reshape(*lead, n, n, n, n)

@@ -20,6 +20,34 @@ __all__ = ["boys", "e_table_1d", "hermite_r", "hermite_r_cross"]
 _SERIES_BELOW = 0.1
 
 
+class _GammaincT(torch.autograd.Function):
+    """``torch.special.gammainc(a, t)`` differentiable in ``t`` in both
+    modes: torch's igamma has a backward but no forward-mode derivative,
+    which the geometry-differentiable embedding program
+    (``parallel/embed_path.py``) needs. The derivative is torch's own
+    backward formula, dP(a, t)/dt = exp((a - 1) log t - t - lgamma(a))."""
+
+    @staticmethod
+    def forward(ctx, a, t):
+        ctx.save_for_backward(a, t)
+        ctx.save_for_forward(a, t)
+        return torch.special.gammainc(a, t)
+
+    @staticmethod
+    def _dt(a, t):
+        return torch.exp((a - 1) * torch.log(t) - t - torch.lgamma(a))
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, t = ctx.saved_tensors
+        return None, grad * _GammaincT._dt(a, t)
+
+    @staticmethod
+    def jvp(ctx, _a_dot, t_dot):
+        a, t = ctx.saved_tensors
+        return t_dot * _GammaincT._dt(a, t)
+
+
 def boys(mmax: int, t):
     """Boys functions F_0..F_mmax at ``t`` (any shape), stacked on axis 0.
 
@@ -38,7 +66,7 @@ def boys(mmax: int, t):
     a = mmax + 0.5
     small = t < _SERIES_BELOW
     t_big = torch.clamp_min(torch.where(small, torch.ones_like(t), t), 1e-30)
-    f_big = (0.5 * math.gamma(a)) * torch.special.gammainc(
+    f_big = (0.5 * math.gamma(a)) * _GammaincT.apply(
         torch.full_like(t_big, a), t_big) / t_big ** a
     f_small = torch.zeros_like(t)
     for k in range(14):

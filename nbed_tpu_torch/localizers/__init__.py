@@ -5,8 +5,9 @@ from .ace import ACELocalizer
 from .occupied import (BOYSLocalizer, IBOLocalizer, OccupiedLocalizer, PMLocalizer,
                        SPADELocalizer, check_values)
 from .system import LocalizedSystem
-from .virtual import ConcentricLocalizer, PAOLocalizer
+from .virtual import ConcentricLocalizer, PAOLocalizer, VirtualLocalizer
 
 __all__ = ["LocalizedSystem", "OccupiedLocalizer", "SPADELocalizer", "PMLocalizer",
-           "BOYSLocalizer", "IBOLocalizer", "ConcentricLocalizer", "PAOLocalizer",
+           "BOYSLocalizer", "IBOLocalizer", "VirtualLocalizer", "ConcentricLocalizer",
+           "PAOLocalizer",
            "ACELocalizer", "check_values"]

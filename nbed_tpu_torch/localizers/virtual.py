@@ -17,12 +17,20 @@ import torch
 from ..chem.molecule import build_molecule
 from ..integrals.core import overlap, overlap_cross
 
-__all__ = ["ConcentricLocalizer", "PAOLocalizer"]
+__all__ = ["VirtualLocalizer", "ConcentricLocalizer", "PAOLocalizer"]
 
 logger = logging.getLogger(__name__)
 
 
-class ConcentricLocalizer:
+class VirtualLocalizer:
+    """Base of the virtual localizers: holds the active-atom count
+    (``nbed_tpu/localizers/virtual.py:23-27``)."""
+
+    def __init__(self, n_active_atoms: int):
+        self._n_active_atoms = n_active_atoms
+
+
+class ConcentricLocalizer(VirtualLocalizer):
     """Concentric localization of embedded virtuals.
 
     ``shells`` records the column count after each accepted shell and
@@ -32,7 +40,7 @@ class ConcentricLocalizer:
 
     def __init__(self, embedded_scf, n_active_atoms: int, max_shells: int = 4,
                  projected_basis: str | None = None):
-        self._n_active_atoms = n_active_atoms
+        super().__init__(n_active_atoms)
         self.embedded_scf = embedded_scf
         self.max_shells = max_shells
         self.projected_basis = projected_basis
@@ -141,13 +149,13 @@ class ConcentricLocalizer:
         return c_total, shells, singular_values, c_rem
 
 
-class PAOLocalizer:
+class PAOLocalizer(VirtualLocalizer):
     """Projected atomic orbitals for the embedded virtual space (reference
     virtual.py:175-199; Huzinaga path only)."""
 
     def __init__(self, global_scf, n_active_atoms: int, c_loc_occ,
                  norm_cutoff: float = 0.05, overlap_cutoff: float = 1e-5):
-        self._n_active_atoms = n_active_atoms
+        super().__init__(n_active_atoms)
         self.global_scf = global_scf
         self.norm_cutoff = norm_cutoff
         self.overlap_cutoff = overlap_cutoff

@@ -3,7 +3,11 @@ PyTorch version.
 
 ``fused_jk(g_j, g_k, dm)`` computes ``J = G_J vec(D_a + D_b)`` and
 ``K_s = G_K vec(D_s)``, the function of ``nbed_tpu/ops/pallas_jk.py::fused_jk``
-(the reference's only Pallas kernel), in float32 or float64. Tensors on the
+(the reference's only Pallas kernel), in float32 or float64. Besides one
+(M, M) pair, G may be (B, R, M): B lanes (a batch of conformers, one launch
+for the whole batch) of R rows each (R < M: a row slab of a supermatrix
+split over devices), with (B, 2, nao, nao) densities and a (B, 3, R)
+output. Tensors on the
 CPU take :func:`fused_jk_reference`; tensors on a CUDA device always launch
 the hand-written kernel, which is built with ``nvcc`` for ``sm_90a`` into
 ``nbed_tpu_torch/_build`` at first use. There is no fallback: a CUDA call
@@ -30,17 +34,20 @@ import torch
 
 from .._compile import build_shared_library
 
-__all__ = ["fused_jk", "fused_jk_reference", "prepare_jk", "FusedJK", "Plan", "plan",
-           "split", "LAUNCHES", "LAUNCHES_BY_M", "build_kernels", "SMEM_MAX"]
+__all__ = ["fused_jk", "fused_jk_reference", "prepare_jk", "forward_ad_jk", "FusedJK",
+           "Plan", "plan", "split", "LAUNCHES", "LAUNCHES_BY_M", "LAUNCHES_BY_SHAPE",
+           "build_kernels", "SMEM_MAX"]
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "fused_jk.cu"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC"]
 
 # launches made through the wrapper in this process, by dtype:
-# "fused_jk_f64" and "fused_jk_f32"; and by (that key, M)
+# "fused_jk_f64" and "fused_jk_f32"; by (that key, M); and by (that key,
+# M, R, B): columns, rows per lane and lanes
 LAUNCHES: Counter = Counter()
 LAUNCHES_BY_M: Counter = Counter()
+LAUNCHES_BY_SHAPE: Counter = Counter()
 
 # the launch plan's limits; they mirror the constants of csrc/fused_jk.cu
 SMEM_MAX = 232448          # dynamic shared memory a block may use on the H100
@@ -55,7 +62,8 @@ RING_MIN_ROW_BYTES = 16384
 
 @dataclass(frozen=True)
 class Plan:
-    """How one (M, M) J/K build is launched (``csrc/fused_jk.cu``'s Plan).
+    """How one J/K build of B lanes of (R, M) G is launched
+    (``csrc/fused_jk.cu``'s Plan).
 
     ``path`` is "vector" (one warp per row, 16-byte loads from device
     memory), "ring" (densities resident in shared memory, G streamed
@@ -63,6 +71,7 @@ class Plan:
     or "chunked" (the ring with the densities staged ``chunk_cols`` columns
     at a time, where all of them do not fit beside it). ``warps`` is the
     warps per block (the ring's consumers; a producer warp comes on top).
+    ``rows`` is R and ``batch`` B; a ring block loops over the lanes.
     """
 
     m: int
@@ -74,30 +83,38 @@ class Plan:
     seg_elems: int = 0
     chunk_cols: int = 0
     smem_bytes: int = 0
+    rows: int = 0
+    batch: int = 1
 
 
 def plan(m: int, word: int, sm_count: int, path: str = None,
-         chunk_cols: int = None) -> Plan:
-    """The launch plan of an (M, M) build in words of ``word`` bytes on a
-    card of ``sm_count`` SMs. ``path`` forces a path (measurements, tests);
-    ``chunk_cols`` forces the chunked path's density chunk."""
+         chunk_cols: int = None, rows: int = None, batch: int = 1) -> Plan:
+    """The launch plan of a build of ``batch`` lanes of ``rows`` rows
+    (default M) of M columns, in words of ``word`` bytes, on a card of
+    ``sm_count`` SMs. ``path`` forces a path (measurements, tests);
+    ``chunk_cols`` forces the chunked path's density chunk. The path
+    follows the row length alone; the vector path spreads the B * R rows
+    of all lanes over its warps, the ring one block per SM over R."""
+    rows = m if rows is None else rows
     if path is None:
         path = "vector" if m * word < RING_MIN_ROW_BYTES else "ring"
     if path == "vector":
-        warps = min(_VEC_WARPS, -(-m // sm_count))
+        total = batch * rows
+        warps = min(_VEC_WARPS, -(-total // sm_count))
         # every warp of the grid resident at full occupancy (64 warps / SM)
-        grid = min(-(-m // warps), (64 // warps) * sm_count)
-        return Plan(m, word, "vector", grid, warps)
+        grid = min(-(-total // warps), (64 // warps) * sm_count)
+        return Plan(m, word, "vector", grid, warps, rows=rows, batch=batch)
     if path not in ("ring", "chunked"):
         raise ValueError(f"unknown fused_jk path {path!r}")
-    grid = min(m, sm_count)  # one block per SM: the ring fills its shared memory
+    grid = min(rows, sm_count)  # one block per SM: the ring fills its shared memory
     if path == "ring":
         avail = SMEM_MAX - _RING_OFFSET - 2 * m * word
         for stages in (4, 3):
             seg_bytes = min(_MAX_STAGE, avail // (2 * stages) // 128 * 128)
             if seg_bytes >= _MIN_STAGE:
                 return Plan(m, word, "ring", grid, _RING_WARPS, stages, seg_bytes // word,
-                            m, _RING_OFFSET + 2 * stages * seg_bytes + 2 * m * word)
+                            m, _RING_OFFSET + 2 * stages * seg_bytes + 2 * m * word,
+                            rows, batch)
         path = "chunked"  # the densities do not fit beside a ring of 3 stages
     # a smaller ring leaves wider density chunks (fewer passes over the rows)
     stages, seg_bytes = 4, _MAX_STAGE // 2
@@ -108,12 +125,13 @@ def plan(m: int, word: int, sm_count: int, path: str = None,
     if smem > SMEM_MAX:
         raise ValueError(f"fused_jk: a density chunk of {chunk_cols} columns does not fit")
     return Plan(m, word, "chunked", grid, _RING_WARPS, stages, seg_bytes // word, chunk_cols,
-                smem)
+                smem, rows, batch)
 
 
 def split(m: int, word: int, rows, c0: int, c1: int):
     """(head, body, tail) columns of columns [c0, c1) of each of ``rows``
-    (an int array) of an (M, M) matrix with a 16-byte aligned base: scalars
+    (an int array: rows of the flattened (B * R, M) matrix) of a matrix of
+    M columns with a 16-byte aligned base: scalars
     up to the first 16-byte boundary, whole 16-byte vectors, scalars. The
     host mirror of ``split`` in ``csrc/fused_jk.cu``."""
     vw = 16 // word
@@ -124,10 +142,11 @@ def split(m: int, word: int, rows, c0: int, c1: int):
 
 
 class _PlanC(ctypes.Structure):
-    _fields_ = [("m", ctypes.c_int64), ("path", ctypes.c_int32), ("grid", ctypes.c_int32),
-                ("warps", ctypes.c_int32), ("stages", ctypes.c_int32),
-                ("seg_elems", ctypes.c_int32), ("chunk_cols", ctypes.c_int32),
-                ("smem_bytes", ctypes.c_int32)]
+    _fields_ = [("m", ctypes.c_int64), ("rows", ctypes.c_int64), ("path", ctypes.c_int32),
+                ("grid", ctypes.c_int32), ("warps", ctypes.c_int32),
+                ("stages", ctypes.c_int32), ("seg_elems", ctypes.c_int32),
+                ("chunk_cols", ctypes.c_int32), ("smem_bytes", ctypes.c_int32),
+                ("batch", ctypes.c_int32)]
 
 
 def _nvcc() -> str:
@@ -166,34 +185,61 @@ def _init_device(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _rows_reference(g_j, g_k, dm):
+    """(3, R) rows of one lane: G_J vec(D_a + D_b) and G_K vec(D_s), the
+    products of ``run_scf``'s default ``get_jk`` in
+    ``nbed_tpu/scf/hf.py:195-199``. On the CPU a row's value does not
+    depend on which other rows are computed, for slabs of four rows or
+    more (torch's CPU product takes another path below that)."""
+    m = dm.shape[-1] ** 2
+    j = g_j @ (dm[0] + dm[1]).reshape(-1)
+    k = (g_k @ dm.reshape(2, m).T).T
+    return torch.cat([j[None], k])
+
+
 def fused_jk_reference(g_j, g_k, dm):
-    """Plain PyTorch J/K: the same products as ``run_scf``'s default
-    ``get_jk`` in ``nbed_tpu/scf/hf.py:195-199``."""
+    """Plain PyTorch J/K. For (M, M) supermatrices and (2, nao, nao)
+    densities: (J (nao, nao), K (2, nao, nao)). For (B, R, M) and
+    (B, 2, nao, nao): the (B, 3, R) output of the lane/slab kernel, lane by
+    lane, so that each lane and row equals the single build's bitwise."""
+    if g_j.ndim == 3:
+        return torch.stack([_rows_reference(g_j[b], g_k[b], dm[b])
+                            for b in range(g_j.shape[0])])
     n = dm.shape[-1]
-    j = (g_j @ (dm[0] + dm[1]).reshape(-1)).reshape(n, n)
-    k = (g_k @ dm.reshape(2, n * n).T).T.reshape(2, n, n)
-    return j, k
+    out = _rows_reference(g_j, g_k, dm)
+    return out[0].reshape(n, n), out[1:].reshape(2, n, n)
 
 
 class FusedJK:
     """The fused J/K kernel prepared for one pair of CUDA supermatrices.
 
-    Construction checks G (shape (M, M) with M = nao^2, one CUDA device, one
-    dtype of float32 or float64, contiguous, 16-byte aligned), builds the
-    kernel library, and fixes the entry point, the device and the launch
-    :func:`plan` (``path`` forces one; see :func:`plan`). A call ``jk(dm)``
-    takes (2, nao, nao) densities of G's dtype and device, contiguous, and
-    returns (J (nao, nao), K (2, nao, nao)), views of one new output. A call
+    Construction checks G, builds the kernel library, and fixes the entry
+    point, the device and the launch :func:`plan` (``path`` forces one; see
+    :func:`plan`). G is either (M, M) with M = nao^2, and a call ``jk(dm)``
+    takes (2, nao, nao) densities and returns (J (nao, nao), K (2, nao,
+    nao)), views of one new output; or (B, R, M) with R <= M (B lanes of R
+    rows), and a call takes (B, 2, nao, nao) densities and returns the new
+    (B, 3, R) output (J, K_a, K_b rows of each lane). G lies on one CUDA
+    device, in one dtype of float32 or float64, contiguous and 16-byte
+    aligned; the densities in G's dtype on its device, contiguous. A call
     launches without a device guard when the current device is G's.
     """
 
     def __init__(self, g_j, g_k, path: str = None, chunk_cols: int = None):
-        m = g_j.shape[0] if g_j.ndim == 2 else -1
+        lanes = g_j.ndim == 3
+        m = g_j.shape[-1] if g_j.ndim in (2, 3) else -1
         nao = int(round(m ** 0.5)) if m > 0 else 0
-        if g_j.ndim != 2 or g_j.shape[1] != m or nao * nao != m:
-            raise ValueError(f"g_j must be (M, M) with M = nao^2, got {tuple(g_j.shape)}")
-        if tuple(g_k.shape) != (m, m):
-            raise ValueError(f"g_k must be ({m}, {m}) as g_j, got {tuple(g_k.shape)}")
+        if lanes:
+            batch, rows = g_j.shape[0], g_j.shape[1]
+            if nao * nao != m or not (1 <= rows <= m) or batch < 1:
+                raise ValueError("g_j must be (B, R, M) with M = nao^2 and 1 <= R <= M, "
+                                 f"got {tuple(g_j.shape)}")
+        else:
+            batch, rows = 1, m
+            if g_j.ndim != 2 or g_j.shape[0] != m or nao * nao != m:
+                raise ValueError(f"g_j must be (M, M) with M = nao^2, got {tuple(g_j.shape)}")
+        if g_k.shape != g_j.shape:
+            raise ValueError(f"g_k must be {tuple(g_j.shape)} as g_j, got {tuple(g_k.shape)}")
         if g_j.dtype not in (torch.float32, torch.float64) or g_k.dtype != g_j.dtype:
             raise TypeError("fused_jk takes float32 or float64 supermatrices of one "
                             f"dtype, got {g_j.dtype} and {g_k.dtype}")
@@ -206,23 +252,29 @@ class FusedJK:
             raise ValueError("fused_jk needs 16-byte aligned supermatrices")
         self.g_j, self.g_k = g_j, g_k  # kept alive: the kernel reads their memory
         self.dtype, self.device = g_j.dtype, g_j.device
+        self.lanes = lanes
         self._index = g_j.device.index
-        self.plan = plan(m, g_j.element_size(), _init_device(self._index), path, chunk_cols)
-        self._cplan = _PlanC(m, 0 if self.plan.path == "vector" else 1, self.plan.grid,
+        self.plan = plan(m, g_j.element_size(), _init_device(self._index), path, chunk_cols,
+                         rows, batch)
+        self._cplan = _PlanC(m, rows, 0 if self.plan.path == "vector" else 1, self.plan.grid,
                              self.plan.warps, self.plan.stages, self.plan.seg_elems,
-                             self.plan.chunk_cols, self.plan.smem_bytes)
+                             self.plan.chunk_cols, self.plan.smem_bytes, batch)
         self._cplan_ptr = ctypes.addressof(self._cplan)
         f64 = g_j.dtype == torch.float64
         self._fn = build_kernels().nbed_jk_f64 if f64 else build_kernels().nbed_jk_f32
         self._key = "fused_jk_f64" if f64 else "fused_jk_f32"
         self._key_m = (self._key, m)
+        self._key_shape = (self._key, m, rows, batch)
         self._ptrs = (g_j.data_ptr(), g_k.data_ptr())
-        self._dm_shape = (2, nao, nao)
+        self._dm_shape = (batch, 2, nao, nao) if lanes else (2, nao, nao)
         # a fresh output per call, allocated like this template (measured
         # cheaper on the host than torch.empty with shape, dtype and device)
-        self._out_like = torch.empty((3, nao, nao), dtype=g_j.dtype, device=g_j.device)
+        self._out_like = torch.empty((batch, 3, rows) if lanes else (3, nao, nao),
+                                     dtype=g_j.dtype, device=g_j.device)
 
-    def __call__(self, dm):
+    def launch(self, dm):
+        """Check ``dm``, launch, count; returns the raw output, (B, 3, R)
+        or (3, nao, nao)."""
         if not (dm.shape == self._dm_shape and dm.dtype == self.dtype
                 and dm.device == self.device and dm.is_contiguous()):
             raise ValueError(f"fused_jk: dm must be a contiguous {self.dtype} tensor of "
@@ -243,12 +295,18 @@ class FusedJK:
             raise RuntimeError(f"fused_jk kernel launch failed with CUDA error {err}")
         LAUNCHES[self._key] += 1
         LAUNCHES_BY_M[self._key_m] += 1
-        return out[0], out[1:]
+        LAUNCHES_BY_SHAPE[self._key_shape] += 1
+        return out
+
+    def __call__(self, dm):
+        out = self.launch(dm)
+        return out if self.lanes else (out[0], out[1:])
 
 
 def prepare_jk(g_j, g_k):
-    """``dm -> (J, K)`` for one pair of supermatrices: a :class:`FusedJK` on
-    CUDA, the plain version on the CPU."""
+    """``dm -> (J, K)`` (or the (B, 3, R) output for (B, R, M) G) for one
+    pair of supermatrices: a :class:`FusedJK` on CUDA, the plain version on
+    the CPU."""
     if g_j.device.type == "cpu" and g_k.device.type == "cpu":
         return lambda dm: fused_jk_reference(g_j, g_k, dm)
     return FusedJK(g_j, g_k)
@@ -258,13 +316,55 @@ def fused_jk(g_j, g_k, dm):
     """Fused Coulomb/exchange build.
 
     Args:
-        g_j: (M, M) Coulomb supermatrix (ij|kl), M = nao^2.
-        g_k: (M, M) exchange supermatrix (ik|jl).
-        dm: (2, nao, nao) spin densities.
+        g_j: (M, M) Coulomb supermatrix (ij|kl), M = nao^2; or (B, R, M).
+        g_k: (M, M) exchange supermatrix (ik|jl); or (B, R, M).
+        dm: (2, nao, nao) spin densities; or (B, 2, nao, nao).
 
     Returns:
-        (j, k): j (nao, nao); k (2, nao, nao), in the dtype of the inputs.
+        (j, k): j (nao, nao); k (2, nao, nao), in the dtype of the inputs;
+        for (B, R, M) G the (B, 3, R) rows of J, K_a and K_b.
     """
     if all(t.device.type == "cpu" for t in (g_j, g_k, dm)):
         return fused_jk_reference(g_j, g_k, dm)
     return FusedJK(g_j, g_k)(dm)
+
+
+class _ForwardJK(torch.autograd.Function):
+    """The lane kernel under forward-mode AD: J/K is linear in G and in D,
+    so the tangent of ``out = JK(G, D)`` is ``JK(G, dD) + JK(dG, D)``, two
+    launches of the same kernel. Forward mode only (no backward)."""
+
+    @staticmethod
+    def forward(ctx, dm, g_j, g_k, jk, jk_dot):
+        ctx.jk, ctx.jk_dot = jk, jk_dot
+        ctx.save_for_forward(dm)
+        return jk.launch(dm)
+
+    @staticmethod
+    def jvp(ctx, dm_dot, g_j_dot, g_k_dot, _jk, _jk_dot):
+        (dm,) = ctx.saved_tensors
+        out = None if dm_dot is None else ctx.jk.launch(dm_dot.contiguous())
+        if ctx.jk_dot is not None:
+            extra = ctx.jk_dot.launch(dm)
+            out = extra if out is None else out + extra
+        return out if out is not None else torch.zeros_like(ctx.jk._out_like)
+
+
+def forward_ad_jk(g_j, g_k):
+    """``dm -> (B, 3, R)`` for (B, R, M) supermatrices that may carry
+    forward-mode tangents (``torch.autograd.forward_ad`` dual tensors, as
+    the geometry-differentiable embedding program makes them). On the CPU
+    the plain version, which forward AD passes through; on CUDA the lane
+    kernel inside :class:`_ForwardJK`, prepared once on G's primal and
+    once on its tangent."""
+    if g_j.device.type == "cpu":
+        return lambda dm: fused_jk_reference(g_j, g_k, dm)
+    from torch.autograd import forward_ad
+
+    (pj, tj), (pk, tk) = forward_ad.unpack_dual(g_j), forward_ad.unpack_dual(g_k)
+    jk = FusedJK(pj.contiguous(), pk.contiguous())
+    if tj is None and tk is None:
+        return jk
+    jk_dot = FusedJK((torch.zeros_like(pj) if tj is None else tj).contiguous(),
+                     (torch.zeros_like(pk) if tk is None else tk).contiguous())
+    return lambda dm: _ForwardJK.apply(dm, g_j, g_k, jk, jk_dot)

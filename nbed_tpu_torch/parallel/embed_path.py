@@ -1,0 +1,267 @@
+"""The whole mu-embedding pipeline as one function of geometry (port of
+``nbed_tpu/parallel/embed_path.py``).
+
+``make_mu_embed_energy`` builds ``coords -> dict``: global KS -> SPADE
+partition -> subsystem-DFT energy decomposition -> embedded HF (mu shift or
+Huzinaga) -> embedded total energy, as the host driver assembles it
+(``nbed_tpu/parallel/embed_path.py:1-31``):
+
+    e_rhf = e_tot(embedded HF with v_emb) + e_env + two_e_cross
+            - sum_s Tr(v_emb_s D_act_s)
+
+The reference compiles it into one XLA program and ``vmap``s it over
+conformers. Here the program runs over a lane axis: (B, natm, 3)
+coordinates run every stage for the B conformers at once (batched
+integrals, lane SCFs whose every cycle makes one fused J/K launch for the
+batch, batched ``eigh``), and (natm, 3) coordinates are one lane.
+
+SPADE's data-dependent choice of the active-space size cannot be made per
+lane without changing shapes, so the active-MO count is a static argument,
+as in the reference: fix it with one host-driver (or ACE) run, then scan
+geometries with this program.
+
+Geometry derivatives run in forward mode through
+``torch.autograd.forward_ad`` (dual coordinates): the SCF loops read their
+convergence flags on the host, which ``torch.func.jvp`` refuses inside its
+transform while ``forward_ad`` reads the primal. The fused J/K kernel then
+runs under :func:`nbed_tpu_torch.ops.jk.forward_ad_jk` (the tangent is two
+more launches), the XC closure in its differentiable form, and the SPADE
+split through :func:`_topk_projector`'s gap-only tangent. Pass
+``grad_cycles`` > 0 for tangents that settle on the implicit-function
+derivative (``nbed_tpu/scf/hf.py:432-441``).
+"""
+
+import numpy as np
+import torch
+
+from .._device import DTYPE, resolve_device
+from ..chem.molecule import Molecule
+from ..integrals import eri_tensor, kinetic, nuclear_attraction, overlap
+from ..ops.jk import forward_ad_jk
+from ..scf.hf import run_scf
+from .sharding import _lane_groups, _lanes_jk, _supermatrices
+
+__all__ = ["make_mu_embed_energy", "batched_embedding_energies"]
+
+_KEYS = ("e_emb_rhf", "e_global", "e_act", "e_env", "two_e_cross", "converged")
+
+
+class _TopK(torch.autograd.Function):
+    """The projector onto the top-k eigenspace of symmetric ``m`` ([B,] n,
+    n), with the reference's custom tangent (``embed_path.py:46-81``).
+
+    SPADE needs the active subspace, not its singular vectors, and the
+    subspace projector stays differentiable under degeneracies inside the
+    active or the environment block (water: the O 1s and the out-of-plane
+    lone pair both lie entirely on O, two singular values exactly 1, where
+    the plain eigh tangent divides by a zero gap and gives NaN). The
+    tangent keeps only the cross-gap response
+
+        dP = sum_{i in act, a in env} (v_i v_a^T + h.c.)
+             (v_i^T dM v_a) / (lam_i - lam_a),
+
+    the exact derivative of the projector, which needs only the SPADE gap
+    lam_k > lam_{k+1} open. The backward is the same map's adjoint."""
+
+    @staticmethod
+    def forward(ctx, m, k):
+        w, v = torch.linalg.eigh(m)
+        ctx.k = k
+        ctx.save_for_backward(w, v)
+        ctx.save_for_forward(w, v)
+        vk = v[..., m.shape[-1] - k:]
+        return vk @ vk.transpose(-1, -2)
+
+    @staticmethod
+    def _parts(ctx):
+        w, v = ctx.saved_tensors
+        nk = w.shape[-1] - ctx.k
+        denom = w[..., None, nk:] - w[..., :nk, None]  # (n-k, k): the gap only
+        return v[..., nk:], v[..., :nk], denom
+
+    @staticmethod
+    def jvp(ctx, m_dot, _k):
+        vk, vr, denom = _TopK._parts(ctx)
+        g = (vr.transpose(-1, -2) @ m_dot @ vk) / denom
+        half = vr @ g @ vk.transpose(-1, -2)
+        return half + half.transpose(-1, -2)
+
+    @staticmethod
+    def backward(ctx, p_bar):
+        vk, vr, denom = _TopK._parts(ctx)
+        h = vr.transpose(-1, -2) @ (p_bar + p_bar.transpose(-1, -2)) @ vk
+        m_bar = vr @ (h / denom) @ vk.transpose(-1, -2)
+        return 0.5 * (m_bar + m_bar.transpose(-1, -2)), None
+
+
+def _topk_projector(m, k: int):
+    """Projector onto the top-k eigenspace of symmetric ``m`` (see
+    :class:`_TopK`)."""
+    return _TopK.apply(m, k)
+
+
+def make_mu_embed_energy(mol: Molecule, n_active_atoms: int, n_act_mos, xc: str = "b3lyp",
+                         mu_level_shift: float = 1e6, conv_tol: float = 1e-9,
+                         dm_conv_tol: float = 1e-7, max_cycle: int = 100,
+                         grid_level: int = 3, projector: str = "mu", grad_cycles: int = 0,
+                         device="cuda"):
+    """Build ``energy(coords) -> dict``, the embedding program.
+
+    Args:
+        mol: molecule (atom and basis structure; the geometry comes per call).
+        n_active_atoms: leading atoms forming the active fragment.
+        n_act_mos: static active-MO count: an int, or a per-spin ``(n_alpha,
+            n_beta)`` tuple (open shell).
+        xc: environment functional: pure, global hybrid, or range-separated
+            hybrid (the long-range exchange folded into the global KS's
+            exchange as hyb * K + beta * K_LR, the engine's convention; the
+            embedded HF keeps the unfolded K).
+        mu_level_shift: the mu projector's shift.
+        projector: "mu" (the level-shift projector in v_emb) or "huzinaga"
+            (the -(FDS + SDF) operator inside the embedded SCF; its converged
+            value is frozen into v_emb for the correction, as the driver
+            does).
+        grad_cycles: damped DIIS-free cycles after each SCF converges, for
+            forward-mode tangents (see the module docstring).
+        device: where the program runs; ``"cuda"`` unless the caller asks
+            for the CPU.
+
+    ``energy`` takes (natm, 3) or (B, natm, 3) coordinates in bohr (a
+    tensor, dual under ``forward_ad`` for derivatives) and returns
+    ``{"e_emb_rhf", "e_global", "e_act", "e_env", "two_e_cross",
+    "converged"}``, 0-d or (B,) tensors.
+
+    Raises:
+        ValueError: for an unknown projector, or an ``n_act_mos`` above the
+            occupied count or above the active-AO count (the SPADE block
+            cannot have that many nonzero singular values: a zero gap and
+            NaN derivatives).
+    """
+    if projector not in ("mu", "huzinaga"):
+        raise ValueError(f"unknown projector {projector!r}")
+    from ..dft.functionals import resolve_functional
+    from ..dft.xc import make_xc_fn
+    from ..grids import build_grid, eval_aos
+
+    terms, hyb, rsh = resolve_functional(xc) if xc else ([], 1.0, None)
+    dev = resolve_device(device)
+    n_act_aos = int(mol.aoslice_by_atom()[n_active_atoms - 1][-1])
+    n_occ = tuple(int(x) for x in mol.nelec)
+    if np.ndim(n_act_mos) == 0:
+        n_act = (int(n_act_mos), int(n_act_mos))
+    else:
+        n_act = (int(n_act_mos[0]), int(n_act_mos[1]))
+    if any(n_act[s] > n_occ[s] for s in range(2)):
+        raise ValueError(f"n_act_mos {n_act} exceeds occupied {n_occ}.")
+    if any(n_act[s] > n_act_aos for s in range(2)):
+        raise ValueError(
+            f"n_act_mos {n_act} exceeds the active-AO count {n_act_aos}: "
+            "the SPADE overlap block cannot have that many nonzero "
+            "singular values (zero gap -> NaN geometry derivatives).")
+    scf_kw = dict(conv_tol=conv_tol, dm_conv_tol=dm_conv_tol, max_cycle=max_cycle,
+                  grad_cycles=grad_cycles)
+    n = mol.nao
+
+    def energy(coords):
+        from torch.autograd import forward_ad
+
+        x = torch.as_tensor(coords, dtype=DTYPE).to(dev)
+        single = x.ndim == 2
+        if single:
+            x = x[None]
+        dual = forward_ad.unpack_dual(x).tangent is not None
+        s = overlap(mol, x, device=dev)
+        hcore = kinetic(mol, x, device=dev) + nuclear_attraction(mol, x, device=dev)
+        eri_j, eri_k = _supermatrices(eri_tensor(mol, x, device=dev))
+        if rsh is not None:
+            eri_k_lr = _supermatrices(eri_tensor(mol, x, omega=rsh[1], device=dev))[1]
+            jk_xc = _lanes_jk(forward_ad_jk(eri_j, hyb * eri_k + rsh[0] * eri_k_lr), n)
+            jk_hf, hyb_xc = _lanes_jk(forward_ad_jk(eri_j, eri_k), n), 1.0
+        else:
+            jk_xc = jk_hf = _lanes_jk(forward_ad_jk(eri_j, eri_k), n)
+            hyb_xc = hyb
+        e_nuc = mol.energy_nuc_tensor(x)
+
+        xc_fn = None
+        if terms:
+            grids = [build_grid(mol, xb, level=grid_level, device=dev) for xb in x]
+            tables = [eval_aos(mol, p, xb) for (p, _), xb in zip(grids, x)]
+            # the differentiable closure carries the density's tangent
+            # into the potential; without one the faster detached form
+            xc_fn = make_xc_fn(torch.stack([a for a, _ in tables]),
+                               torch.stack([g for _, g in tables]),
+                               torch.stack([w for _, w in grids]), xc, differentiable=dual)
+
+        # global KS (the driver's _global_ks)
+        glob = run_scf(hcore=hcore, s=s, jk_fn=jk_xc, xc_fn=xc_fn, hyb=hyb_xc, nelec=n_occ,
+                       **scf_kw)
+        e_global = glob.e_elec + e_nuc
+
+        # SPADE with a static active count: the top-k right-singular
+        # subspace of the active-AO rows, as a projector
+        w_s, v_s = torch.linalg.eigh(s)
+        s_half = (v_s * torch.sqrt(w_s)[..., None, :]) @ v_s.transpose(-1, -2)
+
+        def spade(c_spin, n_o, k):
+            occ_c = c_spin[..., :n_o]
+            a = (s_half @ occ_c)[:, :n_act_aos, :]
+            p = _topk_projector(a.transpose(-1, -2) @ a, k)
+            dm_a = occ_c @ p @ occ_c.transpose(-1, -2)
+            return dm_a, occ_c @ occ_c.transpose(-1, -2) - dm_a
+
+        parts = [spade(glob.mo_coeff[:, sp], n_occ[sp], n_act[sp]) for sp in range(2)]
+        dm_act = torch.stack([p[0] for p in parts], dim=1)
+        dm_env = torch.stack([p[1] for p in parts], dim=1)
+
+        # subsystem-DFT decomposition
+        def veff_parts(dm):
+            j, k = jk_xc(dm)
+            if xc_fn is not None:
+                exc, vxc = xc_fn(dm)
+            else:
+                exc, vxc = torch.zeros_like(e_nuc), torch.zeros_like(dm)
+            v = j[:, None] + vxc - hyb_xc * k
+            d_tot = dm[:, 0] + dm[:, 1]
+            ecoul = 0.5 * torch.einsum("bij,bji->b", j, d_tot)
+            exc = exc - 0.5 * hyb_xc * torch.einsum("bsij,bsji->b", k, dm)
+            e = torch.einsum("bij,bji->b", hcore, d_tot) + ecoul + exc
+            return e, v, exc, j
+
+        e_act, v_act, exc_act, j_act = veff_parts(dm_act)
+        e_env, v_env, exc_env, j_env = veff_parts(dm_env)
+        _, v_tot, exc_tot, _ = veff_parts(dm_act + dm_env)
+        j_cross = 0.5 * (torch.einsum("bsij,bij->b", dm_act, j_env)
+                         + torch.einsum("bsij,bij->b", dm_env, j_act))
+        two_e_cross = j_cross + (exc_tot - exc_act - exc_env)
+
+        # embedded HF
+        v_pot = v_tot - v_act
+        if projector == "mu":
+            p_env = torch.einsum("bij,bsjk,bkl->bsil", s, dm_env, s)
+            v_emb = mu_level_shift * p_env + v_pot
+            emb = run_scf(hcore=hcore, s=s, jk_fn=jk_hf, nelec=n_act, v_emb=v_emb,
+                          dm0=dm_act, **scf_kw)
+            v_corr = v_emb
+        else:
+            emb = run_scf(hcore=hcore, s=s, jk_fn=jk_hf, nelec=n_act, v_emb=v_pot,
+                          dm_env_occ=dm_env, dm0=dm_act, **scf_kw)
+            v_corr = emb.huzinaga_op + v_pot
+        corr = torch.einsum("bsij,bsij->b", v_corr, dm_act)
+        out = dict(zip(_KEYS, (emb.e_elec + e_nuc + e_env + two_e_cross - corr, e_global,
+                               e_act, e_env, two_e_cross, glob.converged & emb.converged)))
+        return {k: v[0] for k, v in out.items()} if single else out
+
+    return energy
+
+
+def batched_embedding_energies(mol: Molecule, coords_batch, n_active_atoms: int, n_act_mos,
+                               mesh=None, device="cuda", **kwargs):
+    """Embedded energies of a conformer batch: ``coords_batch`` (B, natm, 3)
+    bohr in lane groups over the mesh's 'batch' axis (all on ``device``
+    without a mesh), each group one run of :func:`make_mu_embed_energy`'s
+    program over its lanes. Returns the dict of (B,) outputs, on the
+    mesh's first device (or ``device``)."""
+    parts = [make_mu_embed_energy(mol, n_active_atoms, n_act_mos, device=dev, **kwargs)(x)
+             for dev, x in _lane_groups(coords_batch, mesh, device)]
+    out_dev = resolve_device(device) if mesh is None else mesh.devices[0, 0]
+    return {k: torch.cat([p[k].to(out_dev) for p in parts]) for k in _KEYS}

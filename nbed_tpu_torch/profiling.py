@@ -1,5 +1,5 @@
-"""Per-stage wall times of the embedding pipeline, and the device busy/idle
-share of one call."""
+"""Per-stage wall times of the embedding pipeline, the device busy/idle
+share of one call, and a profiler trace to a directory."""
 
 import contextlib
 import logging
@@ -9,7 +9,7 @@ import torch
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["StageTimer", "device_profile"]
+__all__ = ["StageTimer", "device_profile", "device_trace"]
 
 
 def device_profile(fn):
@@ -43,6 +43,28 @@ def device_profile(fn):
         "device_events": sum(e.count for e in dev),
         "top": [[e.key, e.count, e.self_device_time_total / 1e3] for e in dev[:12]],
     }
+
+
+@contextlib.contextmanager
+def device_trace(log_dir):
+    """Trace the block under ``torch.profiler`` (host activity, and the
+    card's where CUDA is available) and write it to ``log_dir`` as a Chrome
+    trace, ``trace.json`` (chrome://tracing or Perfetto open it); the
+    counterpart of ``nbed_tpu/profiling.py:42``'s XLA trace."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(out / "trace.json"))
 
 
 class StageTimer:

@@ -19,9 +19,27 @@ float64 polish loop then lands on the float64 fixed point
 (``nbed_tpu/scf/hf.py:299-429``). The reference's ``lax.cond`` branches
 become Python ``if`` on host scalars.
 
+Lanes: an ``s`` of shape (B, n, n) runs B SCFs at once (a batch of
+conformers), the reference's ``vmap`` of its ``while_loop``. Every operator
+and the DIIS history carry the lane axis, ``eigh`` and the DIIS solve are
+batched ``torch.linalg`` calls, and the loop reads one (B,) convergence
+tensor per cycle. A converged lane is frozen: as the vmapped loop selects
+the old carry where a lane's condition is false, each cycle's update is
+taken only on the lanes still running, so lane b ends where the same
+geometry run alone ends, in the same number of cycles. The lane form takes
+the float64 operators of HF, KS and Huzinaga SCFs; ROHF and the mixed
+precision modes stay single-geometry.
+
+``grad_cycles`` (``nbed_tpu/scf/hf.py:431-455``) adds that many DIIS-free
+cycles, damped by 0.5, after a converged loop: a no-op on the converged
+density, which lets forward-mode tangents (``torch.autograd.forward_ad``)
+settle on the implicit-function derivative. The DIIS mixing coefficients
+are detached, as the reference stops their gradient: at the fixed point
+they carry no derivative, and differentiating the ``eigh`` of the padded
+DIIS matrix, whose empty slots are degenerate, makes every tangent NaN.
+
 Not ported: the TPU-only Newton refinement of ``eigh`` (a no-op off the TPU,
-``hf.py:63-66``) and the DIIS-free, damped tangent-polish steps of the
-forward-mode derivatives (ROADMAP queue 1 item 13).
+``hf.py:63-66``).
 """
 
 from dataclasses import dataclass
@@ -36,7 +54,9 @@ DIIS_SPACE = 8  # Pulay history length (the reference's default)
 
 @dataclass
 class SCFResult:
-    """Converged SCF data (always spin-resolved)."""
+    """Converged SCF data (always spin-resolved). A lane run's result has a
+    lane axis in front of every tensor, and ``e_elec`` (B,), ``converged``
+    (B,) and ``n_iter`` (B,) are tensors."""
 
     mo_coeff: torch.Tensor  # (2, n, n)
     mo_energy: torch.Tensor  # (2, n)
@@ -50,26 +70,27 @@ class SCFResult:
 
 
 def make_rdm1(mo_coeff, mo_occ):
-    """D_sigma = C diag(occ) C^T with 0/1 spin-orbital occupations."""
-    return torch.einsum("spi,si,sqi->spq", mo_coeff, mo_occ, mo_coeff)
+    """D_sigma = C diag(occ) C^T with 0/1 spin-orbital occupations; leading
+    lane axes ride along."""
+    return torch.einsum("...spi,...si,...sqi->...spq", mo_coeff, mo_occ, mo_coeff)
 
 
 def lowdin_x(s):
-    """S^{-1/2} via eigh."""
+    """S^{-1/2} via eigh, of (n, n) or (B, n, n)."""
     w, v = torch.linalg.eigh(s)
-    return (v * (1.0 / torch.sqrt(w))[None, :]) @ v.T
+    return (v * (1.0 / torch.sqrt(w))[..., None, :]) @ v.transpose(-1, -2)
 
 
 def huzinaga_operator(fock, dm_occ_s, dm_virt_s):
     """-(F D S + S D F) per spin, plus the virtual-space variant
-    (``nbed_tpu/scf/hf.py:91-106``)."""
-    fds_occ = torch.einsum("sij,sjk->sik", fock, dm_occ_s)
+    (``nbed_tpu/scf/hf.py:91-106``); leading lane axes ride along."""
+    fds_occ = torch.einsum("...sij,...sjk->...sik", fock, dm_occ_s)
     huz = -(fds_occ + fds_occ.transpose(-1, -2))
-    fds_virt = torch.einsum("sij,sjk->sik", fock, dm_virt_s)
+    fds_virt = torch.einsum("...sij,...sjk->...sik", fock, dm_virt_s)
     huz_virt = -(
         fds_virt
         + fds_virt.transpose(-1, -2)
-        - 2.0 * torch.einsum("sij,sjk->sik", dm_virt_s.transpose(-1, -2), fds_virt)
+        - 2.0 * torch.einsum("...sij,...sjk->...sik", dm_virt_s.transpose(-1, -2), fds_virt)
     )
     return huz + huz_virt
 
@@ -92,25 +113,33 @@ def roothaan_effective(f, dm, s):
 
 
 def _diis_extrapolate(hist_f, hist_e, nfill: int):
-    """Pulay extrapolation over the filled slots of the ring buffer, with the
-    reference's eigh pseudo-inverse and relative cut (``hf.py:260-292``)."""
-    m = hist_f.shape[0]
-    dtype, device = hist_f.dtype, hist_f.device
-    flat_e = hist_e.reshape(m, -1)
-    b = flat_e @ flat_e.T
+    """Pulay extrapolation of the history Focks ([B,] m, 2, n, n) over the
+    filled slots of the ring buffer, with the reference's eigh pseudo-inverse
+    and relative cut (``hf.py:260-292``), per lane. The coefficients come
+    from the detached errors, so no derivative reaches them."""
+    hist_e = hist_e.detach()
+    m = hist_e.shape[-4]
+    lead = tuple(hist_e.shape[:-4])
+    dtype, device = hist_e.dtype, hist_e.device
+    flat_e = hist_e.reshape(*lead, m, -1)
+    b = flat_e @ flat_e.transpose(-1, -2)
     filled = (torch.arange(m, device=device) < nfill).to(dtype)
     b = b * (filled[:, None] * filled[None, :]) + torch.diag(1.0 - filled)
-    big = torch.zeros((m + 1, m + 1), dtype=dtype, device=device)
-    big[:m, :m] = b
-    big[:m, m] = filled
-    big[m, :m] = filled
+    big = torch.zeros((*lead, m + 1, m + 1), dtype=dtype, device=device)
+    big[..., :m, :m] = b
+    big[..., :m, m] = filled
+    big[..., m, :m] = filled
     rhs = torch.zeros(m + 1, dtype=dtype, device=device)
     rhs[m] = 1.0
     ew, ev = torch.linalg.eigh(big)
-    cut = torch.max(torch.abs(ew)) * max(1e-12, (m + 1) * torch.finfo(dtype).eps)
+    cut = torch.amax(torch.abs(ew), dim=-1, keepdim=True) * max(
+        1e-12, (m + 1) * torch.finfo(dtype).eps)
     inv_ew = torch.where(torch.abs(ew) > cut, 1.0 / ew, torch.zeros_like(ew))
-    coef = ((ev * inv_ew[None, :]) @ (ev.T @ rhs))[:m] * filled
-    return torch.einsum("h,hsij->sij", coef, hist_f)
+    proj = ev.transpose(-1, -2) @ rhs
+    if lead:  # a column per lane
+        proj = proj[..., None]
+    coef = ((ev * inv_ew[..., None, :]) @ proj).reshape(*lead, m + 1)[..., :m] * filled
+    return torch.einsum("...h,...hsij->...sij", coef, hist_f)
 
 
 def run_scf(
@@ -135,6 +164,7 @@ def run_scf(
     level_shift: float = 0.0,  # virtual-orbital level shift (Ha)
     rohf: bool = False,  # restricted open shell: shared spatial orbitals
     use_diis: bool = True,  # False: plain Roothaan iterations
+    grad_cycles: int = 0,  # damped DIIS-free cycles after convergence (tangents)
 ) -> SCFResult:
     """Run SCF to convergence.
 
@@ -151,7 +181,21 @@ def run_scf(
     exceeded ``xc_switch_tol`` evaluates XC in float32. Either option ends
     with a pure full-precision polish loop from the mixed loop's density,
     which sets the returned convergence flag; ``n_iter`` counts both loops.
+
+    An ``s`` of shape (B, n, n) runs B lanes (see the module docstring):
+    ``hcore`` (B, n, n) or (B, 2, n, n), ``v_emb``, ``dm_env_*`` and ``dm0``
+    (B, 2, n, n), ``jk_fn`` maps (B, 2, n, n) densities to (J (B, n, n),
+    K (B, 2, n, n)) and ``xc_fn`` to (exc (B,), vxc (B, 2, n, n)).
     """
+    if s.ndim == 3:
+        if rohf or jk_fn_fast is not None or xc_fn_fast is not None:
+            raise ValueError("run_scf over lanes takes neither rohf nor the mixed-precision "
+                             "options")
+        return _run_scf_lanes(
+            hcore=hcore, s=s, nelec=nelec, jk_fn=jk_fn, v_emb=v_emb, xc_fn=xc_fn, hyb=hyb,
+            dm_env_occ=dm_env_occ, dm_env_virt=dm_env_virt, dm0=dm0, conv_tol=conv_tol,
+            dm_conv_tol=dm_conv_tol, max_cycle=max_cycle, level_shift=level_shift,
+            use_diis=use_diis, grad_cycles=grad_cycles)
     n = s.shape[-1]
     if hcore.ndim == 2:
         hcore = torch.stack([hcore, hcore])
@@ -212,6 +256,14 @@ def run_scf(
             f_init = f_init + huzinaga_operator(f_init, dm_occ_s, dm_virt_s)
         _, c0 = eig_fock(f_init)
         dm0 = make_rdm1(c0, occ)
+
+    def step(dm, j, k, xc, damp: float = 0.0):
+        """(dm', e of dm, c, mo_e) of one DIIS-free cycle with ``dm``'s J/K,
+        ``dm`` mixed in by ``damp``: the tangent polish's step."""
+        f, _, e_cur = assemble_fock(dm, j, k, xc)
+        mo_e, c = eig_fock(f)
+        dm_new = make_rdm1(c, occ)
+        return (1.0 - damp) * dm_new + damp * dm, e_cur, c, mo_e
 
     def loop(dm, e_prev, c, mo_e, inc: bool, xcfast: bool):
         """SCF cycles from ``dm`` until convergence or ``max_cycle``, with a
@@ -278,10 +330,128 @@ def run_scf(
         # land on the float64 fixed point
         dm, e_prev, c, mo_e, conv, more = loop(dm, e_prev, c, mo_e, False, False)
         cycles += more
+    if grad_cycles and conv:
+        for _ in range(grad_cycles):
+            j, k = jk_fn(dm)
+            dm, _, c, mo_e = step(dm, j, k, xc_fn, damp=0.5)
 
     j, k = jk_fn(dm)
     f_fin, huz_fin, e_fin = assemble_fock(dm, j, k)
     return SCFResult(
         mo_coeff=c, mo_energy=mo_e, mo_occ=occ, dm=dm, e_elec=float(e_fin),
         converged=conv, fock=f_fin, huzinaga_op=huz_fin, n_iter=cycles,
+    )
+
+
+def _run_scf_lanes(*, hcore, s, nelec, jk_fn, v_emb, xc_fn, hyb, dm_env_occ, dm_env_virt,
+                   dm0, conv_tol, dm_conv_tol, max_cycle, level_shift, use_diis,
+                   grad_cycles) -> SCFResult:
+    """:func:`run_scf` over a leading lane axis (see the module docstring)."""
+    nb, n = s.shape[0], s.shape[-1]
+    dtype, device = s.dtype, s.device
+    if hcore.ndim == 3:
+        hcore = torch.stack([hcore, hcore], dim=1)
+    if v_emb is None:
+        v_emb = torch.zeros_like(hcore)
+    elif v_emb.ndim == 3:
+        v_emb = torch.stack([v_emb, v_emb], dim=1)
+    x = lowdin_x(s)
+    h_eff = hcore + v_emb.to(hcore.dtype)
+
+    use_huz = dm_env_occ is not None
+    if use_huz:
+        dm_occ_s = torch.einsum("bsij,bjk->bsik", dm_env_occ, s)
+        dm_virt_s = (torch.zeros_like(dm_occ_s) if dm_env_virt is None
+                     else torch.einsum("bsij,bjk->bsik", dm_env_virt, s))
+
+    ar = torch.arange(n, device=device)
+    occ = torch.stack([(ar < int(nelec[0])).to(dtype), (ar < int(nelec[1])).to(dtype)])
+    occ = occ.expand(nb, 2, n)
+
+    def assemble_fock(dm, j, k):
+        vhf = j[:, None] - hyb * k
+        if xc_fn is not None:
+            exc, vxc = xc_fn(dm)
+            vhf = vhf + vxc
+        else:
+            exc = 0.0
+        f0 = h_eff + vhf
+        if use_huz:
+            huz = huzinaga_operator(f0, dm_occ_s, dm_virt_s)
+            f = f0 + huz
+        else:
+            huz = torch.zeros_like(f0)
+            f = f0
+        e1 = torch.einsum("bsij,bsji->b", h_eff + huz, dm)
+        ecoul = 0.5 * torch.einsum("bij,bji->b", j, dm[:, 0] + dm[:, 1])
+        ex_hf = -0.5 * hyb * torch.einsum("bsij,bsji->b", k, dm)
+        return f, huz, e1 + ecoul + ex_hf + exc
+
+    def eig_fock(f):
+        f_ortho = torch.einsum("bpi,bspq,bqj->bsij", x, f, x)
+        mo_e, c_ortho = torch.linalg.eigh(f_ortho)
+        return mo_e, torch.einsum("bpi,bsij->bspj", x, c_ortho)
+
+    if dm0 is None:
+        f_init = h_eff
+        if use_huz:
+            f_init = f_init + huzinaga_operator(f_init, dm_occ_s, dm_virt_s)
+        dm0 = make_rdm1(eig_fock(f_init)[1], occ)
+
+    def take(mask, new, old):
+        """``new`` on the lanes of ``mask``, ``old`` elsewhere."""
+        return torch.where(mask.reshape((nb,) + (1,) * (new.ndim - 1)), new, old)
+
+    m = DIIS_SPACE
+    dm = dm0.to(dtype)
+    hist_f = torch.zeros((nb, m, 2, n, n), dtype=dtype, device=device)
+    hist_e = torch.zeros_like(hist_f)
+    c = torch.zeros((nb, 2, n, n), dtype=dtype, device=device)
+    mo_e = torch.zeros((nb, 2, n), dtype=dtype, device=device)
+    e_prev = torch.full((nb,), float("inf"), dtype=dtype, device=device)
+    conv = torch.zeros(nb, dtype=torch.bool, device=device)
+    cycles = torch.zeros(nb, dtype=torch.int64, device=device)
+    it = 0
+    running = True
+    while it < max_cycle and running:
+        active = ~conv  # the lanes this cycle updates
+        j, k = jk_fn(dm)
+        f, _, e_cur = assemble_fock(dm, j, k)
+        fds = torch.einsum("bsij,bsjk,bkl->bsil", f, dm, s)
+        err = torch.einsum("bpi,bspq,bqj->bsij", x, fds - fds.transpose(-1, -2), x)
+        hist_f[:, it % m] = f
+        hist_e[:, it % m] = err
+        f_use = f
+        if it > 0 and use_diis:
+            f_use = _diis_extrapolate(hist_f, hist_e, min(it + 1, m))
+        if level_shift:
+            sds = torch.einsum("bij,bsjk,bkl->bsil", s, dm, s)
+            f_use = f_use + level_shift * (s[:, None] - sds)
+        mo_e_new, c_new = eig_fock(f_use)
+        dm_new = make_rdm1(c_new, occ)
+        de = torch.abs(e_cur - e_prev)
+        ddm = torch.amax(torch.linalg.matrix_norm(dm_new - dm), dim=-1)
+        now = (de < conv_tol) & (ddm < dm_conv_tol)
+        dm = take(active, dm_new, dm)
+        e_prev = take(active, e_cur, e_prev)
+        c = take(active, c_new, c)
+        mo_e = take(active, mo_e_new, mo_e)
+        conv = conv | (active & now)
+        cycles = cycles + active.to(cycles.dtype)
+        it += 1
+        running = not bool(conv.all().cpu())  # the cycle's one host read
+    if grad_cycles and bool(conv.any()):
+        for _ in range(grad_cycles):
+            j, k = jk_fn(dm)
+            f, _, _ = assemble_fock(dm, j, k)
+            mo_e_new, c_new = eig_fock(f)
+            dm = take(conv, 0.5 * make_rdm1(c_new, occ) + 0.5 * dm, dm)
+            c = take(conv, c_new, c)
+            mo_e = take(conv, mo_e_new, mo_e)
+
+    j, k = jk_fn(dm)
+    f_fin, huz_fin, e_fin = assemble_fock(dm, j, k)
+    return SCFResult(
+        mo_coeff=c, mo_energy=mo_e, mo_occ=occ, dm=dm, e_elec=e_fin, converged=conv,
+        fock=f_fin, huzinaga_op=huz_fin, n_iter=cycles,
     )

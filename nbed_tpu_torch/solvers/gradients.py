@@ -66,8 +66,9 @@ def _xc_fn(mol, x, xc_name, grid_scheme, grid_level, grid_size):
 
 
 def _k(g, d):
-    """Exchange K_ij = sum_kl (ik|jl) d_kl of one spin density."""
-    return torch.einsum("ikjl,kl->ij", g, d)
+    """Exchange K_ij = sum_kl (ik|jl) d_kl of one spin density (leading
+    lane axes ride along)."""
+    return torch.einsum("...ikjl,...kl->...ij", g, d)
 
 
 def _energy_functional(mol: Molecule, dm, w_tot, hyb: float, xc_name=None,
@@ -79,18 +80,24 @@ def _energy_functional(mol: Molecule, dm, w_tot, hyb: float, xc_name=None,
     spin-summed energy-weighted density from :func:`_w_from_dm`.
     ``rsh`` = (beta, omega) adds -beta E_K over the long-range
     erf(omega*r12)/r12 ERIs. The grid arguments are the SCF engine's.
+
+    HF lanes: (B, 2, n, n) and (B, n, n) densities and (B, natm, 3)
+    coordinates give the (B,) lane energies; the lanes are independent, so
+    the gradient of their sum is each lane's own gradient.
     """
     dm = dm.detach()
     w_tot = w_tot.detach()
-    d_tot = dm[0] + dm[1]
+    d_tot = dm[..., 0, :, :] + dm[..., 1, :, :]
 
     def energy(x):
         dev = x.device
         g = eri_tensor(mol, x, device=dev)
-        ej = 0.5 * torch.einsum("ij,ijkl,kl->", d_tot, g, d_tot)
-        ek = 0.5 * sum(torch.sum(_k(g, dm[s]) * dm[s]) for s in (0, 1))
-        e = (torch.sum(d_tot * _hcore(mol, x)) + ej - hyb * ek
-             - torch.sum(w_tot * overlap(mol, x, device=dev)) + mol.energy_nuc_tensor(x))
+        ej = 0.5 * torch.einsum("...ij,...ijkl,...kl->...", d_tot, g, d_tot)
+        ek = 0.5 * sum(torch.sum(_k(g, dm[..., s, :, :]) * dm[..., s, :, :], dim=(-2, -1))
+                       for s in (0, 1))
+        e = (torch.sum(d_tot * _hcore(mol, x), dim=(-2, -1)) + ej - hyb * ek
+             - torch.sum(w_tot * overlap(mol, x, device=dev), dim=(-2, -1))
+             + mol.energy_nuc_tensor(x))
         if rsh is not None:
             beta, omega = rsh
             g_lr = eri_tensor(mol, x, omega=omega, device=dev)
@@ -109,13 +116,14 @@ def _w_from_dm(mol, x, dm, hyb: float, xc_name=None, grid_scheme: str = "referen
     eigenpairs diagonalise the DIIS-extrapolated Fock, whose eigenvalues
     can sit ~1e-3 off the true ones even when the density has converged,
     while D F D is the occupied-block Lagrange multiplier exactly.
-    ``eri``: the ERI tensor at ``x`` when the caller has it."""
+    ``eri``: the ERI tensor at ``x`` when the caller has it. HF lanes ride
+    along as in :func:`_energy_functional`."""
     with torch.no_grad():
         dev = x.device
         g = eri_tensor(mol, x, device=dev) if eri is None else eri
-        j = torch.einsum("ijkl,kl->ij", g, dm[0] + dm[1])
-        k = torch.stack([_k(g, dm[s]) for s in (0, 1)])
-        f = _hcore(mol, x)[None] + j[None] - hyb * k
+        j = torch.einsum("...ijkl,...kl->...ij", g, dm[..., 0, :, :] + dm[..., 1, :, :])
+        k = torch.stack([_k(g, dm[..., s, :, :]) for s in (0, 1)], dim=-3)
+        f = _hcore(mol, x)[..., None, :, :] + j[..., None, :, :] - hyb * k
         if rsh is not None:
             beta, omega = rsh
             g_lr = eri_tensor(mol, x, omega=omega, device=dev)
@@ -124,7 +132,7 @@ def _w_from_dm(mol, x, dm, hyb: float, xc_name=None, grid_scheme: str = "referen
             points, weights = _grid(mol, x, grid_scheme, grid_level, grid_size)
             ao, ao_grad = eval_aos(mol, points, x)
             f = f + make_xc_fn(ao, ao_grad, weights, xc_name)(dm)[1]
-        return sum(dm[s] @ f[s] @ dm[s] for s in (0, 1))
+        return sum(dm[..., s, :, :] @ f[..., s, :, :] @ dm[..., s, :, :] for s in (0, 1))
 
 
 def _coords_tensor(mol, coords, device):
@@ -133,8 +141,10 @@ def _coords_tensor(mol, coords, device):
 
 
 def _autograd(energy, x):
+    """d energy / dx; the energies of lanes are summed, giving each lane's
+    own gradient."""
     x = x.clone().requires_grad_(True)
-    return torch.autograd.grad(energy(x), x)[0]
+    return torch.autograd.grad(torch.sum(energy(x)), x)[0]
 
 
 def _hf_scf(mol, x, dm0=None, conv_tol=1e-10, dm_conv_tol=1e-8, max_cycle=100):

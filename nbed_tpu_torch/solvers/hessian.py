@@ -3,10 +3,13 @@ gradients, and IR intensities (port of ``nbed_tpu/solvers/hessian.py``).
 
 The Hessian is the central finite difference of the analytic nuclear
 gradient (``solvers/gradients.py``) over the 6N displaced geometries, each
-SCF started cold, as the reference's batched program starts its lanes.
-The reference runs all 6N evaluations as one vmapped program, sharded over
-a device mesh when one is given; the port loops over them on one device
-(batching them is ROADMAP queue 1 item 13, and a ``mesh`` raises).
+SCF started cold. For HF, and for the dipole derivatives, the 6N
+evaluations run as one batched call (the reference's vmapped program): one
+lane SCF whose every cycle is one fused J/K launch for all lanes, then one
+reverse-mode pass over the lanes (:mod:`nbed_tpu_torch.parallel.sharding`),
+split in lane groups over a mesh's 'batch' axis when one is given. KS
+Hessians loop ``ks_gradient`` over the displacements, as the reference
+does.
 
 Frequencies follow from the mass-weighted Hessian: eigenvalues lambda in
 Eh/(m_e a0^2) give nu = sqrt(lambda) * 219474.63 cm^-1. Translations and
@@ -17,11 +20,10 @@ before diagonalisation.
 import numpy as np
 import torch
 
-from .._device import DTYPE, resolve_device
 from ..chem.masses import AMU_TO_ME, atom_masses_me
 from ..chem.molecule import Molecule
 from ..integrals import dipole_integrals
-from .gradients import _hf_scf, hf_gradient, ks_gradient
+from .gradients import ks_gradient
 
 __all__ = ["hessian_fd", "harmonic_frequencies", "dipole_derivative_fd", "ir_intensities"]
 
@@ -29,9 +31,6 @@ FREQ_AU_TO_CM = 219474.6313705
 # 1 (e/sqrt(amu))^2 of |dmu/dQ|^2 = 974.88 km/mol of integrated intensity:
 # 42.2561 km/mol per (D/(Angstrom sqrt(amu)))^2 times (4.80320 D/A per e)^2
 IR_AU_TO_KM_MOL = 974.8801
-
-_MESH = ("a device mesh (the reference's sharded batch of displaced SCFs) is "
-         "not ported: ROADMAP queue 1 item 13")
 
 
 def _displacements(x0: np.ndarray, step: float) -> np.ndarray:
@@ -50,28 +49,32 @@ def hessian_fd(mol: Molecule, coords=None, step: float = 5e-3, mesh=None, xc=Non
                conv_tol: float = 1e-10, dm_conv_tol: float = 1e-8, max_cycle: int = 100,
                device="cuda"):
     """Nuclear Hessian (3N, 3N) in Ha/bohr^2 by central differences of the
-    analytic gradient (HF with ``xc=None``, else KS with grid response),
-    symmetrised, as a numpy array.
+    analytic gradient (HF with ``xc=None``: the 6N displaced gradients as
+    one batched call, its lanes split over ``mesh``'s 'batch' axis when
+    given; else KS with grid response, one ``ks_gradient`` per
+    displacement), symmetrised, as a numpy array.
 
     Raises:
-        NotImplementedError: for a ``mesh``.
         RuntimeError: when a displaced SCF does not converge.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     x0 = np.asarray(mol.coords if coords is None else coords, dtype=np.float64)
     disp = _displacements(x0, step)
     kw = dict(conv_tol=conv_tol, dm_conv_tol=dm_conv_tol, max_cycle=max_cycle,
               device=device)
-    grads = np.empty((len(disp), disp[0].size))
-    for k, x in enumerate(disp):
-        if xc is None:
-            _, g, res = hf_gradient(mol, coords=x, **kw)
-        else:
-            _, g, res = ks_gradient(mol, xc, coords=x, **kw)
-        if not res.converged:
+    if xc is None:
+        from ..parallel import batched_hf_gradients
+
+        _, grads, conv = batched_hf_gradients(mol, disp, mesh=mesh, **kw)
+        if not bool(conv.all()):
             raise RuntimeError("Displaced SCF did not converge; Hessian invalid.")
-        grads[k] = g.cpu().numpy().ravel()
+        grads = grads.cpu().numpy().reshape(len(disp), -1)
+    else:
+        grads = np.empty((len(disp), disp[0].size))
+        for k, x in enumerate(disp):
+            _, g, res = ks_gradient(mol, xc, coords=x, **kw)
+            if not res.converged:
+                raise RuntimeError("Displaced SCF did not converge; Hessian invalid.")
+            grads[k] = g.cpu().numpy().ravel()
     hess = (grads[0::2] - grads[1::2]) / (2.0 * step)  # row i = dg/dx_i
     return 0.5 * (hess + hess.T)
 
@@ -124,24 +127,24 @@ def dipole_derivative_fd(mol: Molecule, coords=None, step: float = 5e-3, mesh=No
                          conv_tol: float = 1e-10, dm_conv_tol: float = 1e-8,
                          max_cycle: int = 100, device="cuda"):
     """Dipole derivatives dmu/dx, shape (3N, 3), in a.u. (e): central
-    differences of the HF dipole over the 6N displaced geometries, each SCF
-    cold on the ``eri_tensor`` supermatrices through the fused kernel."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
-    dev = resolve_device(device)
+    differences of the HF dipole over the 6N displaced geometries, their
+    SCFs (cold, on the ``eri_tensor`` supermatrices) and dipole integrals
+    as one batched call, every SCF cycle one fused J/K launch for the
+    lanes, split over ``mesh``'s 'batch' axis when given."""
+    from ..parallel.sharding import _gather, _lane_groups, _lane_scf
+
     x0 = np.asarray(mol.coords if coords is None else coords, dtype=np.float64)
-    z = torch.as_tensor(mol.atom_charges, dtype=DTYPE, device=dev)
     dips = []
-    for x in _displacements(x0, step):
-        x = torch.as_tensor(x, dtype=DTYPE, device=dev)
-        res, _ = _hf_scf(mol, x, conv_tol=conv_tol, dm_conv_tol=dm_conv_tol,
-                         max_cycle=max_cycle)
-        if not res.converged:
+    for dev, x in _lane_groups(_displacements(x0, step), mesh, device):
+        res, _ = _lane_scf(mol, x, conv_tol=conv_tol, dm_conv_tol=dm_conv_tol,
+                           max_cycle=max_cycle)
+        if not bool(res.converged.all()):
             raise RuntimeError("Displaced SCF did not converge; dipole derivative invalid.")
-        d_tot = res.dm[0] + res.dm[1]
-        dips.append((z @ x - torch.einsum("xij,ij->x", dipole_integrals(mol, x, device=dev),
-                                          d_tot)).cpu().numpy())
-    dips = np.stack(dips)
+        z = torch.as_tensor(mol.atom_charges, dtype=x.dtype, device=dev)
+        d_tot = res.dm[:, 0] + res.dm[:, 1]
+        dips.append(torch.einsum("a,bax->bx", z, x) - torch.einsum(
+            "bxij,bij->bx", dipole_integrals(mol, x, device=dev), d_tot))
+    dips = _gather(dips, mesh, device).cpu().numpy()
     return (dips[0::2] - dips[1::2]) / (2.0 * step)  # (3N, 3)
 
 

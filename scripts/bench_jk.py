@@ -16,8 +16,9 @@ Each case is first held against the plain version on every path
 (``chip_smoke.hold_jk``). ``--old DIR``: DIR holds an earlier ``ops/jk.py`` and ``csrc/fused_jk.cu``
 of this package (written there from git, e.g. ``git show
 <rev>:nbed_tpu_torch/ops/jk.py``); its ``fused_jk`` is timed in turns with
-the new kernel (old, new, new, old) and each metric is the mean of its two
-turns. ``--paths``: the new kernel also with each path forced (vector,
+the new kernel (old, new, new, old), each metric is the mean of its two
+turns, and ``bitwise_vs_old`` says whether the two outputs are equal bit
+for bit. ``--paths``: the new kernel also with each path forced (vector,
 ring), for the choice of ``ops.jk.RING_MIN_ROW_BYTES``, with two more
 random cases between the paths (nao 32 and 45). From M = 4096 the line
 also has ``sum_read_tbps``, the read rate of one library reduction over
@@ -46,12 +47,17 @@ from nbed_tpu_torch.ops import jk  # noqa: E402
 
 def load_old(root: Path):
     """The earlier ``ops/jk.py`` under ``root`` as a module of this package
-    (its relative imports resolve here; its ``_SRC`` is ``root/csrc``)."""
+    (its relative imports resolve here; its ``_SRC`` is ``root/csrc``),
+    building its kernels into a library of their own name."""
+    from nbed_tpu_torch._compile import build_shared_library
+
     spec = importlib.util.spec_from_file_location("nbed_tpu_torch.ops._jk_old",
                                                   root / "ops" / "jk.py")
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
+    mod.build_shared_library = lambda cmd, src, name: build_shared_library(
+        cmd, src, "libnbed_jk_old.so")
     return mod
 
 
@@ -134,6 +140,8 @@ def main():
                 ref = jk.fused_jk_reference(gj, gk, dm)
                 row["old_max_abs_err"] = max(float(torch.max(torch.abs(a - b)))
                                              for a, b in zip(old.fused_jk(gj, gk, dm), ref))
+                row["bitwise_vs_old"] = all(torch.equal(a, b) for a, b in
+                                            zip(old.fused_jk(gj, gk, dm), prepared(dm)))
                 turns = [("old", lambda: old.fused_jk(gj, gk, dm)), ("new", new),
                          ("new", new), ("old", lambda: old.fused_jk(gj, gk, dm))]
                 got = {"old": [], "new": []}

@@ -84,6 +84,13 @@ def test_h2_ir_intensities_are_zero():
 
 
 @pytest.mark.parametrize("fn", [hessian_fd, harmonic_frequencies, dipole_derivative_fd])
-def test_mesh_raises(fn):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fn(build_molecule(H2_XYZ, "sto-3g"), mesh=object(), device="cpu")
+def test_mesh_equals_unmeshed(fn):
+    """The 6N displaced lanes split over a mesh's 'batch' axis (two groups
+    on one device) give the unmeshed batched call's result."""
+    from nbed_tpu_torch.parallel import make_mesh
+
+    mol = build_molecule(H2_XYZ, "sto-3g")
+    mesh = make_mesh(devices=["cpu"] * 2, batch=2)
+    ours, meshed = fn(mol, device="cpu"), fn(mol, mesh=mesh, device="cpu")
+    for a, b in zip(*((o,) if isinstance(o, np.ndarray) else o for o in (ours, meshed))):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-12)

@@ -209,3 +209,114 @@ def test_cuda_kernel_matches_plain(dtype, rtol, atol, nao):
         assert torch.equal(j, j2) and torch.equal(k, k2)
     j, k = jk.fused_jk(g_j, g_k, dm)
     torch.testing.assert_close(j, j_ref, rtol=rtol, atol=atol)
+
+
+def _lanes(b, nao, seed=5):
+    """(g_j, g_k, dm) of ``b`` lanes: (B, M, M) supermatrices and (B, 2,
+    nao, nao) densities."""
+    parts = [_problem(seed=seed + i, nao=nao) for i in range(b)]
+    return tuple(torch.tensor(np.stack([p[k] for p in parts])) for k in range(3))
+
+
+def test_plain_lanes_equal_single_builds_exactly():
+    """Each lane and row of the plain lane/slab version is the single
+    build's, bitwise; B = 1, R = M is the single build."""
+    g_j, g_k, dm = _lanes(3, 7)
+    m = 49
+    out = jk.fused_jk_reference(g_j, g_k, dm)
+    assert out.shape == (3, 3, m)
+    for b in range(3):
+        j, k = jk.fused_jk_reference(g_j[b], g_k[b], dm[b])
+        assert torch.equal(out[b, 0], j.reshape(-1))
+        assert torch.equal(out[b, 1:], k.reshape(2, -1))
+    for r0, r1 in ((0, 25), (25, 49), (10, 30)):  # a model axis of 2, and a middle slab
+        slab = jk.fused_jk_reference(g_j[:, r0:r1], g_k[:, r0:r1], dm)
+        assert torch.equal(slab, out[..., r0:r1])
+    one = jk.fused_jk_reference(g_j[:1], g_k[:1], dm[:1])
+    j, k = jk.fused_jk_reference(g_j[0], g_k[0], dm[0])
+    assert torch.equal(one[0, 0].reshape(7, 7), j) and torch.equal(one[0, 1:].reshape(2, 7, 7), k)
+
+
+@pytest.mark.parametrize("dtype", sorted(WORDS))
+@pytest.mark.parametrize("m,rows,batch", [(49, 49, 8), (324, 324, 36), (324, 162, 1),
+                                          (576, 288, 1), (4096, 2048, 1), (4096, 4096, 3),
+                                          (9025, 4513, 2), (16384, 8192, 1)])
+def test_plan_lanes_and_slabs(m, rows, batch, dtype):
+    """A lane/slab plan keeps the single build's path and ring geometry (they
+    follow the row length); the vector path's warps cover the B * R rows
+    at full occupancy, the ring takes at most one block per SM and row;
+    the split tiles every row of the flattened (B * R, M) matrix."""
+    word = WORDS[dtype]
+    p = jk.plan(m, word, SMS, rows=rows, batch=batch)
+    full = jk.plan(m, word, SMS)
+    assert (p.rows, p.batch, p.path) == (rows, batch, full.path)
+    assert (p.stages, p.seg_elems, p.chunk_cols, p.smem_bytes) == (
+        full.stages, full.seg_elems, full.chunk_cols, full.smem_bytes)
+    if p.path == "vector":
+        assert 1 <= p.warps <= 8 and p.grid * p.warps <= 64 * SMS
+        assert p.grid * p.warps >= min(batch * rows, 64 * SMS // 8)
+    else:
+        assert p.grid == min(rows, SMS)
+    flat = np.arange(batch * rows)
+    for c0, c1 in _chunks(p):
+        head, body, tail = jk.split(m, word, flat, c0, c1)
+        assert np.all(head + body + tail == c1 - c0)
+        assert np.all(((flat * m + c0 + head) * word) % 16 == 0)
+
+
+def test_single_plan_unchanged_by_lane_fields():
+    """B = 1, R = M plans exactly as the single build always has."""
+    for m in M_CASES:
+        for word in (4, 8):
+            p = jk.plan(m, word, SMS)
+            q = jk.plan(m, word, SMS, rows=m, batch=1)
+            assert p == q and p.rows == m and p.batch == 1
+
+
+@pytest.mark.parametrize("case", ["rows above M", "g_k shape", "cpu device"])
+def test_lane_argument_checks(case):
+    g_j, g_k, _ = _lanes(2, 3)
+    args, match = {
+        "rows above M": ((torch.cat([g_j, g_j], 1), torch.cat([g_k, g_k], 1)), "1 <= R <= M"),
+        "g_k shape": ((g_j, g_k[:, :-1]), "g_k must be"),
+        "cpu device": ((g_j[:, :4], g_k[:, :4]), "CUDA device"),
+    }[case]
+    with pytest.raises(ValueError, match=match):
+        jk.FusedJK(*args)
+
+
+def test_forward_ad_jk_tangent_on_cpu():
+    """Under forward AD the lane J/K's tangent is JK(G, dD) + JK(dG, D)."""
+    from torch.autograd import forward_ad
+
+    g_j, g_k, dm = _lanes(2, 4)
+    tg_j, tg_k, t_dm = _lanes(2, 4, seed=40)
+    with forward_ad.dual_level():
+        out = jk.forward_ad_jk(forward_ad.make_dual(g_j, tg_j),
+                               forward_ad.make_dual(g_k, tg_k))(forward_ad.make_dual(dm, t_dm))
+        tangent = forward_ad.unpack_dual(out).tangent
+    ref = jk.fused_jk_reference(g_j, g_k, t_dm) + jk.fused_jk_reference(tg_j, tg_k, dm)
+    torch.testing.assert_close(tangent, ref, rtol=1e-13, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nao,rows,batch", [(7, 49, 8), (7, 25, 3), (5, 13, 1)])
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float64, 1e-12, 1e-10),
+                                             (torch.float32, 1e-5, 1e-4)])
+def test_cuda_lane_kernel_matches_plain(dtype, rtol, atol, nao, rows, batch):
+    """Lanes and slabs on every path against the plain version; bitwise
+    equal launches; one launch per call, counted by (dtype, M, R, B)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    g_j, g_k, dm = (t.to(dtype=dtype, device="cuda") for t in _lanes(batch, nao))
+    g_j, g_k = g_j[:, :rows].contiguous(), g_k[:, :rows].contiguous()
+    key = "fused_jk_f64" if dtype == torch.float64 else "fused_jk_f32"
+    ref = jk.fused_jk_reference(g_j, g_k, dm)
+    for path in (None, "vector", "ring", "chunked"):
+        prepared = jk.FusedJK(g_j, g_k, path=path, chunk_cols=nao * nao // 3 + 1)
+        before = jk.LAUNCHES_BY_SHAPE[(key, nao * nao, rows, batch)]
+        out, out2 = prepared(dm), prepared(dm)
+        torch.cuda.synchronize()
+        assert jk.LAUNCHES_BY_SHAPE[(key, nao * nao, rows, batch)] == before + 2
+        torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+        assert torch.equal(out, out2)
