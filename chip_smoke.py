@@ -68,6 +68,21 @@ grid, and, after the pfoa run, pfoa's DF-UKS. The Hessians and dipole
 derivatives of the derivatives phases run as batched lanes, and
 acetonitrile's Hessian again on a mesh of two lane groups.
 
+The compiled-program slice: every engine SCF above runs as CUDA graphs
+(``SCFEngine(jit_kernel="auto")`` on the card: chunks of SCF cycles and
+the final Fock build captured once per engine and call signature, the
+subsystem-DFT stage and ``get_veff`` one replay each), with the Fock
+diagonalisation and the DIIS solve in the cuSOLVER eigh of
+``ops.eigh``, which a kernel phase holds against ``torch.linalg.eigh`` at
+the main path's shapes. After the pfoa phases, ``graphed_scf`` holds
+water's UHF, B3LYP, mu-embedded and Huzinaga SCFs, acetonitrile's
+B3LYP5 and pfoa's DF-B3LYP (126 AOs, on the pfoa driver's factor) graphed
+against eager (1e-10 Ha, the same cycles), a replay bitwise against the
+same chunk run uncaptured, ``dispatch_cycles`` 0, 4 and the default, the
+subsystem stage (1e-12) and ``integrals_backend="torch"`` (1e-10), and
+prints the warm ``kernel()`` and ``nbed()`` walls of each way. Each
+phase's line of SCF runs says how its ``kernel()`` calls ran.
+
     python3 chip_smoke.py
 
 The kernel phases hold the fused J/K kernel (``ops.jk.FusedJK``, as the
@@ -88,8 +103,9 @@ them: the kernel's self device time (torch.profiler) and its bound.
 Every phase raises on failure. The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit, and the one before that lists each kernel (the fused J/K
-build's float64 and float32 entries, and its float64 lane/slab entry at
-the Hessian's B = 36, M = 324) with its launches in the pipeline
+build's float64 and float32 entries, its float64 lane/slab entry at
+the Hessian's B = 36, M = 324, and the eigh's float64 and float32 entries
+at acetonitrile's Fock) with its launches in the pipeline
 runs, its error against the plain version, its times beside the plain
 version's and one library call's, its self device time and its bound.
 The pipeline phases' launches are also printed by dtype and M, and by
@@ -101,6 +117,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -2315,39 +2332,394 @@ def run_pfoa_sharded(driver, device="cuda"):
         "dev": e - driver._global_ks.e_tot}), flush=True)
 
 
+# ------------------------------------------------- the compiled-program slice
+
+# the capturable eigh's cases: (n, batch) of the Fock diagonalisations of
+# water (nao 7), acetonitrile (18) and pfoa (126), both spins in one call,
+# and of the DIIS system (diis_space + 1 = 9, one matrix); float32 at the
+# float32 warm-up's shapes on the main path (water and acetonitrile, on
+# exact ERIs)
+EIGH_CASES = ((7, 2), (18, 2), (126, 2), (9, 1))
+EIGH_F32_MAX_N = 18
+# eigenvalues relative to the largest, and the occupied-space projectors
+EIGH_TOLERANCES = {torch.float64: (1e-12, 1e-10), torch.float32: (1e-5, 1e-4)}
+# the SCFs of the graphed_scf phase (each converges in under 20 cycles;
+# max_cycle bounds the single replay of dispatch_cycles=0, whose capture
+# grows with it)
+GRAPH_SCF = dict(conv_tol=1e-10, dm_conv_tol=1e-8, max_cycle=40)
+
+
+def eigh_bound(n: int, batch: int, dtype):
+    """(ms, "bytes" or "operations"): the least time of ``batch``
+    eigendecompositions of order n with vectors: each matrix read once and
+    its vectors and values written once at 3.35 TB/s, or 9 n^3 operations a
+    matrix (the symmetric QR algorithm with vectors, Golub and Van Loan) at
+    67 TFLOP/s, whichever is larger."""
+    word = 8 if dtype == torch.float64 else 4
+    by_bytes = batch * (2 * n * n + n) * word / HBM_BYTES_PER_S
+    by_ops = batch * 9 * n ** 3 / PEAK_FLOP_PER_S
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def hold_eigh(n: int, batch: int, dtype) -> float:
+    """The prepared cuSOLVER eigh (``ops.eigh``) on seeded symmetric
+    matrices against ``torch.linalg.eigh``: eigenvalues within the relative
+    tolerance, the projector onto the lower half of the eigenvectors within
+    the absolute one (eigenvectors are free up to sign and rotation within
+    a degenerate space), no solver failure; two calls and a CUDA-graph
+    replay bitwise equal. Returns the largest eigenvalue error, absolute
+    and relative to the largest eigenvalue."""
+    from nbed_tpu_torch.ops import eigh as eigh_ops
+
+    rtol, atol = EIGH_TOLERANCES[dtype]
+    rng = np.random.default_rng(n * 10 + batch)
+    a = rng.standard_normal((batch, n, n))
+    a = torch.tensor(a + a.swapaxes(-1, -2), dtype=dtype, device="cuda")
+    w, v = eigh_ops.eigh(a)
+    w_ref, v_ref = torch.linalg.eigh(a)
+    k = n // 2
+    abs_err = float(torch.max(torch.abs(w - w_ref)))
+    err = abs_err / float(torch.max(torch.abs(w_ref)))
+    proj = float(torch.max(torch.abs(v[..., :k] @ v[..., :k].mT
+                                     - v_ref[..., :k] @ v_ref[..., :k].mT)))
+    fails = int(eigh_ops.failure_count(a.device))
+    what = f"eigh n={n} batch={batch} {dtype}"
+    if not (err <= rtol and proj <= atol and fails == 0):
+        raise RuntimeError(f"{what}: eigenvalue error {err}, projector error {proj}, "
+                           f"{fails} failed matrices")
+    w2, v2 = eigh_ops.eigh(a)
+    if not (torch.equal(w, w2) and torch.equal(v, v2)):
+        raise RuntimeError(f"{what}: two calls differ")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        w_g, v_g = eigh_ops.eigh(a)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not (torch.equal(w_g, w) and torch.equal(v_g, v)):
+        raise RuntimeError(f"{what}: CUDA-graph replay differs from the eager call")
+    return abs_err, err
+
+
+def eigh_timings(fn) -> dict:
+    """:func:`timings` of an eigh call, over 100 enqueues for ``host_us``
+    (a call is 0.1-3 ms)."""
+    return {"ms": median_ms(fn), "ms_stream": stream_ms(fn), "host_us": host_us(fn, 100)}
+
+
+def check_eigh() -> list:
+    """:func:`hold_eigh` at every case in float64 and, up to
+    :data:`EIGH_F32_MAX_N`, in float32, then the
+    times of the kernel, of ``torch.linalg.eigh`` (the plain version, which
+    is also the one library call), the kernel's device time per call
+    (torch.profiler, every device event of the call) and the bound;
+    returns rows."""
+    from nbed_tpu_torch.ops import eigh as eigh_ops
+    from nbed_tpu_torch.profiling import device_profile
+
+    rows = []
+    for n, batch in EIGH_CASES:
+        for dtype in (torch.float64, torch.float32)[:2 if n <= EIGH_F32_MAX_N else 1]:
+            abs_err, err = hold_eigh(n, batch, dtype)
+            a = torch.eye(n, dtype=dtype, device="cuda").expand(batch, n, n) * 2.0
+            a = a + 1e-3 * torch.arange(n * n, dtype=dtype, device="cuda").reshape(n, n)
+            a = 0.5 * (a + a.mT)
+            kernel = lambda: eigh_ops.eigh(a)  # noqa: E731
+            plain = lambda: torch.linalg.eigh(a)  # noqa: E731
+            _, prof = device_profile(lambda: [kernel() for _ in range(20)])
+            row = {"n": n, "batch": batch, "dtype": str(dtype).removeprefix("torch."),
+                   "max_abs_err": abs_err, "max_rel_err": err, **eigh_timings(kernel),
+                   **{f"plain_{k}": v for k, v in eigh_timings(plain).items()},
+                   "library_ms": median_ms(plain),
+                   "kernel_device_us": prof["device_busy_s"] * 1e6 / 20,
+                   **dict(zip(("bound_ms", "bound_by"), eigh_bound(n, batch, dtype)))}
+            print("eigh", json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
+@contextmanager
+def driver_engines(jit_kernel: str):
+    """Inside the block, the engines that ``nbed()`` makes run with
+    ``jit_kernel`` (the config has no such field: a measurement switch)."""
+    from functools import partial
+
+    import nbed_tpu_torch.driver as driver_mod
+
+    base = driver_mod.SCFEngine
+    driver_mod.SCFEngine = partial(base, jit_kernel=jit_kernel)
+    try:
+        yield
+    finally:
+        driver_mod.SCFEngine = base
+
+
+def _timed(fn):
+    """(fn(), its wall seconds with the card synchronised before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _program_inputs(eng, call: dict) -> dict:
+    """The inputs ``SCFEngine.kernel`` gives the float64 program for
+    ``call`` (no warm-up): the SAD guess of a full-molecule call."""
+    from nbed_tpu_torch.scf.engine import _spinify
+
+    def spin(t):
+        return None if t is None else _spinify(eng._tensor(t))
+
+    v = call.get("v_emb")
+    v = None if v is None else eng._tensor(v)
+    if v is not None and v.ndim == 2:
+        v = torch.stack([v, v])
+    dm0 = call.get("dm0")
+    if dm0 is None and "v_emb" not in call:
+        dm0 = eng._sad_guess()
+    return dict(v_emb=v, dm_env_occ=spin(call.get("dm_env_occ")),
+                dm_env_virt=spin(call.get("dm_env_virt")), dm0=spin(dm0),
+                conv_tol=eng.conv_tol, dm_conv_tol=eng.dm_conv_tol,
+                max_cycle=eng.max_cycle)
+
+
+def hold_replay(eng, call: dict) -> int:
+    """Two replays of the engine's captured float64 chunk and its final
+    build against the same body run uncaptured from the same loaded state
+    (the same cuSOLVER eigh): every state buffer, the flags and the final
+    Fock, Huzinaga operator and energy bitwise equal. Returns the cycles
+    per replay."""
+    from nbed_tpu_torch.scf.engine import DISPATCH_CYCLES
+
+    graph = next(g for key, g in eng._graphs.items()
+                 if key[0] == torch.float64 and g.cycles == DISPATCH_CYCLES)
+    prog = graph.program
+    inputs = _program_inputs(eng, call)
+
+    def snapshot():
+        return {**{k: v.clone() for k, v in prog.state.items()}, "flags": prog.flags.clone(),
+                "fock": prog.fock.clone(), "huz": prog.huz.clone(), "e": prog.e_fin.clone()}
+
+    prog.load(**inputs)
+    for _ in range(2):
+        prog.run_cycles(graph.cycles)
+    prog.finish()
+    body = snapshot()
+    prog.load(**inputs)
+    for _ in range(2):
+        graph.chunk()
+    graph.final()
+    replay = snapshot()
+    differ = [k for k in body if not torch.equal(body[k], replay[k])]
+    if differ:
+        raise RuntimeError(f"graph replay differs from the uncaptured body in {differ}")
+    return graph.cycles
+
+
+def hold_graphed(label: str, eng, call: dict) -> dict:
+    """One engine and call signature eager (``jit_kernel="off"``) and
+    graphed: the graphed kernel() within 1e-10 Ha of the eager one in as
+    many cycles; the replay against the uncaptured body (:func:`hold_replay`);
+    ``dispatch_cycles`` 0, 4 and the default each within 1e-10 Ha in as
+    many cycles. Returns the row: warm kernel() walls, replays and host
+    reads per SCF, capture seconds, captured launches per cycle and the
+    peak device memory of each way."""
+    from nbed_tpu_torch.ops import eigh as eigh_ops
+    from nbed_tpu_torch.ops import jk
+
+    eng.jit_kernel, eng.dispatch_cycles = "off", None
+    torch.cuda.reset_peak_memory_stats()
+    eng.kernel(**call)
+    peak_eager = torch.cuda.max_memory_allocated() / 1e9
+    eager, eager_s = _timed(lambda: eng.kernel(**call))
+    cycles = eng.last_run["cycles"]
+    eng.jit_kernel = "on"
+    torch.cuda.reset_peak_memory_stats()
+    _, first_s = _timed(lambda: eng.kernel(**call))
+    peak_graph = torch.cuda.max_memory_allocated() / 1e9
+    first = dict(eng.last_run)
+    graphed, graph_s = _timed(lambda: eng.kernel(**call))
+    warm = dict(eng.last_run)
+    if not (eager.converged and graphed.converged):
+        raise RuntimeError(f"graphed_scf {label}: an SCF did not converge")
+    _gate(f"graphed_scf {label} graph vs eager", [("e_tot", graphed.e_tot, eager.e_tot)],
+          1e-10)
+    if warm["mode"] != "graph" or warm["cycles"] != cycles:
+        raise RuntimeError(f"graphed_scf {label}: {warm['mode']} run of {warm['cycles']} "
+                           f"cycles against {cycles} eager")
+    per_replay = hold_replay(eng, call)
+    chunks = {}
+    for dispatch in (0, 4, None):
+        eng.dispatch_cycles = dispatch
+        sol = eng.kernel(**call)
+        _gate(f"graphed_scf {label} dispatch_cycles={dispatch}",
+              [("e_tot", sol.e_tot, eager.e_tot)], 1e-10)
+        if eng.last_run["cycles"] != cycles:
+            raise RuntimeError(f"graphed_scf {label} dispatch_cycles={dispatch}: "
+                               f"{eng.last_run['cycles']} cycles against {cycles}")
+        chunks[str(dispatch)] = {"de": sol.e_tot - eager.e_tot,
+                                 "replays": eng.last_run["replays"],
+                                 "capture_s": eng.last_run["capture_s"]}
+    eng.dispatch_cycles = None
+    graph = next(g for key, g in eng._graphs.items()
+                 if key[0] == torch.float64 and g.cycles == per_replay)
+    row = {
+        "label": label, "nao": eng.mol.nao, "cycles": cycles,
+        "e_eager": eager.e_tot, "de_graph": graphed.e_tot - eager.e_tot,
+        "kernel_eager_warm_s": eager_s, "kernel_graph_first_s": first_s,
+        "kernel_graph_warm_s": graph_s, "capture_s": first["capture_s"],
+        "replays": warm["replays"], "host_reads": warm["host_reads"],
+        "cycles_per_replay": warm["cycles_per_replay"],
+        "launches_per_cycle": {
+            k: v / per_replay for k, v in {**graph.chunk.record.launches(jk.LAUNCHES),
+                                           **graph.chunk.record.launches(
+                                               eigh_ops.LAUNCHES)}.items()},
+        "peak_gb_eager": peak_eager, "peak_gb_graph_first": peak_graph,
+        "replay_bitwise": True, "dispatch": chunks,
+    }
+    print("graphed_scf", json.dumps(row), flush=True)
+    return row
+
+
+def hold_subsystem(label: str, eng, sol):
+    """get_veff and subsystem_decomposition graphed against eager within
+    1e-12, on the split of ``sol``'s occupied orbitals into a first half
+    (active) and the rest (environment)."""
+    c, occ = sol.per_spin()
+    w = occ.clone()
+    for s in range(2):
+        idx = torch.nonzero(occ[s] > 0.5).flatten()
+        w[s, idx[len(idx) // 2:]] = 0.0
+    dm_act = torch.einsum("spi,si,sqi->spq", c, w, c)
+    dm_env = torch.einsum("spi,si,sqi->spq", c, occ - w, c)
+    out = {}
+    for mode in ("off", "on"):
+        eng.jit_kernel = mode
+        veff = eng.get_veff(dm_act + dm_env)
+        out[mode] = (eng.subsystem_decomposition(dm_act, dm_env), veff)
+    (sub_e, veff_e), (sub_g, veff_g) = out["off"], out["on"]
+    pairs = [(f"subsystem[{i}]", sub_g[i], sub_e[i]) for i in range(3)]
+    pairs += [("v_emb", float(torch.max(torch.abs(sub_g[3] - sub_e[3]))), 0.0),
+              ("veff", float(torch.max(torch.abs(veff_g.matrix - veff_e.matrix))), 0.0),
+              ("exc", float(veff_g.exc), float(veff_e.exc)),
+              ("ecoul", float(veff_g.ecoul), float(veff_e.ecoul))]
+    _gate(f"graphed_scf {label} subsystem stage", pairs, 1e-12)
+    return {key: ours - ref for key, ours, ref in pairs}
+
+
+def hold_torch_integrals(label: str, mol, xc):
+    """``integrals_backend="torch"`` against ``"native"``: S, hcore and the
+    ERIs within 1e-10, the graphed global SCF's energy within 1e-10 Ha."""
+    from nbed_tpu_torch.scf import SCFEngine
+
+    nat = SCFEngine(mol, xc=xc, device="cuda", integrals_backend="native", **GRAPH_SCF)
+    tor = SCFEngine(mol, xc=xc, device="cuda", integrals_backend="torch", **GRAPH_SCF)
+    pairs = [(name, float(torch.max(torch.abs(getattr(tor, name) - getattr(nat, name)))), 0.0)
+             for name in ("s", "hcore", "eri")]
+    e_tor, e_nat = tor.kernel().e_tot, nat.kernel().e_tot
+    pairs.append(("e_tot", e_tor, e_nat))
+    _gate(f"graphed_scf {label} torch integrals", pairs, 1e-10)
+    return {key: ours - ref for key, ours, ref in pairs}
+
+
+def embed_walls(name: str) -> dict:
+    """Warm ``nbed()`` wall seconds of CONFIGS[name] with the driver's
+    engines eager and graphed (each mode run once cold first)."""
+    from nbed_tpu_torch import nbed
+
+    out = {}
+    for mode in ("off", "auto"):
+        with driver_engines(mode):
+            nbed(**CONFIGS[name], device="cuda")
+            out[mode] = _timed(lambda: nbed(**CONFIGS[name], device="cuda"))[1]
+    return out
+
+
+def run_graphed_scf(pfoa_driver):
+    """The graphed SCF programs (``SCFEngine(jit_kernel=, dispatch_cycles=,
+    integrals_backend=)``) on the card: water's UHF, B3LYP, a mu-embedded
+    UHF (seeded v_emb, nelec (3, 3)) and a Huzinaga UHF (the lowest occupied
+    and highest virtual MO per spin as the environment, nelec (4, 4));
+    acetonitrile's B3LYP5; and pfoa's DF-B3LYP at full size on the pfoa
+    driver's factor (:func:`hold_graphed`); the subsystem stage of each
+    B3LYP engine (:func:`hold_subsystem`); the torch integrals of water and
+    acetonitrile (:func:`hold_torch_integrals`); and the warm ``nbed()``
+    walls of water and acetonitrile, eager and graphed."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.scf import SCFEngine
+
+    water = build_molecule(WATER.read_text(), "sto-3g")
+    acn = build_molecule(ACETONITRILE, "sto-3g")
+    rows, subsystem, integrals = [], {}, {}
+    uhf = SCFEngine(water, device="cuda", **GRAPH_SCF)
+    rows.append(hold_graphed("water_uhf", uhf, {}))
+    ref = uhf.kernel()
+    c = ref.mo_coeff
+    rng = np.random.default_rng(3)
+    v = 0.01 * rng.standard_normal((water.nao, water.nao))
+    v = v + v.T
+    rows.append(hold_graphed("water_mu", SCFEngine(water, device="cuda", **GRAPH_SCF),
+                             {"nelec": (3, 3), "v_emb": v}))
+    rows.append(hold_graphed("water_huzinaga", SCFEngine(water, device="cuda", **GRAPH_SCF), {
+        "nelec": (4, 4), "v_emb": v,
+        "dm_env_occ": torch.einsum("spi,sqi->spq", c[:, :, :1], c[:, :, :1]),
+        "dm_env_virt": torch.einsum("spi,sqi->spq", c[:, :, -1:], c[:, :, -1:])}))
+    pfoa_ks = pfoa_driver._ks_engine
+    for label, eng in (
+            ("water_b3lyp", SCFEngine(water, xc="b3lyp", device="cuda", **GRAPH_SCF)),
+            ("acetonitrile_b3lyp5", SCFEngine(acn, xc="b3lyp5", device="cuda", **GRAPH_SCF)),
+            ("pfoa_df_b3lyp", SCFEngine(pfoa_ks.mol, xc="b3lyp", device="cuda",
+                                        density_fitting=True, df_b=pfoa_ks.df_factor(),
+                                        conv_tol=1e-9, max_cycle=40))):
+        rows.append(hold_graphed(label, eng, {}))
+        subsystem[label] = hold_subsystem(label, eng, eng.kernel())
+    for label, mol, xc in (("water", water, "b3lyp"), ("acetonitrile", acn, "b3lyp5")):
+        integrals[label] = hold_torch_integrals(label, mol, xc)
+    walls = {name: embed_walls(name) for name in ("water", "acetonitrile")}
+    print("graphed_scf_summary", json.dumps({"subsystem": subsystem, "torch_integrals": integrals,
+                                             "embed_warm_s": walls}), flush=True)
+    return rows
+
+
 def build_all():
-    """Build the CUDA kernel library and the two host C++ libraries, each
-    compiler started at once."""
+    """Build the CUDA kernel library, the cuSOLVER eigh library and the two
+    host C++ libraries, each compiler started at once."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nbed_tpu_torch._compile import native_integrals_library, qubit_terms_library
-    from nbed_tpu_torch.ops import jk
+    from nbed_tpu_torch.ops import eigh, jk
 
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        futures = [pool.submit(f) for f in (jk.build_kernels, native_integrals_library,
-                                            qubit_terms_library)]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        futures = [pool.submit(f) for f in (jk.build_kernels, eigh.build_library,
+                                            native_integrals_library, qubit_terms_library)]
         for f in futures:
             f.result()
 
 
 # kernels each phase's path must launch (counted from 0 for each phase);
 # the DF and statevector phases have none: DF J/K and the VQE sweep are
-# plain torch, as they are XLA in the reference
-F64 = ("fused_jk_f64",)
-MIXED = ("fused_jk_f64", "fused_jk_f32")
+# plain torch, as they are XLA in the reference. Since the engines graph
+# their SCFs on the card, every phase of engine SCFs launches the cuSOLVER
+# eigh from inside its graphs
+F64 = ("fused_jk_f64", "eigh_f64")
+JK64 = ("fused_jk_f64",)  # hf_gradient's SCF: run_scf on the torch ERIs, eager
+MIXED = ("fused_jk_f64", "fused_jk_f32", "eigh_f64", "eigh_f32")
 LANES = ("fused_jk_f64", "lanes")  # and the lane/slab entry (B > 1 or R < M)
-# the phases of the post-SCF, derivatives and parallel slices, summarised
-# at the end
+# the phases of the post-SCF, derivatives, parallel and compiled-program
+# slices, summarised at the end
 NEW_PHASES = ("water_global", "acetonitrile_post", "h2_stability", "water_qse", "pfoa_post",
               "water_derivatives", "acetonitrile_derivatives", "water_ccpvdz_gradient",
               "water_fleet", "water_fleet_gradients", "water_embed_fleet", "sharded",
-              "pfoa_sharded", "hessian_mesh")
+              "pfoa_sharded", "graphed_scf", "hessian_mesh")
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False")
-    from nbed_tpu_torch.ops import jk
+    from nbed_tpu_torch.ops import eigh, jk
+    from nbed_tpu_torch.scf import engine
     from nbed_tpu_torch.scf.engine import _atomic_density
 
     card = card_line()
@@ -2366,14 +2738,18 @@ def main():
     t0 = time.perf_counter()
     lane_rows = check_lane_kernels()
     phase_s["lane_kernel_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eigh_rows = check_eigh()
+    phase_s["eigh_check"] = time.perf_counter() - t0
 
     # each pipeline is a cold run (its atoms' SAD SCFs included), with the
     # launch counts set to 0 just before it and read just after
     f64, keep = {}, {}
-    per_phase, by_m, by_shape, peak_gb = {}, {}, {}, {}
+    per_phase, by_m, by_shape, peak_gb, runs = {}, {}, {}, {}, {}
 
     def count(name):
-        per_phase[name] = {**jk.LAUNCHES, "lanes": lane_launches()}
+        per_phase[name] = {**jk.LAUNCHES, **eigh.LAUNCHES, "lanes": lane_launches()}
+        runs[name] = dict(engine.RUNS)
         for (key, m), n in jk.LAUNCHES_BY_M.items():
             by_m[f"{key} M={m}"] = by_m.get(f"{key} M={m}", 0) + n
         for (key, m, r, b), n in jk.LAUNCHES_BY_SHAPE.items():
@@ -2384,6 +2760,8 @@ def main():
         jk.LAUNCHES.clear()
         jk.LAUNCHES_BY_M.clear()
         jk.LAUNCHES_BY_SHAPE.clear()
+        eigh.LAUNCHES.clear()
+        engine.RUNS.clear()
 
     def remember(name, driver):
         if name in ("water", "acetonitrile"):
@@ -2421,7 +2799,7 @@ def main():
         ("h2_stability", run_h2_stability, F64),
         ("water_derivatives", run_water_derivatives, LANES),
         ("acetonitrile_derivatives", run_acetonitrile_derivatives, LANES),
-        ("water_ccpvdz_gradient", run_water_ccpvdz_gradient, F64),
+        ("water_ccpvdz_gradient", run_water_ccpvdz_gradient, JK64),
         ("water_functionals", run_water_functionals, F64),
         ("methyl_rohf", run_methyl_rohf, F64), ("water_qmmm", run_water_qmmm, F64),
         ("acetonitrile_camb3lyp", run_acetonitrile_camb3lyp, F64),
@@ -2481,6 +2859,18 @@ def main():
     count("pfoa_sharded")
     peak_gb["pfoa_sharded"] = torch.cuda.max_memory_allocated() / 1e9
 
+    # the graphed SCF programs, pfoa's on the pfoa driver's factor
+    torch.cuda.reset_peak_memory_stats()
+    clear()
+    t0 = time.perf_counter()
+    run_graphed_scf(driver)
+    phase_s["graphed_scf"] = time.perf_counter() - t0
+    count("graphed_scf")
+    peak_gb["graphed_scf"] = torch.cuda.max_memory_allocated() / 1e9
+    missing = [k for k in F64 if not per_phase["graphed_scf"].get(k, 0)]
+    if missing:
+        raise RuntimeError(f"the graphed_scf phase ran without launching {missing}")
+
     # the acetonitrile Hessian's lanes in two groups of a mesh
     torch.cuda.reset_peak_memory_stats()
     clear()
@@ -2494,7 +2884,10 @@ def main():
     for name in NEW_PHASES:
         print(f"{name}_summary", json.dumps({"s": phase_s[name], "peak_gb": peak_gb[name],
                                              "fused_jk": per_phase[name]}), flush=True)
-    print(f"fused_jk launches: {json.dumps(per_phase)}", flush=True)
+    # how each phase's SCFs ran: graphed and eager kernel() calls, replays,
+    # host reads, captures and their seconds, SCF cycles
+    print(f"scf runs: {json.dumps(runs)}", flush=True)
+    print(f"fused_jk and eigh launches: {json.dumps(per_phase)}", flush=True)
     print(f"fused_jk launches by M: {json.dumps(by_m)}", flush=True)
     print(f"fused_jk launches by (dtype, M, R, B): {json.dumps(by_shape)}", flush=True)
     print("max_memory_allocated_gb", json.dumps(peak_gb), flush=True)
@@ -2533,6 +2926,20 @@ def main():
                                     "ms_stream", "host_us", "kernel_device_us", "m", "rows",
                                     "batch", "dtype", "path")},
     })
+    # the capturable eigh at acetonitrile's Fock shape (both spins, n = 18),
+    # in float64 and in the float32 warm-up's
+    for dtype in ("float64", "float32"):
+        name = f"eigh_{dtype[0]}{dtype[-2:]}"
+        row = next(r for r in eigh_rows if r["n"] == 18 and r["dtype"] == dtype)
+        kernels.append({
+            "name": name, "route": "cuda", "source": "nbed_tpu_torch/csrc/eigh.cu",
+            "replaces": "nbed_tpu/scf/hf.py:63",
+            "launches": sum(c.get(name, 0) for c in per_phase.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in eigh_rows if r["dtype"] == dtype),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "ms_stream", "host_us", "kernel_device_us", "n", "batch",
+                                   "dtype")},
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,9 @@
 //     read-only cache, several rows per block and persistent warps; the
 //     head and tail are loaded before the body and used after it; the
 //     warps walk the B * R rows of all lanes, the lane folded into the
-//     row index;
+//     row index (fused_jk_vec_lanes_kernel); the float64 single build
+//     (B = 1, R = M) has a kernel of its own without the lane index
+//     (fused_jk_vec_kernel);
 //   - large M (path 1, fused_jk_ring_kernel): one persistent block per SM
 //     walks rows r = blockIdx.x + i * gridDim.x. The densities are staged
 //     into dynamic shared memory once per block. One producer thread streams
@@ -117,27 +119,29 @@ __device__ __forceinline__ void split(int64_t r, int64_t m, int64_t c0, int64_t 
 
 // ------------------------------------------------------------- path 0
 
+// One lane with R = M (the float64 single build). This kernel and the lane
+// kernel below keep their row body apart: one body shared by both (an
+// inlined function, or a compile-time lane flag in one kernel) measured
+// 0.9 us slower per launch at M = 324, float64, than either kept alone
+// (nvcc 12.9, H100); this one is the single build's kernel from before
+// lanes were added, without the lane index, whose division cost the single
+// build 0.11-0.12 us at M = 49 and 324.
 template <typename T>
 __global__ void __launch_bounds__(kVecThreads)
 fused_jk_vec_kernel(const T* __restrict__ g_j, const T* __restrict__ g_k,
-                    const T* __restrict__ dm, T* __restrict__ out, int64_t m,
-                    int64_t rows, int64_t batch) {
+                    const T* __restrict__ dm, T* __restrict__ out, int64_t m) {
   using V = typename Vec<T>::type;
   constexpr int vw = Vec<T>::n;
   const int lane = threadIdx.x & 31;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
-  const int64_t total = batch * rows;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
-       i < total; i += warps) {
-    const int64_t b = i / rows;  // the lane
-    const int64_t r = i - b * rows;
-    const T* d_a = dm + b * 2 * m;
-    const T* d_b = d_a + m;
-    T* o = out + b * 3 * rows;
-    const T* gj = g_j + i * m;
-    const T* gk = g_k + i * m;
+  const T* d_a = dm;
+  const T* d_b = dm + m;
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       r < m; r += warps) {
+    const T* gj = g_j + r * m;
+    const T* gk = g_k + r * m;
     int64_t head, body;
-    split(i, m, 0, m, vw, head, body);
+    split(r, m, 0, m, vw, head, body);
     const int64_t tail0 = head + body;
     // the head and tail scalars (lane < head, lane < tail) are loaded first
     // and used last, so their latency overlaps the body's loads
@@ -162,6 +166,79 @@ fused_jk_vec_kernel(const T* __restrict__ g_j, const T* __restrict__ g_k,
     const int64_t nv = body / vw;
     // one vector of each matrix a lane per step: at the main path's shapes
     // (M <= 324, L2-resident) deeper unrolling measured slower
+#pragma unroll 1
+    for (int64_t i = lane; i < nv; i += 32) {
+      const V va = __ldg(vj + i);
+      const V vb = __ldg(vk + i);
+      const T* ea = reinterpret_cast<const T*>(&va);
+      const T* eb = reinterpret_cast<const T*>(&vb);
+      const int64_t c = head + i * vw;
+#pragma unroll
+      for (int e = 0; e < vw; ++e) {
+        const T da = __ldg(d_a + c + e), db = __ldg(d_b + c + e);
+        acc_j += ea[e] * (da + db);
+        acc_ka += eb[e] * da;
+        acc_kb += eb[e] * db;
+      }
+    }
+    acc_j += sc_j * (sc_a + sc_b) + tl_j * (tl_a + tl_b);
+    acc_ka += sc_k * sc_a + tl_k * tl_a;
+    acc_kb += sc_k * sc_b + tl_k * tl_b;
+    acc_j = warp_sum(acc_j);
+    acc_ka = warp_sum(acc_ka);
+    acc_kb = warp_sum(acc_kb);
+    if (lane == 0) {
+      out[r] = acc_j;
+      out[m + r] = acc_ka;
+      out[2 * m + r] = acc_kb;
+    }
+  }
+}
+
+// B lanes of R rows (B > 1, or a slab R < M): the warps walk the B * R rows
+// of all lanes, the lane folded into the row index; for B = 1, R = M it
+// runs the single kernel's arithmetic in the same order (bitwise equal).
+template <typename T>
+__global__ void __launch_bounds__(kVecThreads)
+fused_jk_vec_lanes_kernel(const T* __restrict__ g_j, const T* __restrict__ g_k,
+                          const T* __restrict__ dm, T* __restrict__ out, int64_t m,
+                          int64_t rows, int64_t batch) {
+  using V = typename Vec<T>::type;
+  constexpr int vw = Vec<T>::n;
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x >> 5);
+  const int64_t total = batch * rows;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       i < total; i += warps) {
+    const int64_t b = i / rows;  // the lane
+    const int64_t r = i - b * rows;
+    const T* d_a = dm + b * 2 * m;
+    const T* d_b = d_a + m;
+    T* o = out + b * 3 * rows;
+    const T* gj = g_j + i * m;
+    const T* gk = g_k + i * m;
+    int64_t head, body;
+    split(i, m, 0, m, vw, head, body);
+    const int64_t tail0 = head + body;
+    T sc_j = T(0), sc_k = T(0), sc_a = T(0), sc_b = T(0);
+    T tl_j = T(0), tl_k = T(0), tl_a = T(0), tl_b = T(0);
+    if (lane < head) {
+      sc_j = __ldg(gj + lane);
+      sc_k = __ldg(gk + lane);
+      sc_a = __ldg(d_a + lane);
+      sc_b = __ldg(d_b + lane);
+    }
+    if (lane < m - tail0) {
+      const int64_t c = tail0 + lane;
+      tl_j = __ldg(gj + c);
+      tl_k = __ldg(gk + c);
+      tl_a = __ldg(d_a + c);
+      tl_b = __ldg(d_b + c);
+    }
+    T acc_j = T(0), acc_ka = T(0), acc_kb = T(0);
+    const V* vj = reinterpret_cast<const V*>(gj + head);
+    const V* vk = reinterpret_cast<const V*>(gk + head);
+    const int64_t nv = body / vw;
 #pragma unroll 1
     for (int64_t i = lane; i < nv; i += 32) {
       const V va = __ldg(vj + i);
@@ -423,8 +500,14 @@ int launch(const void* g_j, const void* g_k, const void* dm, void* out, const Pl
   T* o = static_cast<T*>(out);
   if (p->path == 0) {
     if (p->warps * 32 > kVecThreads) return static_cast<int>(cudaErrorInvalidValue);
-    fused_jk_vec_kernel<T><<<p->grid, p->warps * 32, 0, st>>>(gj, gk, d, o, p->m, p->rows,
-                                                               p->batch);
+    // the single build's own kernel in float64 only: in float32 the lane
+    // kernel measured 0.3-0.6 us faster at M = 324 and 576 (H100)
+    if (sizeof(T) == 8 && p->batch == 1 && p->rows == p->m) {
+      fused_jk_vec_kernel<T><<<p->grid, p->warps * 32, 0, st>>>(gj, gk, d, o, p->m);
+    } else {
+      fused_jk_vec_lanes_kernel<T><<<p->grid, p->warps * 32, 0, st>>>(gj, gk, d, o, p->m,
+                                                                      p->rows, p->batch);
+    }
   } else {
     if (p->warps > kMaxConsumerWarps || p->stages < 1 || p->stages > kMaxStages ||
         p->seg_elems <= 0 || p->chunk_cols <= 0 || p->smem_bytes > kSmemMax) {

@@ -23,6 +23,7 @@ which is the faster one on the card.
 import torch
 
 from ..grids import eval_aos
+from ..grids.grid import shell_tables
 from .functionals import resolve_functional
 
 __all__ = ["make_xc_fn", "make_xc_fn_streaming"]
@@ -181,6 +182,11 @@ def make_xc_fn_streaming(mol, points, weights, xc_name: str, chunk: int = STREAM
     one_chunk = _chunk_math(terms, _mask_thresh(dtype), differentiable)
     n_points = points.shape[0]
     weights = weights.to(dtype)
+    # the atoms and shell constants on the device once, so that a call
+    # copies nothing from the host (a CUDA graph can capture it)
+    atoms = torch.as_tensor(mol.coords if coords is None else coords, dtype=points.dtype,
+                            device=points.device)
+    tables = shell_tables(mol, points.dtype, points.device)
 
     def xc_fn(dm):
         exc = torch.zeros((), dtype=dtype, device=points.device)
@@ -188,7 +194,7 @@ def make_xc_fn_streaming(mol, points, weights, xc_name: str, chunk: int = STREAM
                         device=points.device)
         for g0 in range(0, n_points, chunk):
             sl = slice(g0, g0 + chunk)
-            ao_c, grad_c = eval_aos(mol, points[sl], coords)
+            ao_c, grad_c = eval_aos(mol, points[sl], atoms, tables)
             exc_c, v_c = one_chunk(ao_c.to(dtype), grad_c.to(dtype), weights[sl], dm)
             exc = exc + exc_c
             v = v + v_c

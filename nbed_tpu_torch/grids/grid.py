@@ -290,22 +290,26 @@ def build_grid(mol: Molecule, coords=None, n_rad: int = 80, n_theta: int = 18,
     return points, base * becke
 
 
-def eval_aos(mol: Molecule, points, coords=None):
+def eval_aos(mol: Molecule, points, coords=None, tables=None):
     """AO values and gradients on grid points, for atoms at ``coords``
     (Bohr; the molecule's by default), differentiable in both.
+    ``tables`` are the molecule's :func:`shell_tables` in the points' dtype
+    and device, made once by a caller that evaluates many chunks (a
+    streaming XC closure, whose CUDA-graph capture takes no host-to-device
+    copy); by default they are made here.
 
     Returns:
         ao: (G, nao); ao_grad: (3, G, nao).
     """
     c = torch.as_tensor(mol.coords if coords is None else coords, dtype=points.dtype,
                         device=points.device)
+    if tables is None:
+        tables = shell_tables(mol, points.dtype, points.device)
     vals, grads = [], []  # per shell: (nsph, G) and (3, nsph, G)
-    for sh in mol.shells:
+    for sh, (exps, coefs, c2s_t) in zip(mol.shells, tables):
         rel = (points - c[sh.atom][None, :]).T  # (3, G)
         x, y, z = rel[0], rel[1], rel[2]
         r2 = x * x + y * y + z * z
-        exps = torch.tensor(sh.exps, dtype=points.dtype, device=points.device)
-        coefs = torch.tensor(sh.coeffs, dtype=points.dtype, device=points.device)
         gauss = coefs[:, None] * torch.exp(-exps[:, None] * r2[None, :])  # (K, G)
         rad = torch.sum(gauss, dim=0)
         drad = torch.sum(-2.0 * exps[:, None] * gauss, dim=0)
@@ -324,10 +328,18 @@ def eval_aos(mol: Molecule, points, coords=None):
         # d/dx [mono * rad(r2)] = dmono*rad + mono * drad * x
         cart_grad = (dmono * rad[None, None, :]
                      + mono[None, :, :] * drad[None, None, :] * rel[:, None, :])
-        c2s_t = torch.as_tensor(sh.cart2sph.T, dtype=points.dtype,
-                                device=points.device)  # (nsph, ncart)
         vals.append(c2s_t @ cart_val)
         grads.append(torch.einsum("sc,dcg->dsg", c2s_t, cart_grad))
     ao_t = torch.cat(vals, dim=0)  # (nao, G)
     grad_t = torch.cat(grads, dim=1)  # (3, nao, G)
     return ao_t.T.contiguous(), grad_t.transpose(1, 2).contiguous()
+
+
+def shell_tables(mol: Molecule, dtype, device) -> list:
+    """Per shell of ``mol``: (exponents, contraction coefficients, the
+    (nsph, ncart) spherical transform) as tensors of ``dtype`` on
+    ``device``, the constants of :func:`eval_aos`."""
+    return [(torch.tensor(sh.exps, dtype=dtype, device=device),
+             torch.tensor(sh.coeffs, dtype=dtype, device=device),
+             torch.as_tensor(sh.cart2sph.T, dtype=dtype, device=device))
+            for sh in mol.shells]

@@ -18,13 +18,15 @@ prepares it once with :func:`prepare_jk`: on CUDA a :class:`FusedJK`, which
 checks G, resolves the C entry point and makes the launch :func:`plan` at
 construction, so that a call checks only the density, allocates the output
 and launches. The call does no host synchronisation, so it can be captured
-in a CUDA graph.
+in a CUDA graph; launches captured inside a :func:`recording` are counted
+once per replay of the graph (:class:`LaunchRecord`).
 """
 
 import ctypes
 import os
 import shutil
 from collections import Counter
+from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import lru_cache
 from pathlib import Path
@@ -36,7 +38,7 @@ from .._compile import build_shared_library
 
 __all__ = ["fused_jk", "fused_jk_reference", "prepare_jk", "forward_ad_jk", "FusedJK",
            "Plan", "plan", "split", "LAUNCHES", "LAUNCHES_BY_M", "LAUNCHES_BY_SHAPE",
-           "build_kernels", "SMEM_MAX"]
+           "LaunchRecord", "count_launch", "recording", "build_kernels", "SMEM_MAX"]
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "fused_jk.cu"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,6 +50,53 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Counter = Counter()
 LAUNCHES_BY_M: Counter = Counter()
 LAUNCHES_BY_SHAPE: Counter = Counter()
+
+# the open recordings of launches captured into CUDA graphs, innermost last
+_RECORDINGS: list = []
+
+
+class LaunchRecord:
+    """The launches captured into one CUDA graph: a capture launches
+    nothing, so a wrapper called under capture records its counts here
+    instead of bumping its counters, and each replay of the graph adds them
+    (:meth:`replayed`)."""
+
+    def __init__(self):
+        self._entries = {}  # (id(counter), key) -> [counter, key, launches]
+
+    def add(self, counter: Counter, key):
+        entry = self._entries.setdefault((id(counter), key), [counter, key, 0])
+        entry[2] += 1
+
+    def replayed(self, times: int = 1):
+        """Add the recorded launches of ``times`` replays to their counters."""
+        for counter, key, n in self._entries.values():
+            counter[key] += n * times
+
+    def launches(self, counter: Counter) -> dict:
+        """{key: launches per replay} recorded for ``counter``."""
+        return {key: n for c, key, n in self._entries.values() if c is counter}
+
+
+@contextmanager
+def recording(record: LaunchRecord):
+    """Record into ``record`` the launches captured inside the block."""
+    _RECORDINGS.append(record)
+    try:
+        yield record
+    finally:
+        _RECORDINGS.remove(record)
+
+
+def count_launch(counter: Counter, key):
+    """Count one launch under ``key``, or, while torch's current stream is
+    being captured, record it in the innermost open :func:`recording` (a
+    capture outside any recording, such as a test's, counts nothing)."""
+    if torch.cuda.is_current_stream_capturing():
+        if _RECORDINGS:
+            _RECORDINGS[-1].add(counter, key)
+    else:
+        counter[key] += 1
 
 # the launch plan's limits; they mirror the constants of csrc/fused_jk.cu
 SMEM_MAX = 232448          # dynamic shared memory a block may use on the H100
@@ -293,9 +342,9 @@ class FusedJK:
                                self._cplan_ptr, stream)
         if err != 0:
             raise RuntimeError(f"fused_jk kernel launch failed with CUDA error {err}")
-        LAUNCHES[self._key] += 1
-        LAUNCHES_BY_M[self._key_m] += 1
-        LAUNCHES_BY_SHAPE[self._key_shape] += 1
+        count_launch(LAUNCHES, self._key)
+        count_launch(LAUNCHES_BY_M, self._key_m)
+        count_launch(LAUNCHES_BY_SHAPE, self._key_shape)
         return out
 
     def __call__(self, dm):

@@ -31,12 +31,27 @@ Two mixed-precision modes are options, off by default
 float32 SCF to loose convergence before the float64 one, and
 ``incremental_jk="on"`` builds most J/K of the float64 SCF from float32
 contractions of the density change. Every exact-ERI J/K in float32 goes
-through the fused kernel too. Not ported: the TPU-only compiled-program
-machinery and the TPU's Pallas switch (``pallas_jk``).
+through the fused kernel too.
+
+Compiled programs (``jit_kernel``, ``dispatch_cycles``; the reference's
+``_jitted_kernel``, ``_jitted_veff`` and ``_jitted_subsys``,
+``engine.py:764-937``): on a CUDA device an SCF runs as CUDA graphs. The
+cycle of :class:`nbed_tpu_torch.scf.hf.SCFProgram` (J/K through the fused
+kernel or DF, XC, DIIS and the Fock diagonalisation through the capturable
+cuSOLVER eigh of :mod:`nbed_tpu_torch.ops.eigh`) is captured ``K`` cycles
+at a time, with one host read per replay, and the final Fock build once;
+the float32 warm-up has its own float32 graphs. ``get_veff`` and the
+subsystem-DFT stage are one replay each. Graphs are captured once per
+engine and call signature and kept on the engine. The reference's program
+cache, its jit-argument packing and its TPU streaming-crash chunking are
+not ported, nor is its Pallas switch (``pallas_jk``): the port always runs
+its kernel.
 """
 
+import gc
 import logging
 import time
+from collections import Counter
 from dataclasses import dataclass, field
 from functools import cached_property, lru_cache
 from typing import Optional
@@ -51,13 +66,29 @@ from ..chem.periodic import SYMBOL_TO_Z, Z_TO_SYMBOL
 from ..dft.functionals import resolve_functional
 from ..dft.xc import STREAM_CHUNK, TABLE_CHUNK, make_xc_fn, make_xc_fn_streaming
 from ..grids import build_grid, eval_aos
-from ..integrals import native
-from ..ops.jk import prepare_jk
-from .hf import make_rdm1, run_scf
+from ..integrals import (eri_tensor, kinetic, native, nuclear_attraction, overlap,
+                         point_charge_attraction)
+from ..ops import eigh as eigh_ops
+from ..ops.jk import LAUNCHES, LaunchRecord, recording, prepare_jk
+from .hf import SCFProgram, lowdin_x, make_rdm1, run_scf
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["SCFEngine", "SCFSolution", "VeffResult", "df_b_factor"]
+__all__ = ["SCFEngine", "SCFSolution", "VeffResult", "df_b_factor", "DISPATCH_CYCLES",
+           "RUNS"]
+
+# SCF cycles per graph replay when dispatch_cycles is None: capture time
+# grows by 30-160 ms per captured cycle (water to pfoa) and is paid once
+# per engine and call signature, while a host read per replay costs no
+# measurable time and a longer chunk runs up to K - 1 frozen cycles after
+# convergence (PERF.md §6, scripts/bench_graphs.py)
+DISPATCH_CYCLES = 1
+
+# how the SCFs of this process ran (SCFEngine.kernel, get_veff and
+# subsystem_decomposition): "graph" and "eager" kernel() calls, "replays",
+# "host_reads", "captures", "capture_s", "cycles"; the counterpart of
+# ops.jk.LAUNCHES for a run to read per phase
+RUNS: Counter = Counter()
 
 
 @dataclass
@@ -150,6 +181,21 @@ def _df_k_spin(b, d, chunk_elems: int = _DF_K_CHUNK_ELEMS):
     return 0.5 * (k + k.T)
 
 
+def _df_k_folded(dm, b, b_lr, chunk_elems: int, fold):
+    """(2, n, n) DF exchange of a spin density pair from the factor ``b``;
+    under range separation (``fold`` = (hyb, beta), ``b_lr`` the long-range
+    factor) the folded hyb*K + beta*K_LR."""
+    def k_of(f):
+        return torch.stack([_df_k_spin(f, dm[0], chunk_elems),
+                            _df_k_spin(f, dm[1], chunk_elems)])
+
+    k = k_of(b)
+    if fold is None:
+        return k
+    hyb, beta = fold
+    return hyb * k + beta * k_of(b_lr)
+
+
 def _df_j(b, d):
     """DF Coulomb J of the total density ``d`` through the fitted density
     rho_P = sum_ab B[a,P,b] d[a,b]: two passes over B."""
@@ -163,18 +209,138 @@ _ATOM_SPIN = {1: 1, 2: 0, 3: 1, 4: 0, 5: 1, 6: 2, 7: 3, 8: 2, 9: 1, 10: 0,
 
 
 @lru_cache(maxsize=64)
-def _atomic_density(symbol: str, basis: str, device: str):
+def _atomic_density(symbol: str, basis: str, device: str, jit_kernel: str = "auto"):
     """Spin-summed UHF density of the neutral atom (per-spin average), for
     the superposition-of-atomic-densities guess. The atoms' SCFs run on the
-    molecule's device, their J/K through the fused kernel."""
+    molecule's device, their J/K through the fused kernel, graphed or eager
+    as the molecule's engine (``jit_kernel``)."""
     mol = build_molecule(f"1\n\n{symbol} 0.0 0.0 0.0", basis)
     z = SYMBOL_TO_Z[symbol.capitalize()]
     spin = _ATOM_SPIN.get(z, z % 2)
     na = (z + spin) // 2
     eng = SCFEngine(mol, conv_tol=1e-8, max_cycle=100, init_guess="hcore",
-                    device=device)
+                    device=device, jit_kernel=jit_kernel)
     dm = eng.kernel(nelec=(na, z - na)).make_rdm1()
     return 0.5 * (dm[0] + dm[1])
+
+
+def _carries_derivative(t) -> bool:
+    """Whether ``t`` is a tensor that autograd follows or a forward-mode
+    dual tensor (a call that must stay differentiable never takes a
+    graph)."""
+    if not isinstance(t, torch.Tensor):
+        return False
+    from torch.autograd import forward_ad
+
+    return t.requires_grad or forward_ad.unpack_dual(t).tangent is not None
+
+
+class _Captured:
+    """``fn()``, work that reads and writes fixed buffers only, as a CUDA
+    graph: :meth:`capture` runs ``warmup()`` (default ``fn``) once
+    uncaptured on a side stream, so that libraries set up their handles and
+    workspaces outside the capture, then captures ``fn`` (which launches
+    nothing); a call replays it. Off CUDA there is no graph and a call runs
+    ``fn``. The launches captured are added to the launch counters once per
+    replay (:class:`nbed_tpu_torch.ops.jk.LaunchRecord`).
+
+    ``pool`` is a one-item list shared by the graphs of one engine: the
+    first capture fills it with its memory pool and the later ones capture
+    into the same pool. A graph's allocations are temporaries that die
+    within its replay (results are copied into buffers made outside the
+    capture), and one engine's graphs replay one after another on the
+    stream, so the pool holds the largest graph's memory, not the sum."""
+
+    def __init__(self, fn, device, pool: list, warmup=None):
+        self.fn, self.device, self.pool, self.warmup = fn, device, pool, warmup or fn
+        self.graph = None
+        self.record = LaunchRecord()
+
+    @property
+    def captures(self) -> bool:
+        return self.device.type == "cuda"
+
+    def capture(self):
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self.warmup()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # no garbage collection during the capture: collecting an engine
+        # dropped earlier (alive in some reference cycle) would destroy its
+        # CUDA graphs there, which invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with recording(self.record), torch.cuda.graph(graph, pool=self.pool[0],
+                                                          stream=side):
+                self.fn()
+        finally:
+            if collecting:
+                gc.enable()
+        if self.pool[0] is None:
+            self.pool[0] = graph.pool()
+        self.graph = graph
+
+    def __call__(self):
+        if not self.captures:
+            self.fn()
+            return
+        if self.graph is None:
+            raise RuntimeError("_Captured: capture() first")
+        self.graph.replay()
+        self.record.replayed()
+
+
+class _GraphedSCF:
+    """An :class:`SCFProgram` with its chunk of ``cycles`` cycles and its
+    final Fock build as two graphs in the engine's memory pool (direct
+    calls off CUDA), captured at the first :meth:`run`."""
+
+    def __init__(self, program: SCFProgram, cycles: int, pool: list):
+        self.program, self.cycles = program, cycles
+        device = program.device
+        self.chunk = _Captured(lambda: program.run_cycles(cycles), device, pool,
+                               warmup=lambda: program.run_cycles(1))
+        self.final = _Captured(program.finish, device, pool)
+
+    def launches_per_replay(self) -> dict:
+        """{key: fused J/K launches} of one chunk replay."""
+        return self.chunk.record.launches(LAUNCHES)
+
+    def run(self, inputs: dict, stats: dict):
+        """Load ``inputs`` (:meth:`SCFProgram.load`), replay the chunk until
+        the flags read converged or ``max_cycle`` cycles (one host read per
+        replay), then the final build; returns the
+        :class:`nbed_tpu_torch.scf.hf.SCFResult` and adds replays, host
+        reads and capture seconds to ``stats``."""
+        prog = self.program
+        prog.load(**inputs)
+        if self.chunk.captures and self.chunk.graph is None:
+            t0 = time.perf_counter()
+            self.chunk.capture()
+            self.final.capture()
+            prog.load(**inputs)  # the warm-up cycle moved the state
+            stats["capture_s"] += time.perf_counter() - t0
+            stats["captures"] += 2
+        max_cycle = int(inputs["max_cycle"])
+        while True:
+            self.chunk()
+            conv, cycles, failures = prog.flags.tolist()  # the replay's one host read
+            stats["replays"] += 1
+            stats["host_reads"] += 1
+            if failures:
+                prog.flags.zero_()
+                eigh_ops.failure_count(prog.device).zero_()
+                raise RuntimeError(f"eigh: cuSOLVER failed on {failures} matrices in a "
+                                   "graphed SCF")
+            if conv or cycles >= max_cycle:
+                break
+        self.final()
+        stats["replays"] += 1
+        stats["host_reads"] += 1  # the energy, read by result()
+        return prog.result()
 
 
 @dataclass(eq=False)
@@ -218,6 +384,31 @@ class SCFEngine:
           float32 XC on coarse cycles and a float64 polish at the end;
           ``"off"`` or ``"auto"`` (the reference turns "auto" on only on
           a TPU): plain float64.
+        integrals_backend: ``"auto"`` or ``"native"``: S, hcore and the
+          ERIs from the host C++ engine; ``"torch"`` (or ``"jax"``, the
+          reference's name for its device integrals): from the port's
+          torch integrals (:mod:`nbed_tpu_torch.integrals`) on the
+          engine's device. The DF factor is built on the host either way.
+        jit_kernel: how ``kernel()``, ``get_veff`` and
+          ``subsystem_decomposition`` run. ``"on"``: as graphed programs
+          (:class:`nbed_tpu_torch.scf.hf.SCFProgram`): on CUDA captured as
+          CUDA graphs, where a failure to capture raises; on the CPU the
+          same chunk body runs without capture. ``"auto"``: graphed on a
+          CUDA device, eager on the CPU. ``"off"``: eager. A call whose
+          inputs carry ``requires_grad`` or a forward-mode tangent runs
+          eagerly under "auto" and raises under "on";
+          ``incremental_jk="on"``, whose cycles pick their kernels on the
+          host, runs ``kernel()`` eagerly under "auto" and raises
+          ``NotImplementedError`` under "on". ``last_run`` records how the
+          last ``kernel()`` ran.
+        dispatch_cycles: SCF cycles per graph replay: K with
+          0 < K < max_cycle gives K cycles per replay and one host read of
+          the convergence flags after each; 0 (or K >= max_cycle) one
+          replay of max_cycle cycles; None :data:`DISPATCH_CYCLES`. The
+          DIIS history, density, energy and cycle count carry from one
+          replay to the next, so the graphed SCF gives the eager loop's
+          iterates whatever K is (the reference restarts DIIS at each
+          chunk, ``engine.py:1010-1033``).
     """
 
     mol: Molecule
@@ -241,9 +432,18 @@ class SCFEngine:
     grid_scheme: str = "reference"  # "reference" (PySCF-parity) | "product"
     grid_level: int = 3  # per-element density level for scheme="reference"
     coords: Optional[np.ndarray] = None  # geometry override (Bohr)
+    integrals_backend: str = "auto"  # "auto" | "native" | "torch" ("jax" = "torch")
+    jit_kernel: str = "auto"  # "auto" (graphs on CUDA) | "on" | "off"
+    dispatch_cycles: Optional[int] = None  # SCF cycles per graph replay
     # seconds of each part of this engine's factor builds (df_b_factor)
     df_timings: dict = field(default_factory=dict, init=False, repr=False)
     df_lr_timings: dict = field(default_factory=dict, init=False, repr=False)
+    # how the last kernel() ran: mode "graph" or "eager", replays,
+    # host_reads, captures, capture_s, cycles (and warmup_cycles)
+    last_run: dict = field(default_factory=dict, init=False, repr=False)
+    _graphs: dict = field(default_factory=dict, init=False, repr=False)
+    # the memory pool of every graph of this engine (see _Captured)
+    _graph_pool: list = field(default_factory=lambda: [None], init=False, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -252,6 +452,13 @@ class SCFEngine:
         if self.incremental_jk not in ("on", "off", "auto"):
             raise ValueError("incremental_jk must be 'on', 'off' or 'auto', "
                              f"got {self.incremental_jk!r}")
+        if self.jit_kernel not in ("on", "off", "auto"):
+            raise ValueError(f"jit_kernel must be 'on', 'off' or 'auto', got {self.jit_kernel!r}")
+        if self.integrals_backend not in ("auto", "native", "torch", "jax"):
+            raise ValueError("integrals_backend must be 'auto', 'native', 'torch' or 'jax', "
+                             f"got {self.integrals_backend!r}")
+        if self.dispatch_cycles is not None and int(self.dispatch_cycles) < 0:
+            raise ValueError(f"dispatch_cycles must be >= 0, got {self.dispatch_cycles}")
         self.coords = np.asarray(self.mol.coords if self.coords is None else self.coords,
                                  dtype=np.float64)
 
@@ -259,27 +466,52 @@ class SCFEngine:
         return torch.as_tensor(array, dtype=DTYPE, device=self.device)
 
     # ---------------------------------------------------------- operators
+    @property
+    def _torch_integrals(self) -> bool:
+        """Whether S, hcore and the ERIs come from the torch integrals."""
+        return self.integrals_backend in ("torch", "jax")
+
     @cached_property
     def _native_1e(self):
         return native.one_electron(self.mol, self.coords)
 
     @cached_property
     def s(self):
+        if self._torch_integrals:
+            return overlap(self.mol, self.coords, device=self.device)
         return self._tensor(self._native_1e[0])
 
     @cached_property
+    def x(self):
+        """S^-1/2 (Löwdin), the orthogonaliser of every SCF of the engine."""
+        return lowdin_x(self.s)
+
+    @cached_property
     def hcore(self):
+        if self._torch_integrals:
+            mol = self.mol
+            h = (kinetic(mol, self.coords, device=self.device)
+                 + nuclear_attraction(mol, self.coords, device=self.device))
+            if mol.mm_coords is not None:
+                h = h + point_charge_attraction(mol, mol.mm_coords, mol.mm_charges,
+                                                mol.mm_radii, coords=self.coords,
+                                                device=self.device)
+            return h
         _, t, v = self._native_1e  # V includes the MM charges
         return self._tensor(t + v)
 
     @cached_property
     def eri(self):
+        if self._torch_integrals:
+            return eri_tensor(self.mol, self.coords, device=self.device)
         return self._tensor(native.eri(self.mol, self.coords))
 
     @cached_property
     def eri_lr(self):
         """Long-range erf(omega*r12)/r12 AO ERIs of a range-separated hybrid."""
         _, omega = self._rsh
+        if self._torch_integrals:
+            return eri_tensor(self.mol, self.coords, omega=omega, device=self.device)
         return self._tensor(native.eri(self.mol, self.coords, omega=omega))
 
     @cached_property
@@ -423,7 +655,9 @@ class SCFEngine:
         f32 = torch.float32
         b32 = self.df_factor().to(f32)
         b32_lr = None if self._rsh is None else self.df_factor_lr().to(f32)
-        return lambda dm: (_df_j(b32, dm[0] + dm[1]), self._df_k(dm, b32, b32_lr))
+        fold, chunk = self._k_fold, self._df_chunk_elems
+        return lambda dm: (_df_j(b32, dm[0] + dm[1]),
+                           _df_k_folded(dm, b32, b32_lr, chunk, fold))
 
     @property
     def _xc_fast_fn(self):
@@ -444,7 +678,8 @@ class SCFEngine:
         dm = torch.zeros((n, n), dtype=DTYPE, device=self.device)
         sl = self.mol.aoslice_by_atom()
         for ia, z in enumerate(self.mol.atom_charges):
-            blk = _atomic_density(Z_TO_SYMBOL[int(z)], self.mol.basis, str(self.device))
+            blk = _atomic_density(Z_TO_SYMBOL[int(z)], self.mol.basis, str(self.device),
+                                  self.jit_kernel)
             p0, p1 = int(sl[ia, 2]), int(sl[ia, 3])
             dm[p0:p1, p0:p1] = blk
         return torch.stack([dm, dm])
@@ -457,25 +692,34 @@ class SCFEngine:
         """(J (n, n), K (2, n, n)) of a density: density-fitted, or exact
         through the fused kernel. Under range separation K is the folded
         hyb*K + beta*K_LR on both routes."""
-        dm = _spinify(dm)
+        return self._jk_function(_spinify(dm))
+
+    @cached_property
+    def _jk_function(self):
+        """``dm (2, n, n) -> (J, K)`` of :meth:`get_jk`, a closure over the
+        operators alone: the engine's graphs hold it, and a reference back
+        to the engine would keep a dropped engine, its graphs and their
+        device memory alive until the cyclic garbage collector runs."""
         if not self.density_fitting:
-            return self._jk_exact(dm.contiguous())
-        return _df_j(self.df_factor(), dm[0] + dm[1]), self._df_k(dm)
-
-    def _df_k(self, dm, b=None, b_lr=None):
-        """(2, n, n) DF exchange of a spin density pair, folded under range
-        separation (``nbed_tpu/scf/engine.py:596-607``), from the engine's
-        factors or the given ones (``b_lr`` only under range separation)."""
+            jk = self._jk_exact
+            return lambda dm: jk(dm.contiguous())
+        b, b_lr = self.df_factor(), None if self._rsh is None else self.df_factor_lr()
+        fold = self._k_fold
         chunk = self._df_chunk_elems
+        return lambda dm: (_df_j(b, dm[0] + dm[1]), _df_k_folded(dm, b, b_lr, chunk, fold))
 
-        def k_of(f):
-            return torch.stack([_df_k_spin(f, dm[0], chunk), _df_k_spin(f, dm[1], chunk)])
+    @property
+    def _k_fold(self):
+        """(hyb, beta) of the folded exchange hyb*K + beta*K_LR, or None
+        without range separation."""
+        return None if self._rsh is None else (self._xc_meta[1], self._rsh[0])
 
-        k = k_of(self.df_factor() if b is None else b)
-        if self._rsh is None:
-            return k
-        k_lr = k_of(self.df_factor_lr() if b_lr is None else b_lr)
-        return self._xc_meta[1] * k + self._rsh[0] * k_lr
+    def _df_k(self, dm):
+        """(2, n, n) DF exchange of a spin density pair from the engine's
+        factors, folded under range separation
+        (``nbed_tpu/scf/engine.py:596-607``)."""
+        b_lr = None if self._rsh is None else self.df_factor_lr()
+        return _df_k_folded(dm, self.df_factor(), b_lr, self._df_chunk_elems, self._k_fold)
 
     def get_j(self, dm):
         return self.get_jk(dm)[0]
@@ -491,17 +735,175 @@ class SCFEngine:
         exc = exc - 0.5 * hyb * torch.einsum("sij,sji->", k, dm)
         return VeffResult(matrix=v, ecoul=ecoul, exc=exc)
 
+    # ------------------------------------------------------ graphed programs
+    def _takes_graphs(self, inputs, kernel: bool = False) -> bool:
+        """Whether a call with tensors ``inputs`` runs as graphed programs
+        (see ``jit_kernel``); ``kernel`` marks a ``kernel()`` call, which the
+        incremental SCF keeps eager."""
+        if self.jit_kernel == "off":
+            return False
+        differentiable = any(_carries_derivative(t) for t in inputs)
+        incremental = kernel and self.incremental_jk == "on"
+        if self.jit_kernel == "on":
+            if incremental:
+                raise NotImplementedError(
+                    "jit_kernel='on' with incremental_jk='on': the incremental SCF picks "
+                    "its J/K kernels per cycle on the host (rebase cycles, |dD| switch) "
+                    "and is not graphed")
+            if differentiable:
+                raise ValueError("jit_kernel='on' takes no input that carries requires_grad "
+                                 "or a forward-mode tangent; use 'auto' or 'off'")
+            return True
+        return self.device.type == "cuda" and not (incremental or differentiable)
+
+    def _dispatch_chunk(self, total: int) -> Optional[int]:
+        """SCF cycles per graph replay for a ``total``-cycle SCF, or None
+        for one replay of all ``total`` cycles (``dispatch_cycles`` 0, or
+        K >= total)."""
+        k = DISPATCH_CYCLES if self.dispatch_cycles is None else int(self.dispatch_cycles)
+        return k if 0 < k < total else None
+
+    def _scf_graph(self, dtype, nelec, present, level_shift: float, cycles: int):
+        """The :class:`_GraphedSCF` of one call signature: ``dtype`` (the
+        float32 warm-up or the float64 SCF), ``nelec``, which of v_emb,
+        dm_env_occ, dm_env_virt are ``present``, the level shift and the
+        cycles per replay."""
+        key = (dtype, tuple(int(v) for v in nelec), present, float(level_shift), cycles)
+        graph = self._graphs.get(key)
+        if graph is None:
+            if dtype == DTYPE:
+                hcore, s, x, xc_fn = self.hcore, self.s, self.x, self.xc_fn
+                jk_fn = self._jk_function  # not self.get_jk: see _jk_function
+            else:
+                ops = self._f32_ops
+                hcore, s, jk_fn, xc_fn = ops["hcore"], ops["s"], ops["jk_fn"], ops["xc_fn"]
+                x = lowdin_x(s)
+            cuda = self.device.type == "cuda"
+            program = SCFProgram(
+                hcore=hcore, s=s, x=x, nelec=nelec, jk_fn=jk_fn, xc_fn=xc_fn, hyb=self.hyb,
+                huzinaga=present[1], level_shift=level_shift, rohf=self.rohf,
+                eigh=eigh_ops.eigh,
+                failures=eigh_ops.failure_count(self.device) if cuda else None)
+            graph = self._graphs[key] = _GraphedSCF(program, cycles, self._graph_pool)
+        return graph
+
+    def _graphed_kernel(self, nelec, v_emb, dm_env_occ, dm_env_virt, dm0, conv_tol,
+                        dm_conv_tol, max_cycle, level_shift, warmup, stats):
+        """The SCF of :meth:`kernel` as graphed programs: the float32
+        warm-up when ``warmup``, then the float64 SCF (the reference's
+        ``_jitted_kernel``, ``engine.py:764-851``)."""
+        chunk = self._dispatch_chunk(max_cycle)
+        cycles = max_cycle if chunk is None else chunk
+        present = (v_emb is not None, dm_env_occ is not None, dm_env_virt is not None)
+        if warmup:
+            f32 = torch.float32
+
+            def cast(t):
+                return None if t is None else t.to(f32)
+
+            graph = self._scf_graph(f32, nelec, present, 0.0, cycles)
+            warm = graph.run(dict(v_emb=cast(v_emb), dm_env_occ=cast(dm_env_occ),
+                                  dm_env_virt=cast(dm_env_virt), dm0=cast(dm0),
+                                  conv_tol=1e-4, dm_conv_tol=1e-3, max_cycle=max_cycle), stats)
+            stats["warmup_cycles"] = warm.n_iter
+            dm0 = warm.dm.to(DTYPE)
+        graph = self._scf_graph(DTYPE, nelec, present, level_shift, cycles)
+        res = graph.run(dict(v_emb=v_emb, dm_env_occ=dm_env_occ, dm_env_virt=dm_env_virt,
+                             dm0=dm0, conv_tol=conv_tol, dm_conv_tol=dm_conv_tol,
+                             max_cycle=max_cycle), stats)
+        stats["cycles_per_replay"] = cycles
+        stats["launches_per_replay"] = graph.launches_per_replay()
+        return res
+
+    @cached_property
+    def _veff_graph(self):
+        """(dm buffer, output buffers, :class:`_Captured`) of ``get_veff``
+        (the reference's ``_jitted_veff``, ``engine.py:857-870``)."""
+        n = self.mol.nao
+        dm_in = torch.zeros((2, n, n), dtype=DTYPE, device=self.device)
+        out = {"matrix": torch.zeros_like(dm_in),
+               "e": torch.zeros(2, dtype=DTYPE, device=self.device)}
+        xc_fn, hyb = self._xc
+        jk, veff_math = self._jk_function, self._veff_math  # not self: see _jk_function
+
+        def fn():
+            j, k = jk(dm_in)
+            v = veff_math(dm_in, j, k, xc_fn, hyb)
+            out["matrix"].copy_(v.matrix)
+            out["e"].copy_(torch.stack([v.ecoul, v.exc]))
+
+        return dm_in, out, _Captured(fn, self.device, self._graph_pool)
+
+    @cached_property
+    def _subsystem_graph(self):
+        """(dm_act, dm_env buffers, output buffers, :class:`_Captured`) of
+        the subsystem-DFT stage: three J/K and XC builds in one program (the
+        reference's ``_jitted_subsys``, ``engine.py:904-937``)."""
+        n = self.mol.nao
+        dm_act = torch.zeros((2, n, n), dtype=DTYPE, device=self.device)
+        dm_env = torch.zeros_like(dm_act)
+        out = {"e": torch.zeros(3, dtype=DTYPE, device=self.device),
+               "v_emb": torch.zeros_like(dm_act)}
+        xc_fn, hyb = self._xc
+        h = self.hcore
+        jk, veff_math = self._jk_function, self._veff_math  # not self: see _jk_function
+
+        def comp(dm):
+            j, k = jk(dm)
+            v = veff_math(dm, j, k, xc_fn, hyb)
+            return torch.einsum("ij,ji->", h, dm[0] + dm[1]) + v.ecoul + v.exc, v, j
+
+        def fn():
+            e_act, v_act, j_act = comp(dm_act)
+            e_env, v_env, j_env = comp(dm_env)
+            _, v_tot, _ = comp(dm_act + dm_env)
+            j_cross = 0.5 * (torch.einsum("ij,ij", dm_act[0] + dm_act[1], j_env)
+                             + torch.einsum("ij,ij", dm_env[0] + dm_env[1], j_act))
+            xc_cross = v_tot.exc - v_act.exc - v_env.exc
+            out["e"].copy_(torch.stack([e_act, e_env, j_cross + xc_cross]))
+            out["v_emb"].copy_(v_tot.matrix - v_act.matrix)
+
+        return dm_act, dm_env, out, _Captured(fn, self.device, self._graph_pool)
+
+    @staticmethod
+    def _replay(captured: _Captured, what: str):
+        """Run a captured program, capturing it at its first call."""
+        if captured.captures and captured.graph is None:
+            t0 = time.perf_counter()
+            captured.capture()
+            RUNS["captures"] += 1
+            RUNS["capture_s"] += time.perf_counter() - t0
+        captured()
+        RUNS["replays"] += 1
+        RUNS[what] += 1
+
     def get_veff(self, dm) -> VeffResult:
-        """J + Vxc - hyb*K with pyscf-compatible energy components."""
+        """J + Vxc - hyb*K with pyscf-compatible energy components; one
+        graph replay where ``jit_kernel`` graphs the call."""
         dm = _spinify(self._tensor(dm))
+        if self._takes_graphs((dm,)):
+            dm_in, out, captured = self._veff_graph
+            dm_in.copy_(dm)
+            self._replay(captured, "veff_graph")
+            ecoul, exc = out["e"].clone()
+            return VeffResult(matrix=out["matrix"].clone(), ecoul=ecoul, exc=exc)
         j, k = self.get_jk(dm)
         xc_fn, hyb = self._xc
         return self._veff_math(dm, j, k, xc_fn, hyb)
 
     def subsystem_decomposition(self, dm_act, dm_env):
         """(e_act, e_env, two_e_cross, embedding_potential) of the driver's
-        subsystem-DFT stage (``nbed_tpu/scf/engine.py:939-968``)."""
-        dm_act, dm_env = _spinify(dm_act), _spinify(dm_env)
+        subsystem-DFT stage (``nbed_tpu/scf/engine.py:939-968``); graphed,
+        one replay and one host read of the three energies."""
+        dm_act, dm_env = _spinify(self._tensor(dm_act)), _spinify(self._tensor(dm_env))
+        if self._takes_graphs((dm_act, dm_env)):
+            act_in, env_in, out, captured = self._subsystem_graph
+            act_in.copy_(dm_act)
+            env_in.copy_(dm_env)
+            self._replay(captured, "subsystem_graph")
+            e_act, e_env, cross = out["e"].tolist()
+            RUNS["host_reads"] += 1
+            return e_act, e_env, cross, out["v_emb"].clone()
         v_act = self.get_veff(dm_act)
         v_env = self.get_veff(dm_env)
         v_tot = self.get_veff(dm_act + dm_env)
@@ -521,7 +923,8 @@ class SCFEngine:
     def kernel(self, nelec=None, v_emb=None, dm_env_occ=None, dm_env_virt=None,
                dm0=None, conv_tol=None, dm_conv_tol=None, max_cycle=None,
                level_shift=0.0) -> "SCFSolution":
-        """Run SCF; all embedding terms are explicit arguments."""
+        """Run SCF; all embedding terms are explicit arguments. Graphed or
+        eager as ``jit_kernel`` says; ``last_run`` records which."""
         nelec = self.mol.nelec if nelec is None else nelec
         if self.restricted and nelec[0] != nelec[1]:
             raise ValueError("Restricted reporting requires n_alpha == n_beta.")
@@ -534,34 +937,50 @@ class SCFEngine:
             dm0 = self._sad_guess()
             from_guess = True
         max_cycle = self.max_cycle if max_cycle is None else max_cycle
+        conv_tol = self.conv_tol if conv_tol is None else conv_tol
+        dm_conv_tol = self.dm_conv_tol if dm_conv_tol is None else dm_conv_tol
+        warmup = self.warmup_f32 and (dm0 is None or from_guess)
 
         def opt(t, dtype=DTYPE):
             return None if t is None else _spinify(self._tensor(t)).to(dtype)
 
-        if self.warmup_f32 and (dm0 is None or from_guess):
-            f32 = torch.float32
-            ops = self._f32_ops
-            warm = run_scf(
-                hcore=ops["hcore"], s=ops["s"], jk_fn=ops["jk_fn"], nelec=nelec,
-                v_emb=None if v_emb is None else self._tensor(v_emb).to(f32),
-                xc_fn=ops["xc_fn"], hyb=ops["hyb"],
-                dm_env_occ=opt(dm_env_occ, f32), dm_env_virt=opt(dm_env_virt, f32),
-                dm0=opt(dm0, f32), conv_tol=1e-4, dm_conv_tol=1e-3,
-                max_cycle=max_cycle, rohf=self.rohf,
+        v_emb_t = None if v_emb is None else self._tensor(v_emb)
+        stats = {"mode": "eager", "replays": 0, "host_reads": 0, "captures": 0,
+                 "capture_s": 0.0}
+        if self._takes_graphs((v_emb_t, dm_env_occ, dm_env_virt, dm0), kernel=True):
+            stats["mode"] = "graph"
+            v2 = v_emb_t if v_emb_t is None or v_emb_t.ndim == 3 else \
+                torch.stack([v_emb_t, v_emb_t])
+            res = self._graphed_kernel(nelec, v2, opt(dm_env_occ), opt(dm_env_virt), opt(dm0),
+                                       conv_tol, dm_conv_tol, int(max_cycle), level_shift,
+                                       warmup, stats)
+        else:
+            if warmup:
+                f32 = torch.float32
+                ops = self._f32_ops
+                warm = run_scf(
+                    hcore=ops["hcore"], s=ops["s"], jk_fn=ops["jk_fn"], nelec=nelec,
+                    v_emb=None if v_emb_t is None else v_emb_t.to(f32),
+                    xc_fn=ops["xc_fn"], hyb=ops["hyb"],
+                    dm_env_occ=opt(dm_env_occ, f32), dm_env_virt=opt(dm_env_virt, f32),
+                    dm0=opt(dm0, f32), conv_tol=1e-4, dm_conv_tol=1e-3,
+                    max_cycle=max_cycle, rohf=self.rohf,
+                )
+                stats["warmup_cycles"] = warm.n_iter
+                dm0 = warm.dm.to(DTYPE)
+            res = run_scf(
+                hcore=self.hcore, s=self.s, jk_fn=self.get_jk, nelec=nelec,
+                jk_fn_fast=self._jk_fast_fn, xc_fn_fast=self._xc_fast_fn,
+                rebase_every=self.rebase_every, v_emb=v_emb_t, xc_fn=xc_fn, hyb=hyb,
+                dm_env_occ=opt(dm_env_occ), dm_env_virt=opt(dm_env_virt), dm0=opt(dm0),
+                conv_tol=conv_tol, dm_conv_tol=dm_conv_tol, max_cycle=max_cycle,
+                level_shift=level_shift, rohf=self.rohf,
             )
-            dm0 = warm.dm.to(DTYPE)
-
-        res = run_scf(
-            hcore=self.hcore, s=self.s, jk_fn=self.get_jk, nelec=nelec,
-            jk_fn_fast=self._jk_fast_fn, xc_fn_fast=self._xc_fast_fn,
-            rebase_every=self.rebase_every,
-            v_emb=None if v_emb is None else self._tensor(v_emb),
-            xc_fn=xc_fn, hyb=hyb,
-            dm_env_occ=opt(dm_env_occ), dm_env_virt=opt(dm_env_virt), dm0=opt(dm0),
-            conv_tol=self.conv_tol if conv_tol is None else conv_tol,
-            dm_conv_tol=self.dm_conv_tol if dm_conv_tol is None else dm_conv_tol,
-            max_cycle=max_cycle, level_shift=level_shift, rohf=self.rohf,
-        )
+        stats["cycles"] = res.n_iter
+        self.last_run = stats
+        RUNS[stats["mode"]] += 1
+        for key in ("replays", "host_reads", "captures", "capture_s", "cycles"):
+            RUNS[key] += stats[key]
         if not res.converged:
             logger.warning("SCF has NOT converged (%s cycles).", res.n_iter)
         huz = res.huzinaga_op if dm_env_occ is not None else None
@@ -577,7 +996,7 @@ class SCFEngine:
             mo_occ=mo_occ,
             e_tot=res.e_elec + self.energy_nuc(),
             converged=res.converged,
-            v_emb=None if v_emb is None else self._tensor(v_emb),
+            v_emb=v_emb_t,
             huzinaga_op=huz,
         )
 

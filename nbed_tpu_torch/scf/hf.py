@@ -30,6 +30,16 @@ geometry run alone ends, in the same number of cycles. The lane form takes
 the float64 operators of HF, KS and Huzinaga SCFs; ROHF and the mixed
 precision modes stay single-geometry.
 
+One cycle of the lane form is a function of device state alone
+(:func:`_lane_ops`): the DIIS slot, the fill count, the cycle counter and
+the convergence test are device tensors, and the cycle reads nothing back
+to the host. The lane loop reads its (B,) convergence tensor after each
+cycle; :class:`SCFProgram` runs the same cycle at B = 1 on fixed buffers,
+K cycles at a time, which is what the engine captures as a CUDA graph
+(``SCFEngine(jit_kernel=...)``, the port of the reference's one compiled
+program per SCF). The single-geometry loop of :func:`run_scf` keeps its own
+per-cycle host reads.
+
 ``grad_cycles`` (``nbed_tpu/scf/hf.py:431-455``) adds that many DIIS-free
 cycles, damped by 0.5, after a converged loop: a no-op on the converged
 density, which lets forward-mode tangents (``torch.autograd.forward_ad``)
@@ -47,9 +57,10 @@ from typing import Callable, Optional
 
 import torch
 
-__all__ = ["SCFResult", "run_scf", "make_rdm1", "lowdin_x", "huzinaga_operator"]
+from ..ops.jk import prepare_jk
 
-DIIS_SPACE = 8  # Pulay history length (the reference's default)
+__all__ = ["SCFResult", "SCFProgram", "run_scf", "make_rdm1", "lowdin_x",
+           "huzinaga_operator"]
 
 
 @dataclass
@@ -100,23 +111,32 @@ def roothaan_effective(f, dm, s):
     (``nbed_tpu/scf/hf.py:232-247``). Projector form with closed = beta
     occupied, open = alpha minus beta, virtual = alpha unoccupied: the
     diagonal blocks couple through (Fa+Fb)/2, closed-open through Fb,
-    open-virtual through Fa, closed-virtual through (Fa+Fb)/2."""
+    open-virtual through Fa, closed-virtual through (Fa+Fb)/2. Leading lane
+    axes ride along: f, dm ([B,] 2, n, n), s ([B,] n, n)."""
     n = s.shape[-1]
-    fc = 0.5 * (f[0] + f[1])
-    pc = dm[1] @ s
-    po = (dm[0] - dm[1]) @ s
-    pv = torch.eye(n, dtype=f.dtype, device=f.device) - dm[0] @ s
-    feff = (0.5 * (pc.T @ fc @ pc + po.T @ fc @ po + pv.T @ fc @ pv)
-            + po.T @ f[1] @ pc + po.T @ f[0] @ pv + pv.T @ fc @ pc)
-    feff = feff + feff.T
-    return torch.stack([feff, feff])
+
+    def t(a):
+        return a.transpose(-1, -2)
+
+    fa, fb = f[..., 0, :, :], f[..., 1, :, :]
+    da, db = dm[..., 0, :, :], dm[..., 1, :, :]
+    fc = 0.5 * (fa + fb)
+    pc = db @ s
+    po = (da - db) @ s
+    pv = torch.eye(n, dtype=f.dtype, device=f.device) - da @ s
+    feff = (0.5 * (t(pc) @ fc @ pc + t(po) @ fc @ po + t(pv) @ fc @ pv)
+            + t(po) @ fb @ pc + t(po) @ fa @ pv + t(pv) @ fc @ pc)
+    feff = feff + t(feff)
+    return torch.stack([feff, feff], dim=-3)
 
 
-def _diis_extrapolate(hist_f, hist_e, nfill: int):
+def _diis_extrapolate(hist_f, hist_e, nfill, eigh=torch.linalg.eigh):
     """Pulay extrapolation of the history Focks ([B,] m, 2, n, n) over the
-    filled slots of the ring buffer, with the reference's eigh pseudo-inverse
-    and relative cut (``hf.py:260-292``), per lane. The coefficients come
-    from the detached errors, so no derivative reaches them."""
+    ``nfill`` (an int or a device integer) filled slots of the ring buffer,
+    with the reference's eigh pseudo-inverse and relative cut
+    (``hf.py:260-292``), per lane; ``eigh`` solves the padded system. The
+    coefficients come from the detached errors, so no derivative reaches
+    them."""
     hist_e = hist_e.detach()
     m = hist_e.shape[-4]
     lead = tuple(hist_e.shape[:-4])
@@ -129,9 +149,10 @@ def _diis_extrapolate(hist_f, hist_e, nfill: int):
     big[..., :m, :m] = b
     big[..., :m, m] = filled
     big[..., m, :m] = filled
-    rhs = torch.zeros(m + 1, dtype=dtype, device=device)
-    rhs[m] = 1.0
-    ew, ev = torch.linalg.eigh(big)
+    # e_m, built on the device (a host scalar written into a device tensor
+    # is a copy that a CUDA graph capture refuses)
+    rhs = (torch.arange(m + 1, device=device) == m).to(dtype)
+    ew, ev = eigh(big)
     cut = torch.amax(torch.abs(ew), dim=-1, keepdim=True) * max(
         1e-12, (m + 1) * torch.finfo(dtype).eps)
     inv_ew = torch.where(torch.abs(ew) > cut, 1.0 / ew, torch.zeros_like(ew))
@@ -147,7 +168,9 @@ def run_scf(
     hcore,  # (n, n) or (2, n, n)
     s,  # (n, n)
     nelec,  # (n_alpha, n_beta)
-    jk_fn: Callable,  # dm (2,n,n) -> (j (n,n), k (2,n,n))
+    eri_j=None,  # (n*n, n*n) supermatrix for J: (ij|kl)
+    eri_k=None,  # (n*n, n*n) supermatrix for K: (ik|jl)
+    jk_fn: Optional[Callable] = None,  # dm (2,n,n) -> (j (n,n), k (2,n,n))
     jk_fn_fast: Optional[Callable] = None,  # float32 J/K of density changes
     rebase_every: int = 8,  # full-precision J/K rebuild period (incremental)
     xc_fn_fast: Optional[Callable] = None,  # float32 XC for coarse cycles
@@ -161,6 +184,7 @@ def run_scf(
     conv_tol: float = 1e-6,
     dm_conv_tol: float = 1e-6,
     max_cycle: int = 50,
+    diis_space: int = 8,  # Pulay history length
     level_shift: float = 0.0,  # virtual-orbital level shift (Ha)
     rohf: bool = False,  # restricted open shell: shared spatial orbitals
     use_diis: bool = True,  # False: plain Roothaan iterations
@@ -173,6 +197,11 @@ def run_scf(
     Huzinaga term enters the one-body energy in full, ``v_emb`` is part of
     the core Hamiltonian). The loop runs in the dtype of ``hcore``: float32
     operators give the mixed-precision warm-up.
+
+    J and K come from ``jk_fn``, or, where it is None, from the
+    supermatrices ``eri_j`` and ``eri_k`` through the fused J/K kernel
+    (its plain version on the CPU), as the reference's default ``get_jk``
+    contracts them (``nbed_tpu/scf/hf.py:190-199``).
 
     With ``jk_fn_fast`` each cycle takes ``J(D) = J(D_ref) + J32(D -
     D_ref)`` (likewise K), D_ref the previous cycle's density, and every
@@ -187,6 +216,15 @@ def run_scf(
     (B, 2, n, n), ``jk_fn`` maps (B, 2, n, n) densities to (J (B, n, n),
     K (B, 2, n, n)) and ``xc_fn`` to (exc (B,), vxc (B, 2, n, n)).
     """
+    if jk_fn is None:
+        if eri_j is None or eri_k is None:
+            raise ValueError("run_scf needs jk_fn, or both eri_j and eri_k")
+        if s.ndim == 3:
+            raise ValueError("run_scf over lanes takes jk_fn, not supermatrices")
+        fused = prepare_jk(eri_j.contiguous(), eri_k.contiguous())
+
+        def jk_fn(dm):
+            return fused(dm.contiguous())
     if s.ndim == 3:
         if rohf or jk_fn_fast is not None or xc_fn_fast is not None:
             raise ValueError("run_scf over lanes takes neither rohf nor the mixed-precision "
@@ -194,8 +232,8 @@ def run_scf(
         return _run_scf_lanes(
             hcore=hcore, s=s, nelec=nelec, jk_fn=jk_fn, v_emb=v_emb, xc_fn=xc_fn, hyb=hyb,
             dm_env_occ=dm_env_occ, dm_env_virt=dm_env_virt, dm0=dm0, conv_tol=conv_tol,
-            dm_conv_tol=dm_conv_tol, max_cycle=max_cycle, level_shift=level_shift,
-            use_diis=use_diis, grad_cycles=grad_cycles)
+            dm_conv_tol=dm_conv_tol, max_cycle=max_cycle, diis_space=diis_space,
+            level_shift=level_shift, use_diis=use_diis, grad_cycles=grad_cycles)
     n = s.shape[-1]
     if hcore.ndim == 2:
         hcore = torch.stack([hcore, hcore])
@@ -268,7 +306,7 @@ def run_scf(
     def loop(dm, e_prev, c, mo_e, inc: bool, xcfast: bool):
         """SCF cycles from ``dm`` until convergence or ``max_cycle``, with a
         fresh DIIS history; returns (dm, e, c, mo_e, converged, cycles)."""
-        m = DIIS_SPACE
+        m = diis_space
         hist_f = torch.zeros((m, 2, n, n), dtype=dm.dtype, device=dm.device)
         hist_e = torch.zeros_like(hist_f)
         nfill = 0
@@ -343,32 +381,26 @@ def run_scf(
     )
 
 
-def _run_scf_lanes(*, hcore, s, nelec, jk_fn, v_emb, xc_fn, hyb, dm_env_occ, dm_env_virt,
-                   dm0, conv_tol, dm_conv_tol, max_cycle, level_shift, use_diis,
-                   grad_cycles) -> SCFResult:
-    """:func:`run_scf` over a leading lane axis (see the module docstring)."""
-    nb, n = s.shape[0], s.shape[-1]
-    dtype, device = s.dtype, s.device
-    if hcore.ndim == 3:
-        hcore = torch.stack([hcore, hcore], dim=1)
-    if v_emb is None:
-        v_emb = torch.zeros_like(hcore)
-    elif v_emb.ndim == 3:
-        v_emb = torch.stack([v_emb, v_emb], dim=1)
-    x = lowdin_x(s)
-    h_eff = hcore + v_emb.to(hcore.dtype)
+def _lane_ops(*, h_eff, s, x, occ, jk_fn, xc_fn, hyb, dm_occ_s=None, dm_virt_s=None,
+              level_shift=0.0, rohf=False, use_diis=True, diis_space=8,
+              eigh=torch.linalg.eigh):
+    """(assemble_fock, eig_fock, cycle) of an SCF over a leading lane axis:
+    ``h_eff`` (B, 2, n, n), ``s`` and ``x`` (B, n, n), ``occ`` (B, 2, n),
+    ``jk_fn`` and ``xc_fn`` over (B, 2, n, n) densities, the Huzinaga
+    products ``dm_occ_s``/``dm_virt_s`` (B, 2, n, n) or None, and ``eigh``
+    for the Fock diagonalisation and the DIIS solve.
 
-    use_huz = dm_env_occ is not None
-    if use_huz:
-        dm_occ_s = torch.einsum("bsij,bjk->bsik", dm_env_occ, s)
-        dm_virt_s = (torch.zeros_like(dm_occ_s) if dm_env_virt is None
-                     else torch.einsum("bsij,bjk->bsik", dm_env_virt, s))
-
-    ar = torch.arange(n, device=device)
-    occ = torch.stack([(ar < int(nelec[0])).to(dtype), (ar < int(nelec[1])).to(dtype)])
-    occ = occ.expand(nb, 2, n)
+    ``cycle(st, conv_tol, dm_conv_tol, max_cycle)`` is one SCF cycle of the
+    state ``st`` (:func:`_initial_state`) and returns the next state. It
+    reads nothing back to the host: the DIIS slot and fill count follow
+    the device counter ``it``, the extrapolation is selected from cycle 1
+    on by ``torch.where``, and a lane that has converged, or has run
+    ``max_cycle`` cycles (an int or a device integer), keeps its state, as
+    the reference's vmapped loop selects the old carry."""
+    m = diis_space
 
     def assemble_fock(dm, j, k):
+        """(F incl. huz, huz, e_elec (B,) of dm) from dm and its J/K pair."""
         vhf = j[:, None] - hyb * k
         if xc_fn is not None:
             exc, vxc = xc_fn(dm)
@@ -376,7 +408,7 @@ def _run_scf_lanes(*, hcore, s, nelec, jk_fn, v_emb, xc_fn, hyb, dm_env_occ, dm_
         else:
             exc = 0.0
         f0 = h_eff + vhf
-        if use_huz:
+        if dm_occ_s is not None:
             huz = huzinaga_operator(f0, dm_occ_s, dm_virt_s)
             f = f0 + huz
         else:
@@ -389,69 +421,278 @@ def _run_scf_lanes(*, hcore, s, nelec, jk_fn, v_emb, xc_fn, hyb, dm_env_occ, dm_
 
     def eig_fock(f):
         f_ortho = torch.einsum("bpi,bspq,bqj->bsij", x, f, x)
-        mo_e, c_ortho = torch.linalg.eigh(f_ortho)
+        mo_e, c_ortho = eigh(f_ortho)
         return mo_e, torch.einsum("bpi,bsij->bspj", x, c_ortho)
 
-    if dm0 is None:
-        f_init = h_eff
-        if use_huz:
-            f_init = f_init + huzinaga_operator(f_init, dm_occ_s, dm_virt_s)
-        dm0 = make_rdm1(eig_fock(f_init)[1], occ)
-
-    def take(mask, new, old):
-        """``new`` on the lanes of ``mask``, ``old`` elsewhere."""
-        return torch.where(mask.reshape((nb,) + (1,) * (new.ndim - 1)), new, old)
-
-    m = DIIS_SPACE
-    dm = dm0.to(dtype)
-    hist_f = torch.zeros((nb, m, 2, n, n), dtype=dtype, device=device)
-    hist_e = torch.zeros_like(hist_f)
-    c = torch.zeros((nb, 2, n, n), dtype=dtype, device=device)
-    mo_e = torch.zeros((nb, 2, n), dtype=dtype, device=device)
-    e_prev = torch.full((nb,), float("inf"), dtype=dtype, device=device)
-    conv = torch.zeros(nb, dtype=torch.bool, device=device)
-    cycles = torch.zeros(nb, dtype=torch.int64, device=device)
-    it = 0
-    running = True
-    while it < max_cycle and running:
-        active = ~conv  # the lanes this cycle updates
+    def cycle(st, conv_tol, dm_conv_tol, max_cycle):
+        dm, it = st["dm"], st["it"]
+        active = ~st["conv"] & (it < max_cycle)  # the lanes this cycle updates
         j, k = jk_fn(dm)
         f, _, e_cur = assemble_fock(dm, j, k)
+        if rohf:
+            # the per-spin error of F_eff covers every coupling block (see
+            # run_scf)
+            f = roothaan_effective(f, dm, s)
         fds = torch.einsum("bsij,bsjk,bkl->bsil", f, dm, s)
         err = torch.einsum("bpi,bspq,bqj->bsij", x, fds - fds.transpose(-1, -2), x)
-        hist_f[:, it % m] = f
-        hist_e[:, it % m] = err
+        slot = (torch.arange(m, device=it.device) == it % m).reshape(1, m, 1, 1, 1)
+        hist_f = torch.where(slot, f[:, None], st["hist_f"])
+        hist_e = torch.where(slot, err[:, None], st["hist_e"])
         f_use = f
-        if it > 0 and use_diis:
-            f_use = _diis_extrapolate(hist_f, hist_e, min(it + 1, m))
+        if use_diis:
+            f_use = torch.where(it > 0, _diis_extrapolate(
+                hist_f, hist_e, torch.clamp(it + 1, max=m), eigh), f)
         if level_shift:
             sds = torch.einsum("bij,bsjk,bkl->bsil", s, dm, s)
             f_use = f_use + level_shift * (s[:, None] - sds)
         mo_e_new, c_new = eig_fock(f_use)
         dm_new = make_rdm1(c_new, occ)
-        de = torch.abs(e_cur - e_prev)
-        ddm = torch.amax(torch.linalg.matrix_norm(dm_new - dm), dim=-1)
+        # the test in float64, as the single-geometry loop takes it on the
+        # host: float32 loops compare their energy and density changes in
+        # float64 too
+        e_cur = e_cur.to(st["e"].dtype)
+        de = torch.abs(e_cur - st["e"])
+        ddm = torch.amax(torch.linalg.matrix_norm(dm_new - dm), dim=-1).to(st["e"].dtype)
         now = (de < conv_tol) & (ddm < dm_conv_tol)
-        dm = take(active, dm_new, dm)
-        e_prev = take(active, e_cur, e_prev)
-        c = take(active, c_new, c)
-        mo_e = take(active, mo_e_new, mo_e)
-        conv = conv | (active & now)
-        cycles = cycles + active.to(cycles.dtype)
+        return {
+            "dm": _take(active, dm_new, dm), "e": _take(active, e_cur, st["e"]),
+            "c": _take(active, c_new, st["c"]), "mo_e": _take(active, mo_e_new, st["mo_e"]),
+            "conv": st["conv"] | (active & now),
+            "cycles": st["cycles"] + active.to(st["cycles"].dtype),
+            "it": it + 1, "hist_f": hist_f, "hist_e": hist_e,
+        }
+
+    return assemble_fock, eig_fock, cycle
+
+
+def _take(mask, new, old):
+    """``new`` on the lanes of the (B,) ``mask``, ``old`` elsewhere."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)), new, old)
+
+
+def _initial_state(dm0, diis_space: int) -> dict:
+    """The SCF state of :func:`_lane_ops` at cycle 0 from the (B, 2, n, n)
+    density ``dm0``: energies in float64 whatever the loop's dtype."""
+    nb, n = dm0.shape[0], dm0.shape[-1]
+    dtype, device = dm0.dtype, dm0.device
+    hist = torch.zeros((nb, diis_space, 2, n, n), dtype=dtype, device=device)
+    return {
+        "dm": dm0, "e": torch.full((nb,), float("inf"), dtype=torch.float64, device=device),
+        "c": torch.zeros((nb, 2, n, n), dtype=dtype, device=device),
+        "mo_e": torch.zeros((nb, 2, n), dtype=dtype, device=device),
+        "conv": torch.zeros(nb, dtype=torch.bool, device=device),
+        "cycles": torch.zeros(nb, dtype=torch.int64, device=device),
+        "it": torch.zeros((), dtype=torch.int64, device=device),
+        "hist_f": hist, "hist_e": torch.zeros_like(hist),
+    }
+
+
+def _huzinaga_products(dm_env_occ, dm_env_virt, s):
+    """(D_occ S, D_virt S) per lane and spin; zeros for an absent D_virt."""
+    dm_occ_s = torch.einsum("bsij,bjk->bsik", dm_env_occ, s)
+    dm_virt_s = (torch.zeros_like(dm_occ_s) if dm_env_virt is None
+                 else torch.einsum("bsij,bjk->bsik", dm_env_virt, s))
+    return dm_occ_s, dm_virt_s
+
+
+def _occupations(nelec, nb: int, n: int, dtype, device):
+    ar = torch.arange(n, device=device)
+    occ = torch.stack([(ar < int(nelec[0])).to(dtype), (ar < int(nelec[1])).to(dtype)])
+    return occ.expand(nb, 2, n)
+
+
+def _run_scf_lanes(*, hcore, s, nelec, jk_fn, v_emb, xc_fn, hyb, dm_env_occ, dm_env_virt,
+                   dm0, conv_tol, dm_conv_tol, max_cycle, diis_space, level_shift, use_diis,
+                   grad_cycles) -> SCFResult:
+    """:func:`run_scf` over a leading lane axis (see the module docstring):
+    the cycles of :func:`_lane_ops`, with one (B,) host read after each."""
+    nb, n = s.shape[0], s.shape[-1]
+    dtype = s.dtype
+    if hcore.ndim == 3:
+        hcore = torch.stack([hcore, hcore], dim=1)
+    if v_emb is None:
+        v_emb = torch.zeros_like(hcore)
+    elif v_emb.ndim == 3:
+        v_emb = torch.stack([v_emb, v_emb], dim=1)
+    x = lowdin_x(s)
+    h_eff = hcore + v_emb.to(hcore.dtype)
+    dm_occ_s = dm_virt_s = None
+    if dm_env_occ is not None:
+        dm_occ_s, dm_virt_s = _huzinaga_products(dm_env_occ, dm_env_virt, s)
+    occ = _occupations(nelec, nb, n, dtype, s.device)
+    assemble_fock, eig_fock, cycle = _lane_ops(
+        h_eff=h_eff, s=s, x=x, occ=occ, jk_fn=jk_fn, xc_fn=xc_fn, hyb=hyb, dm_occ_s=dm_occ_s,
+        dm_virt_s=dm_virt_s, level_shift=level_shift, use_diis=use_diis,
+        diis_space=diis_space)
+
+    if dm0 is None:
+        f_init = h_eff
+        if dm_occ_s is not None:
+            f_init = f_init + huzinaga_operator(f_init, dm_occ_s, dm_virt_s)
+        dm0 = make_rdm1(eig_fock(f_init)[1], occ)
+
+    st = _initial_state(dm0.to(dtype), diis_space)
+    it = 0
+    running = True
+    while it < max_cycle and running:
+        st = cycle(st, conv_tol, dm_conv_tol, max_cycle)
         it += 1
-        running = not bool(conv.all().cpu())  # the cycle's one host read
+        running = not bool(st["conv"].all().cpu())  # the cycle's one host read
+    dm, c, mo_e, conv = st["dm"], st["c"], st["mo_e"], st["conv"]
     if grad_cycles and bool(conv.any()):
         for _ in range(grad_cycles):
             j, k = jk_fn(dm)
             f, _, _ = assemble_fock(dm, j, k)
             mo_e_new, c_new = eig_fock(f)
-            dm = take(conv, 0.5 * make_rdm1(c_new, occ) + 0.5 * dm, dm)
-            c = take(conv, c_new, c)
-            mo_e = take(conv, mo_e_new, mo_e)
+            dm = _take(conv, 0.5 * make_rdm1(c_new, occ) + 0.5 * dm, dm)
+            c = _take(conv, c_new, c)
+            mo_e = _take(conv, mo_e_new, mo_e)
 
     j, k = jk_fn(dm)
     f_fin, huz_fin, e_fin = assemble_fock(dm, j, k)
     return SCFResult(
         mo_coeff=c, mo_energy=mo_e, mo_occ=occ, dm=dm, e_elec=e_fin, converged=conv,
-        fock=f_fin, huzinaga_op=huz_fin, n_iter=cycles,
+        fock=f_fin, huzinaga_op=huz_fin, n_iter=st["cycles"],
     )
+
+
+class SCFProgram:
+    """One geometry's SCF on fixed device buffers: the cycle of
+    :func:`_lane_ops` at B = 1, advanced in place, so that a chunk of
+    cycles and the final Fock build can each be captured once as a CUDA
+    graph and replayed (``SCFEngine(jit_kernel=...)``).
+
+    The operators (``hcore`` (n, n) or (2, n, n), ``s``, ``x`` = S^-1/2,
+    the single-geometry ``jk_fn`` and ``xc_fn`` of :func:`run_scf`) are
+    fixed at construction, as are ``nelec``, whether Huzinaga projectors
+    are present, the level shift, ROHF and the DIIS length. :meth:`load`
+    copies one call's inputs into the input buffers and resets the state
+    (eager work); :meth:`run_cycles` advances ``k`` cycles and writes the
+    flags [converged, cycles, eigh failures]; :meth:`finish` builds the
+    final J/K and Fock of the density reached. Neither reads anything back
+    to the host. State carries from one :meth:`run_cycles` to the next
+    (density, energy, DIIS history, counters), so K cycles at a time give
+    the iterates of one uninterrupted loop, whatever K is; a converged
+    state no longer changes.
+    """
+
+    def __init__(self, *, hcore, s, x, nelec, jk_fn, xc_fn=None, hyb=1.0,
+                 huzinaga=False, level_shift=0.0, rohf=False, diis_space=8,
+                 eigh=torch.linalg.eigh, failures=None):
+        n = s.shape[-1]
+        dtype, device = s.dtype, s.device
+        self.dtype, self.device, self.nelec = dtype, device, tuple(int(v) for v in nelec)
+        if hcore.ndim == 2:
+            hcore = torch.stack([hcore, hcore])
+        self.hcore = hcore[None].to(dtype).contiguous()
+        self.s, self.x = s[None].contiguous(), x[None].to(dtype).contiguous()
+        self.occ = _occupations(nelec, 1, n, dtype, device)
+        self.diis_space = diis_space
+        self.eigh = eigh
+        self._failures = (torch.zeros((), dtype=torch.int64, device=device)
+                          if failures is None else failures)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        # inputs of one call, and what load() derives from them
+        self.v_emb = zeros(1, 2, n, n)
+        self.h_eff = zeros(1, 2, n, n)
+        self.huzinaga = huzinaga
+        if huzinaga:
+            self.dm_env_occ, self.dm_env_virt = zeros(1, 2, n, n), zeros(1, 2, n, n)
+            self.dm_occ_s, self.dm_virt_s = zeros(1, 2, n, n), zeros(1, 2, n, n)
+        self.conv_tol = torch.zeros((), dtype=torch.float64, device=device)
+        self.dm_conv_tol = torch.zeros((), dtype=torch.float64, device=device)
+        self.max_cycle = torch.zeros((), dtype=torch.int64, device=device)
+        self.state = _initial_state(zeros(1, 2, n, n), diis_space)
+        # outputs: [converged, cycles, eigh failures] and the final build
+        self.flags = torch.zeros(3, dtype=torch.int64, device=device)
+        self.fock, self.huz = zeros(1, 2, n, n), zeros(1, 2, n, n)
+        self.e_fin = torch.zeros(1, dtype=dtype, device=device)
+
+        def jk_lanes(dm):
+            j, k = jk_fn(dm[0])
+            return j[None], k[None]
+
+        def xc_lanes(dm):
+            exc, vxc = xc_fn(dm[0])
+            return exc.reshape(1), vxc[None]
+
+        self._assemble, self._eig_fock, self._cycle = _lane_ops(
+            h_eff=self.h_eff, s=self.s, x=self.x, occ=self.occ, jk_fn=jk_lanes,
+            xc_fn=None if xc_fn is None else xc_lanes, hyb=hyb,
+            dm_occ_s=self.dm_occ_s if huzinaga else None,
+            dm_virt_s=self.dm_virt_s if huzinaga else None,
+            level_shift=level_shift, rohf=rohf, diis_space=diis_space, eigh=eigh)
+        self._jk = jk_lanes
+
+    def load(self, *, v_emb=None, dm_env_occ=None, dm_env_virt=None, dm0=None,
+             conv_tol, dm_conv_tol, max_cycle):
+        """Copy one call's inputs ((2, n, n) tensors of the program's dtype,
+        or None) into the buffers, derive h_eff and the projector products,
+        and reset the state at ``dm0`` or, where it is None, the core guess
+        (``h_eff`` plus the projectors, diagonalised with ``eigh``)."""
+        if (dm_env_occ is not None) != self.huzinaga:
+            raise ValueError("this SCFProgram was built "
+                             f"{'with' if self.huzinaga else 'without'} Huzinaga projectors")
+        if v_emb is None:
+            self.v_emb.zero_()
+        else:
+            self.v_emb.copy_(v_emb)
+        self.h_eff.copy_(self.hcore + self.v_emb)
+        if self.huzinaga:
+            self.dm_env_occ.copy_(dm_env_occ)
+            if dm_env_virt is None:
+                self.dm_env_virt.zero_()
+            else:
+                self.dm_env_virt.copy_(dm_env_virt)
+            occ_s, virt_s = _huzinaga_products(
+                self.dm_env_occ, None if dm_env_virt is None else self.dm_env_virt, self.s)
+            self.dm_occ_s.copy_(occ_s)
+            self.dm_virt_s.copy_(virt_s)
+        self.conv_tol.fill_(conv_tol)
+        self.dm_conv_tol.fill_(dm_conv_tol)
+        self.max_cycle.fill_(int(max_cycle))
+        if dm0 is None:
+            f_init = self.h_eff
+            if self.huzinaga:
+                f_init = f_init + huzinaga_operator(f_init, self.dm_occ_s, self.dm_virt_s)
+            dm0 = make_rdm1(self._eig_fock(f_init)[1], self.occ)
+        else:
+            dm0 = dm0[None]
+        for key, value in _initial_state(dm0.to(self.dtype), self.diis_space).items():
+            self.state[key].copy_(value)
+
+    def run_cycles(self, k: int):
+        """``k`` cycles in place, then the flags."""
+        st = dict(self.state)
+        for _ in range(k):
+            st = self._cycle(st, self.conv_tol, self.dm_conv_tol, self.max_cycle)
+        for key, value in st.items():
+            self.state[key].copy_(value)
+        self.flags.copy_(torch.stack([st["conv"][0].to(torch.int64), st["cycles"][0],
+                                      self._failures]))
+
+    def finish(self):
+        """The final J/K, Fock, Huzinaga operator and energy of the state's
+        density."""
+        dm = self.state["dm"]
+        j, k = self._jk(dm)
+        f, huz, e = self._assemble(dm, j, k)
+        self.fock.copy_(f)
+        self.huz.copy_(huz)
+        self.e_fin.copy_(e)
+
+    def result(self) -> SCFResult:
+        """The :class:`SCFResult` of the state after :meth:`finish`, on
+        copies of the buffers (the next call overwrites them); one host
+        read (the energy and the flags)."""
+        st = self.state
+        e_fin, conv, cycles = torch.cat([self.e_fin.to(torch.float64),
+                                         self.flags[:2].to(torch.float64)]).tolist()
+        return SCFResult(
+            mo_coeff=st["c"][0].clone(), mo_energy=st["mo_e"][0].clone(),
+            mo_occ=self.occ[0].clone(), dm=st["dm"][0].clone(), e_elec=e_fin,
+            converged=bool(conv), fock=self.fock[0].clone(), huzinaga_op=self.huz[0].clone(),
+            n_iter=int(cycles))

@@ -1,5 +1,8 @@
 """Every public function, class and upper-case constant of nbed_tpu has a
-counterpart of the same name at the same relative path in nbed_tpu_torch.
+counterpart of the same name at the same relative path in nbed_tpu_torch,
+and every parameter of a public function, method or class (dataclass and
+NamedTuple fields, ``__init__`` arguments) and every public method of a
+public class has one of the same name there.
 
 Both packages are read as source (``ast``), so this imports neither JAX
 nor the port. The allowed exceptions are listed with their reasons."""
@@ -41,6 +44,16 @@ NOT_PORTED = {
     ("native/__init__.py", "available"): "the port builds the library or raises",
     ("native/__init__.py", "qubit_available"): "the port builds the library or raises",
     ("native/__init__.py", "map_terms"): "bound where it is called, in ham/qubit.py",
+}
+# (reference module, function or class[.method], parameter): why the port's
+# counterpart has no parameter of that name
+NOT_PORTED_PARAMETERS = {
+    ("scf/engine.py", "SCFEngine", "pallas_jk"):
+        "the TPU's Pallas switch: the port always runs its fused J/K kernel",
+    ("ops/pallas_jk.py", "fused_jk", "tile_m"): "the Pallas grid's TPU tiling",
+    ("ops/pallas_jk.py", "fused_jk", "tile_c"): "the Pallas grid's TPU tiling",
+    ("ops/pallas_jk.py", "fused_jk", "interpret"):
+        "Pallas interpret mode; on the CPU the port's wrapper takes its plain version",
 }
 
 
@@ -98,3 +111,77 @@ def test_exceptions_are_still_needed():
     for (module, name), _ in NOT_PORTED.items():
         assert name in _names(REF / module)
         assert not any(name in _names(PORT / t) for t in MOVED.get(module, (module,)))
+
+
+def _arguments(fn) -> set:
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+    return set(names) - {"self", "cls"}
+
+
+def _signatures(path: Path) -> dict:
+    """{name: parameter names} of the module's top-level functions and
+    classes (fields and ``__init__`` arguments), and {"Class.method": ...}
+    of each class's methods."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = _arguments(node)
+        elif isinstance(node, ast.ClassDef):
+            fields = set()
+            for item in node.body:
+                if isinstance(item, ast.AnnAssign) and isinstance(item.target, ast.Name):
+                    fields.add(item.target.id)
+                elif isinstance(item, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    out[f"{node.name}.{item.name}"] = _arguments(item)
+                    if item.name == "__init__":
+                        fields |= _arguments(item)
+            out[node.name] = fields
+    return out
+
+
+def _public_signatures(path: Path) -> dict:
+    """The signatures of :func:`_signatures` whose function or class, and
+    method, are public (``__init__`` counts as public)."""
+    out = {}
+    for name, params in _signatures(path).items():
+        owner, _, method = name.partition(".")
+        if owner.startswith("_") or (method.startswith("_") and method != "__init__"):
+            continue
+        out[name] = params
+    return out
+
+
+@pytest.mark.parametrize("module", REF_MODULES)
+def test_counterpart_parameters(module):
+    """Each public method and each parameter of the reference module's
+    public functions, methods and classes has a counterpart of the same
+    name in the port, where the port has the function or class."""
+    targets = MOVED.get(module, (module,))
+    port = {}
+    for target in targets:
+        port.update(_signatures(PORT / target))
+    missing = []
+    for name, params in _public_signatures(REF / module).items():
+        owner = name.partition(".")[0]
+        if (module, owner) in NOT_PORTED or owner not in port:
+            continue  # no counterpart at all: test_counterpart_names decides
+        if name not in port:
+            missing.append(name)
+            continue
+        lacks = {p for p in params - port[name]
+                 if (module, name, p) not in NOT_PORTED_PARAMETERS}
+        missing += [f"{name}({p}=)" for p in sorted(lacks)]
+    assert not missing, f"nbed_tpu_torch/{targets[0]} lacks {missing}"
+
+
+def test_parameter_exceptions_are_still_needed():
+    """Each listed parameter exception names a parameter the reference has
+    and the port's counterpart lacks."""
+    for module, name, param in NOT_PORTED_PARAMETERS:
+        assert param in _signatures(REF / module)[name]
+        port = {}
+        for target in MOVED.get(module, (module,)):
+            port.update(_signatures(PORT / target))
+        assert param not in port[name]
