@@ -1382,7 +1382,8 @@ def check_pfoa_one_electron(driver):
 
 def run_pfoa_incremental(driver):
     """pfoa's global DF-UKS again with incremental float32 J/K, on the DF
-    factor the driver built: within 1e-8 Ha of its float64 energy. A
+    factor the driver built, graphed (the default "auto"): within 1e-8 Ha
+    of its float64 energy. A
     float64 rerun set up the same way (new engine: grid and AO tables
     rebuilt, SAD atoms cached) is timed beside it."""
     from nbed_tpu_torch.scf import SCFEngine
@@ -1396,8 +1397,11 @@ def run_pfoa_incremental(driver):
         t0 = time.perf_counter()
         sol = eng.kernel()
         out[f"{mode}_s"] = time.perf_counter() - t0
-        if not sol.converged:
-            raise RuntimeError(f"pfoa DF-UKS (incremental_jk={mode}) did not converge")
+        out[f"{mode}_run"] = {k: eng.last_run.get(k) for k in ("mode", "cycles", "mixed_cycles",
+                                                              "captures", "capture_s")}
+        if not sol.converged or eng.last_run["mode"] != "graph":
+            raise RuntimeError(f"pfoa DF-UKS (incremental_jk={mode}): {eng.last_run['mode']} "
+                               f"run, converged {sol.converged}")
         _gate("pfoa_incremental", [(f"e_uks incremental_jk={mode}", sol.e_tot,
                                     driver._global_ks.e_tot)], 1e-8)
         out[f"{mode}_dev_vs_f64"] = sol.e_tot - driver._global_ks.e_tot
@@ -1626,7 +1630,7 @@ def run_water_derivatives(device="cuda"):
     from nbed_tpu_torch.chem import build_molecule
     from nbed_tpu_torch.scf import SCFEngine
     from nbed_tpu_torch.solvers import (dipole_derivative_fd, harmonic_frequencies,
-                                        hf_gradient, ir_intensities, ks_gradient,
+                                        hessian_fd, hf_gradient, ir_intensities, ks_gradient,
                                         optimize_geometry, thermochemistry)
     from nbed_tpu_torch.solvers.thermo import HA_PER_K_TO_CAL_MOL_K
 
@@ -1634,8 +1638,10 @@ def run_water_derivatives(device="cuda"):
     picks = [(0, 2), (1, 1), (2, 0)]
     out = {}
     t0 = time.perf_counter()
-    e, g, _ = hf_gradient(mol, device=device)
+    e, g, res = hf_gradient(mol, device=device)
     out["hf_gradient_s"] = _sync_s(t0, device)
+    out["hf_graph_vs_eager"] = _hold_single(
+        "water hf_gradient SCF", res, hf_gradient(mol, device=device, jit_kernel="off")[2])
     g = g.cpu().numpy()
     _gate("water hf_gradient", [("e_tot", e, E_UHF_WATER)], 5e-8)
     out["hf_dev"] = _gate_array("water hf_gradient", g, GRAD_HF_WATER, 1e-8)
@@ -1669,8 +1675,12 @@ def run_water_derivatives(device="cuda"):
     _gate("water optimize_geometry", [("e_min", e_opt, E_OPT_WATER)], 1e-8)
 
     t0 = time.perf_counter()
-    freqs, modes, _ = harmonic_frequencies(mol, coords=X_OPT_WATER, device=device)
+    freqs, modes, hess = harmonic_frequencies(mol, coords=X_OPT_WATER, device=device)
     out["hessian_s"] = _sync_s(t0, device)
+    # the lanes' gradients within 1e-10 Ha/bohr, divided by 2h = 0.01
+    out["hessian_graph_vs_eager"] = _gate_array(
+        "water Hessian graphed vs eager lanes", hess,
+        hessian_fd(mol, coords=X_OPT_WATER, device=device, jit_kernel="off"), 1e-8)
     out["freq_dev"] = _gate_array("water frequencies", freqs[-3:], FREQ_WATER, 0.5)
     out["tr_max"] = _gate_array("water TR modes", freqs[:6], 0.0, 30.0)
     t0 = time.perf_counter()
@@ -1713,6 +1723,16 @@ def run_acetonitrile_derivatives(device="cuda"):
     t0 = time.perf_counter()
     hess = hessian_fd(mol, device=device)
     out["hessian_s"] = _sync_s(t0, device)
+    # the 36 lanes eager against the graphed lanes, at the Hessian's gate
+    # against nbed_tpu: two runs' densities differ within dm_conv_tol 1e-8
+    # and their gradients at ~1e-9 Ha/bohr, divided by 2h = 0.01 (the
+    # lanes' energies are held at 1e-10 Ha in hessian_mesh); their walls and
+    # idle shares come from scripts/bench_fleet.py
+    t0 = time.perf_counter()
+    hess_eager = hessian_fd(mol, device=device, jit_kernel="off")
+    out["hessian_eager_s"] = _sync_s(t0, device)
+    out["hessian_graph_vs_eager"] = _gate_array("acetonitrile Hessian graphed vs eager",
+                                                hess, hess_eager, 1e-6)
     out["hessian_asym"] = _gate_array("acetonitrile Hessian symmetry", hess, hess.T, 1e-12)
     out["sum_rule"] = _gate_array("acetonitrile Hessian sum rule",
                                   hess.reshape(18, 6, 3).sum(axis=1), 0.0, 5e-6)
@@ -1729,9 +1749,10 @@ def run_hessian_mesh(hess, device="cuda"):
     mesh's 'batch' axis. The mesh changes only how the lanes' gradients are
     batched, so those are held to the one-group gradients at 1e-12
     Ha/bohr; the Hessian divides their differences by 2h = 0.01, so the
-    same 1e-12 is 1e-10 Ha/bohr^2 there. Also printed: how far a repeat of
-    the one-group gradients lands (the ERI accumulation adds with atomics
-    on the card, in no fixed order)."""
+    same 1e-12 is 1e-10 Ha/bohr^2 there. The one-group lanes run again
+    eagerly: their energies within 1e-10 Ha of the graphed lanes', and how
+    far their gradients land is printed (the ERI accumulation adds with
+    atomics on the card, in no fixed order)."""
     from nbed_tpu_torch.chem import build_molecule
     from nbed_tpu_torch.parallel import batched_hf_gradients
     from nbed_tpu_torch.solvers import hessian_fd
@@ -1739,12 +1760,18 @@ def run_hessian_mesh(hess, device="cuda"):
 
     mol = build_molecule(ACETONITRILE, "sto-3g")
     disp = _displacements(np.asarray(mol.coords), 5e-3)
-    one = batched_hf_gradients(mol, disp, device=device)[1].cpu().numpy()
-    again = batched_hf_gradients(mol, disp, device=device)[1].cpu().numpy()
+    e_one, one, _ = batched_hf_gradients(mol, disp, device=device)
+    one = one.cpu().numpy()
+    # the repeat runs its lanes eagerly: within 1e-10 Ha of the graphed lanes
+    e_again, again, _ = batched_hf_gradients(mol, disp, device=device, jit_kernel="off")
+    again = again.cpu().numpy()
     t0 = time.perf_counter()
     meshed = batched_hf_gradients(mol, disp, mesh=_cuda_mesh(2), device=device)[1]
     out = {"mesh_gradients_s": _sync_s(t0, device),
-           "repeat_grad_dev": float(np.max(np.abs(again - one)))}
+           "repeat_grad_dev": float(np.max(np.abs(again - one))),
+           "graph_vs_eager_e": _gate_array("acetonitrile Hessian lanes graphed vs eager",
+                                           e_one.cpu().numpy(), e_again.cpu().numpy(),
+                                           1e-10)}
     out["mesh_grad_dev"] = _gate_array("acetonitrile Hessian lanes' gradients on a mesh",
                                        meshed.cpu().numpy(), one, 1e-12)
     hess_mesh = hessian_fd(mol, mesh=_cuda_mesh(2), device=device)
@@ -1784,6 +1811,9 @@ def run_water_ccpvdz_gradient(device="cuda"):
     e, g, res = hf_gradient(mol, conv_tol=1e-12, dm_conv_tol=1e-10, max_cycle=200,
                             device=device)
     out.update(hf_gradient_s=_sync_s(t0, device), e_tot=e, scf_cycles=res.n_iter)
+    out["graph_vs_eager"] = _hold_single("water cc-pVDZ hf_gradient SCF", res, hf_gradient(
+        mol, conv_tol=1e-12, dm_conv_tol=1e-10, max_cycle=200, device=device,
+        jit_kernel="off")[2])
     _gate("water cc-pVDZ hf_gradient", [("e_tot", e, E_UHF_WATER_DZ)], 1e-8)
     out["hf_dev"] = _gate_array("water cc-pVDZ hf_gradient", g.cpu().numpy(),
                                 GRAD_FD_WATER_DZ, 1e-8)
@@ -1948,6 +1978,19 @@ def stretch_coords(mol, b: int, top: float):
     x = np.repeat(np.asarray(mol.coords)[None], b, axis=0)
     x[:, 2, 2] += np.linspace(0.0, top, b)
     return x
+
+
+def _hold_lanes(label: str, graphed, eager) -> float:
+    """A lane SCF run as a program (CUDA graphs) against the eager lane
+    loop: every lane converged, within 1e-10 Ha, in as many cycles.
+    Returns the largest energy difference."""
+    if not (bool(graphed.converged.all()) and bool(eager.converged.all())):
+        raise RuntimeError(f"{label}: a lane did not converge")
+    if not torch.equal(graphed.n_iter, eager.n_iter):
+        raise RuntimeError(f"{label}: graphed lanes ran {graphed.n_iter.tolist()} cycles, "
+                           f"eager {eager.n_iter.tolist()}")
+    return _gate_array(f"{label} graphed vs eager lanes", graphed.e_elec.cpu().numpy(),
+                       eager.e_elec.cpu().numpy(), 1e-10)
 
 
 def lane_cases():
@@ -2130,6 +2173,9 @@ def run_water_fleet(device="cuda"):
     res, _ = _lane_scf(mol, torch.tensor(x, device=device), conv_tol=1e-8, max_cycle=100)
     key = ("fused_jk_f64", 49, 49, 8)
     launched = jk.LAUNCHES_BY_SHAPE[key] - before.get(key, 0)
+    eager, _ = _lane_scf(mol, torch.tensor(x, device=device), conv_tol=1e-8, max_cycle=100,
+                         jit_kernel="off")
+    graph_dev = _hold_lanes("water_fleet", res, eager)
     if torch.device(device).type == "cuda" and launched != int(res.n_iter.max()) + 1:
         raise RuntimeError(f"water_fleet: {launched} lane launches for "
                            f"{int(res.n_iter.max())} cycles")
@@ -2147,6 +2193,7 @@ def run_water_fleet(device="cuda"):
                            e.cpu().numpy(), 1e-12)
     print("water_fleet", json.dumps({
         "batch": len(x), "cycles": res.n_iter.tolist(), "lane_launches": launched,
+        "graph_vs_eager_max": graph_dev,
         "lanes_vs_single_max": dev, "mesh_vs_one_group_max": mesh_dev,
         "batch_s": t_batch, "single_s": t_single, "conformers_per_s": len(x) / t_batch,
         "lane_efficiency": t_single * len(x) / t_batch, "e": e.tolist()}), flush=True)
@@ -2168,6 +2215,12 @@ def run_water_fleet_gradients(device="cuda"):
     if not bool(conv.all()):
         raise RuntimeError(f"water_fleet_gradients: lanes converged {conv.tolist()}")
     out = {"batch_s": wall}
+    e_off, grad_off, _ = batched_hf_gradients(mol, x, device=device, jit_kernel="off")
+    out["graph_vs_eager_e"] = _gate_array("water_fleet_gradients graphed vs eager",
+                                          e.cpu().numpy(), e_off.cpu().numpy(), 1e-10)
+    out["graph_vs_eager_grad"] = _gate_array(
+        "water_fleet_gradients graphed vs eager", grad.cpu().numpy(),
+        grad_off.cpu().numpy(), 1e-10)
     for b in (0, 3):
         e1, g1, _ = hf_gradient(mol, coords=x[b], device=device)
         _gate(f"water_fleet_gradients lane {b}", [("e_tot", float(e[b]), e1)], 1e-10)
@@ -2178,11 +2231,34 @@ def run_water_fleet_gradients(device="cuda"):
     print("water_fleet_gradients", json.dumps(out), flush=True)
 
 
+@contextmanager
+def _same_eris():
+    """The embedding program's torch ERIs computed once per geometry batch
+    and range-separation parameter, and reused by every call inside."""
+    from nbed_tpu_torch.parallel import embed_path
+
+    built = {}
+    eri_tensor = embed_path.eri_tensor
+
+    def memo(mol, x, omega=None, **kw):
+        key = (x.detach().cpu().numpy().tobytes(), omega)
+        if key not in built:
+            built[key] = eri_tensor(mol, x, omega=omega, **kw)
+        return built[key]
+
+    embed_path.eri_tensor = memo
+    try:
+        yield
+    finally:
+        embed_path.eri_tensor = eri_tensor
+
+
 def run_water_embed_fleet(device="cuda"):
     """batched_embedding_energies at B = 8 with B3LYP at grid level 1 and
     n_act_mos from the host driver, the second O-H bond stretched 0-0.04
-    (scripts/embed_fleet_tpu.py): lane 0 within 1e-8 of the program run
-    alone, e_global increasing along the stretch; at the driver's grid
+    (scripts/embed_fleet_tpu.py): the graphed lanes within 1e-10 of eager
+    ones on the same ERIs, lane 0 within 1e-8 of the program run alone,
+    e_global increasing along the stretch; at the driver's grid
     (level 3) the program within 5e-6 of the host driver's mu and
     Huzinaga e_rhf (tests/test_parallel.py:202-203); with CAM-B3LYP the
     partition identity to 1e-9; the forward-mode derivative of e_emb_rhf
@@ -2213,6 +2289,22 @@ def run_water_embed_fleet(device="cuda"):
     out["embedded_conformers_per_s"] = len(x) / out["fleet_warm_s"]
     if not bool(fleet["converged"].all()):
         raise RuntimeError("water_embed_fleet: a lane did not converge")
+    # the lanes graphed against eager at 1e-10 Ha on the same ERIs: each
+    # call rebuilds the torch ERIs, whose atomic adds round differently from
+    # call to call, and the 1e6 mu shift carries that into e_emb_rhf; the
+    # spread of two eager calls on their own ERIs is printed beside it
+    keys = ("e_emb_rhf", "e_global", "e_act", "e_env", "two_e_cross")
+    eager = batched_embedding_energies(mol, x, 1, n_act, jit_kernel="off", **kw)
+    with _same_eris():
+        graphed_same = batched_embedding_energies(mol, x, 1, n_act, **kw)
+        eager_same = batched_embedding_energies(mol, x, 1, n_act, jit_kernel="off", **kw)
+    out["graph_vs_eager"] = {k: _gate_array(
+        f"water_embed_fleet {k} graphed vs eager, same ERIs", graphed_same[k].cpu().numpy(),
+        eager_same[k].cpu().numpy(), 1e-10) for k in keys}
+    out["graph_vs_eager_own_eris"] = {
+        k: float(torch.max(torch.abs(fleet[k] - eager[k]))) for k in keys}
+    out["eager_vs_eager_own_eris"] = {
+        k: float(torch.max(torch.abs(eager_same[k] - eager[k]))) for k in keys}
     single = make_mu_embed_energy(mol, 1, n_act, **kw)(torch.tensor(x[0]))
     _gate("water_embed_fleet lane 0 vs the single program",
           [(k, float(fleet[k][0]), float(single[k])) for k in
@@ -2259,6 +2351,18 @@ def run_water_embed_fleet(device="cuda"):
     print("water_embed_fleet", json.dumps(out), flush=True)
 
 
+def _hold_single(label: str, graphed, eager) -> float:
+    """A one-geometry SCF run as a program against its eager loop: both
+    converged, within 1e-10 Ha, in as many cycles; returns the energy
+    difference."""
+    if not (graphed.converged and eager.converged):
+        raise RuntimeError(f"{label}: an SCF did not converge")
+    if graphed.n_iter != eager.n_iter:
+        raise RuntimeError(f"{label}: graphed {graphed.n_iter} cycles, eager {eager.n_iter}")
+    _gate(f"{label} graphed vs eager", [("e_elec", graphed.e_elec, eager.e_elec)], 1e-10)
+    return graphed.e_elec - eager.e_elec
+
+
 def run_sharded(device="cuda"):
     """Split SCFs on a model axis of 2 (the one card named twice): the
     acetonitrile molecule's sharded_scf within 1e-9 Ha of the engine's UHF
@@ -2277,6 +2381,9 @@ def run_sharded(device="cuda"):
     shapes = [tuple(a.shape) for a in args[2] + args[3]]
     if shapes != [(162, 324)] * 4:
         raise RuntimeError(f"sharded_scf slabs {shapes}")
+    # a first call captures the program (its capture's warm-up launches
+    # too); the second is counted and timed
+    fn(*args)
     before = jk.LAUNCHES_BY_SHAPE[("fused_jk_f64", 324, 162, 1)]
     t0 = time.perf_counter()
     res = fn(*args)
@@ -2284,17 +2391,24 @@ def run_sharded(device="cuda"):
     slab_launches = jk.LAUNCHES_BY_SHAPE[("fused_jk_f64", 324, 162, 1)] - before
     if torch.device(device).type == "cuda" and slab_launches != 2 * (res.n_iter + 1):
         raise RuntimeError(f"sharded_scf: {slab_launches} slab launches, {res.n_iter} cycles")
+    out["graph_vs_eager"] = {"scf": _hold_single("sharded_scf", res, make_sharded_scf(
+        pra, mesh, jit_kernel="off", **tight)[0](*args))}
     e_eng = SCFEngine(pra, device=device, **tight).kernel().e_tot
     _gate("sharded_scf vs the engine's UHF",
           [("e_tot", res.e_elec + pra.energy_nuc(), e_eng)], 1e-9)
     water = build_molecule(WATER.read_text(), "sto-3g")
     res = sharded_df_scf(water, mesh, **tight)
+    out["graph_vs_eager"]["df_scf"] = _hold_single(
+        "sharded_df_scf", res, sharded_df_scf(water, mesh, jit_kernel="off", **tight))
     e_eng = SCFEngine(water, density_fitting=True, device=device, **tight).kernel().e_tot
     _gate("sharded_df_scf vs the DF engine", [("e_tot", res.e_elec + water.energy_nuc(),
                                                e_eng)], 1e-8)
     out["df_scf_dev"] = res.e_elec + water.energy_nuc() - e_eng
     for xc in ("b3lyp", "camb3lyp"):
         res = sharded_df_ks(water, mesh, xc=xc, **tight)
+        out["graph_vs_eager"][f"df_ks_{xc}"] = _hold_single(
+            f"sharded_df_ks {xc}", res, sharded_df_ks(water, mesh, xc=xc, jit_kernel="off",
+                                                      **tight))
         e_eng = SCFEngine(water, xc=xc, density_fitting=True, device=device,
                           **tight).kernel().e_tot
         _gate(f"sharded_df_ks {xc} vs the DF engine",
@@ -2337,10 +2451,10 @@ def run_pfoa_sharded(driver, device="cuda"):
 # the capturable eigh's cases: (n, batch) of the Fock diagonalisations of
 # water (nao 7), acetonitrile (18) and pfoa (126), both spins in one call,
 # and of the DIIS system (diis_space + 1 = 9, one matrix); float32 at the
-# float32 warm-up's shapes on the main path (water and acetonitrile, on
-# exact ERIs)
+# float32 warm-up's shapes on the main path (water, acetonitrile and pfoa,
+# on exact ERIs)
 EIGH_CASES = ((7, 2), (18, 2), (126, 2), (9, 1))
-EIGH_F32_MAX_N = 18
+EIGH_F32_MAX_N = 126
 # eigenvalues relative to the largest, and the occupied-space projectors
 EIGH_TOLERANCES = {torch.float64: (1e-12, 1e-10), torch.float32: (1e-5, 1e-4)}
 # the SCFs of the graphed_scf phase (each converges in under 20 cycles;
@@ -2363,7 +2477,7 @@ def eigh_bound(n: int, batch: int, dtype):
 
 def hold_eigh(n: int, batch: int, dtype) -> float:
     """The prepared cuSOLVER eigh (``ops.eigh``) on seeded symmetric
-    matrices against ``torch.linalg.eigh``: eigenvalues within the relative
+    matrices against the float64 ``torch.linalg.eigh`` of them: eigenvalues within the relative
     tolerance, the projector onto the lower half of the eigenvectors within
     the absolute one (eigenvectors are free up to sign and rotation within
     a degenerate space), no solver failure; two calls and a CUDA-graph
@@ -2376,7 +2490,10 @@ def hold_eigh(n: int, batch: int, dtype) -> float:
     a = rng.standard_normal((batch, n, n))
     a = torch.tensor(a + a.swapaxes(-1, -2), dtype=dtype, device="cuda")
     w, v = eigh_ops.eigh(a)
-    w_ref, v_ref = torch.linalg.eigh(a)
+    # float32 against float64 of the same matrices: torch's float32 eigh
+    # misses float64 by 3.2e-5 relative at n = 126 on the card, cuSOLVER's
+    # by 6.4e-7 (check_eigh_f32)
+    w_ref, v_ref = torch.linalg.eigh(a.to(torch.float64))
     k = n // 2
     abs_err = float(torch.max(torch.abs(w - w_ref)))
     err = abs_err / float(torch.max(torch.abs(w_ref)))
@@ -2402,6 +2519,49 @@ def hold_eigh(n: int, batch: int, dtype) -> float:
     return abs_err, err
 
 
+EIGH_F32_CASES = (18, 126, 324)
+
+
+def check_eigh_f32() -> list:
+    """Both float32 solvers, the prepared cuSOLVER eigh (``ops.eigh``, the
+    one inside the graphs) and ``torch.linalg.eigh`` (the eager SCF's),
+    against a float64 ``torch.linalg.eigh`` of the same float32 matrices
+    (two seeded symmetric matrices at each n of :data:`EIGH_F32_CASES`):
+    eigenvalues relative to the largest, and the projector onto the lower
+    half of the eigenvectors. Returns one row per n with both solvers'
+    errors and times; raises where the cuSOLVER solver misses
+    :data:`EIGH_TOLERANCES` (torch's float32 solver is printed, not held)."""
+    from nbed_tpu_torch.ops import eigh as eigh_ops
+
+    rtol, atol = EIGH_TOLERANCES[torch.float32]
+    rows = []
+    for n in EIGH_F32_CASES:
+        rng = np.random.default_rng(n * 10 + 2)
+        a = rng.standard_normal((2, n, n))
+        a32 = torch.tensor(a + a.swapaxes(-1, -2), dtype=torch.float32, device="cuda")
+        w_ref, v_ref = torch.linalg.eigh(a32.to(torch.float64))
+        k = n // 2
+        p_ref = v_ref[..., :k] @ v_ref[..., :k].mT
+        scale = float(torch.max(torch.abs(w_ref)))
+        row = {"n": n, "batch": 2}
+        for label, solve in (("cusolver_f32", eigh_ops.eigh), ("torch_f32", torch.linalg.eigh)):
+            w, v = solve(a32)
+            w, v = w.to(torch.float64), v.to(torch.float64)
+            row[f"{label}_eig_rel"] = float(torch.max(torch.abs(w - w_ref))) / scale
+            row[f"{label}_proj"] = float(torch.max(torch.abs(v[..., :k] @ v[..., :k].mT
+                                                              - p_ref)))
+            row[f"{label}_ms"] = median_ms(lambda: solve(a32))
+        fails = int(eigh_ops.failure_count(a32.device))
+        print("eigh_f32_vs_f64", json.dumps(row), flush=True)
+        if not (row["cusolver_f32_eig_rel"] <= rtol and row["cusolver_f32_proj"] <= atol
+                and fails == 0):
+            raise RuntimeError(f"eigh n={n}: the float32 cuSOLVER eigh misses float64 by "
+                               f"{row['cusolver_f32_eig_rel']} (eigenvalues) and "
+                               f"{row['cusolver_f32_proj']} (projector), {fails} failures")
+        rows.append(row)
+    return rows
+
+
 def eigh_timings(fn) -> dict:
     """:func:`timings` of an eigh call, over 100 enqueues for ``host_us``
     (a call is 0.1-3 ms)."""
@@ -2410,7 +2570,7 @@ def eigh_timings(fn) -> dict:
 
 def check_eigh() -> list:
     """:func:`hold_eigh` at every case in float64 and, up to
-    :data:`EIGH_F32_MAX_N`, in float32, then the
+    :data:`EIGH_F32_MAX_N`, in float32 (then :func:`check_eigh_f32`), the
     times of the kernel, of ``torch.linalg.eigh`` (the plain version, which
     is also the one library call), the kernel's device time per call
     (torch.profiler, every device event of the call) and the bound;
@@ -2436,6 +2596,7 @@ def check_eigh() -> list:
                    **dict(zip(("bound_ms", "bound_by"), eigh_bound(n, batch, dtype)))}
             print("eigh", json.dumps(row), flush=True)
             rows.append(row)
+    check_eigh_f32()
     return rows
 
 
@@ -2485,6 +2646,14 @@ def _program_inputs(eng, call: dict) -> dict:
                 max_cycle=eng.max_cycle)
 
 
+def _program_of(eng, call: dict, cycles: int):
+    """The shared float64 program that ``eng.kernel(**call)`` replays at
+    ``cycles`` cycles per replay, with ``eng``'s operators in its buffers."""
+    nelec = call.get("nelec", eng.mol.nelec)
+    present = tuple(call.get(k) is not None for k in ("v_emb", "dm_env_occ", "dm_env_virt"))
+    return eng._scf_graph(torch.float64, nelec, present, 0.0, cycles)
+
+
 def hold_replay(eng, call: dict) -> int:
     """Two replays of the engine's captured float64 chunk and its final
     build against the same body run uncaptured from the same loaded state
@@ -2493,8 +2662,7 @@ def hold_replay(eng, call: dict) -> int:
     per replay."""
     from nbed_tpu_torch.scf.engine import DISPATCH_CYCLES
 
-    graph = next(g for key, g in eng._graphs.items()
-                 if key[0] == torch.float64 and g.cycles == DISPATCH_CYCLES)
+    graph = _program_of(eng, call, DISPATCH_CYCLES)
     prog = graph.program
     inputs = _program_inputs(eng, call)
 
@@ -2563,8 +2731,7 @@ def hold_graphed(label: str, eng, call: dict) -> dict:
                                  "replays": eng.last_run["replays"],
                                  "capture_s": eng.last_run["capture_s"]}
     eng.dispatch_cycles = None
-    graph = next(g for key, g in eng._graphs.items()
-                 if key[0] == torch.float64 and g.cycles == per_replay)
+    graph = _program_of(eng, call, per_replay)
     row = {
         "label": label, "nao": eng.mol.nao, "cycles": cycles,
         "e_eager": eager.e_tot, "de_graph": graphed.e_tot - eager.e_tot,
@@ -2624,19 +2791,6 @@ def hold_torch_integrals(label: str, mol, xc):
     return {key: ours - ref for key, ours, ref in pairs}
 
 
-def embed_walls(name: str) -> dict:
-    """Warm ``nbed()`` wall seconds of CONFIGS[name] with the driver's
-    engines eager and graphed (each mode run once cold first)."""
-    from nbed_tpu_torch import nbed
-
-    out = {}
-    for mode in ("off", "auto"):
-        with driver_engines(mode):
-            nbed(**CONFIGS[name], device="cuda")
-            out[mode] = _timed(lambda: nbed(**CONFIGS[name], device="cuda"))[1]
-    return out
-
-
 def run_graphed_scf(pfoa_driver):
     """The graphed SCF programs (``SCFEngine(jit_kernel=, dispatch_cycles=,
     integrals_backend=)``) on the card: water's UHF, B3LYP, a mu-embedded
@@ -2644,9 +2798,9 @@ def run_graphed_scf(pfoa_driver):
     and highest virtual MO per spin as the environment, nelec (4, 4));
     acetonitrile's B3LYP5; and pfoa's DF-B3LYP at full size on the pfoa
     driver's factor (:func:`hold_graphed`); the subsystem stage of each
-    B3LYP engine (:func:`hold_subsystem`); the torch integrals of water and
-    acetonitrile (:func:`hold_torch_integrals`); and the warm ``nbed()``
-    walls of water and acetonitrile, eager and graphed."""
+    B3LYP engine (:func:`hold_subsystem`); and the torch integrals of water
+    and acetonitrile (:func:`hold_torch_integrals`). The warm ``nbed()``
+    walls are :func:`run_shared_programs`'."""
     from nbed_tpu_torch.chem import build_molecule
     from nbed_tpu_torch.scf import SCFEngine
 
@@ -2677,10 +2831,200 @@ def run_graphed_scf(pfoa_driver):
         subsystem[label] = hold_subsystem(label, eng, eng.kernel())
     for label, mol, xc in (("water", water, "b3lyp"), ("acetonitrile", acn, "b3lyp5")):
         integrals[label] = hold_torch_integrals(label, mol, xc)
-    walls = {name: embed_walls(name) for name in ("water", "acetonitrile")}
-    print("graphed_scf_summary", json.dumps({"subsystem": subsystem, "torch_integrals": integrals,
-                                             "embed_warm_s": walls}), flush=True)
+    print("graphed_scf_summary", json.dumps({"subsystem": subsystem, "torch_integrals": integrals}),
+          flush=True)
     return rows
+
+
+# ---------------------------------------------------- the shared-program slice
+
+def _hold_engine(label: str, eng, call: dict = None) -> dict:
+    """``eng.kernel(**call)`` as it runs by default on the card (graphed,
+    from the shared programs) against the same engine eager: within 1e-10
+    Ha in as many cycles (and mixed-loop and warm-up cycles where it has
+    them). Returns the graphed run's ``last_run`` with the energy
+    difference."""
+    call = call or {}
+    mode = eng.jit_kernel
+    graphed = eng.kernel(**call)
+    run = dict(eng.last_run)
+    eng.jit_kernel = "off"
+    eager = eng.kernel(**call)
+    eager_run = dict(eng.last_run)
+    eng.jit_kernel = mode
+    if not (graphed.converged and eager.converged) or run["mode"] != "graph":
+        raise RuntimeError(f"{label}: {run['mode']} run, converged {graphed.converged}, "
+                           f"eager converged {eager.converged}")
+    _gate(f"{label} graph vs eager", [("e_tot", graphed.e_tot, eager.e_tot)], 1e-10)
+    for key in ("cycles", "mixed_cycles", "warmup_cycles"):
+        if run.get(key) != eager_run.get(key):
+            raise RuntimeError(f"{label}: graphed {key} {run.get(key)}, eager "
+                               f"{eager_run.get(key)}")
+    return {**run, "de": graphed.e_tot - eager.e_tot}
+
+
+def _captures():
+    from nbed_tpu_torch.scf import engine
+
+    return engine.RUNS["captures"], engine.RUNS["capture_s"]
+
+
+def run_shared_programs(device="cuda"):
+    """Programs shared by structure on the card, from an empty program
+    cache: water at three geometries and acetonitrile at two through
+    default ("auto") engines, each within 1e-10 Ha of its own eager run in
+    as many cycles, with captures at each structure's first engine only; a
+    second ``nbed()`` of water and of acetonitrile with no capture and
+    energies bitwise equal to the first call's (captures, capture seconds
+    and walls of both calls, and an eager call's wall, printed); the water
+    B3LYP Hessian (``hessian_fd(xc="b3lyp")``: 18 displaced KS engines)
+    with one capture set (a chunk and a final build), within 1e-6
+    Ha/bohr^2 per element of the same Hessian with ``jit_kernel="off"``."""
+    from nbed_tpu_torch import nbed
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.scf import SCFEngine, engine
+    from nbed_tpu_torch.solvers import hessian_fd
+
+    engine._JIT_PROGRAM_CACHE.clear()
+    out = {}
+    for label, xyz, xc, n_geom in (("water", WATER.read_text(), "b3lyp", 3),
+                                   ("acetonitrile", ACETONITRILE, "b3lyp5", 2)):
+        mol = build_molecule(xyz, "sto-3g")
+        rows = []
+        for i, x in enumerate(stretch_coords(mol, n_geom, 0.04)):
+            eng = SCFEngine(mol, xc=xc, coords=x, device=device, **GRAPH_SCF)
+            before = _captures()[0]
+            row = _hold_engine(f"shared_programs {label} geometry {i}", eng)
+            captured = _captures()[0] - before
+            if (captured > 0) != (i == 0) or (row["captures"] > 0) != (i == 0):
+                raise RuntimeError(f"shared_programs {label} geometry {i}: {captured} "
+                                   "captures (only the structure's first engine captures)")
+            rows.append({k: row[k] for k in ("cycles", "captures", "capture_s", "de")})
+        out[label] = rows
+    walls = {}
+    for name in ("water", "acetonitrile"):
+        calls = []
+        for _ in range(2):
+            c0, s0 = _captures()
+            driver, wall = _timed(lambda: nbed(**CONFIGS[name], device=device))
+            c1, s1 = _captures()
+            calls.append({"captures": c1 - c0, "capture_s": s1 - s0, "wall_s": wall,
+                          "e": pipeline_energies(driver)})
+        if calls[1]["captures"] or calls[1]["e"] != calls[0]["e"]:
+            raise RuntimeError(f"shared_programs: the second nbed() of {name} made "
+                               f"{calls[1]['captures']} captures, energies "
+                               f"{calls[1]['e']} against {calls[0]['e']}")
+        with driver_engines("off"):
+            nbed(**CONFIGS[name], device=device)  # its SAD atoms, eager, cached
+            _, eager_s = _timed(lambda: nbed(**CONFIGS[name], device=device))
+        walls[name] = {"first": {k: calls[0][k] for k in ("captures", "capture_s", "wall_s")},
+                       "second": {k: calls[1][k] for k in ("captures", "capture_s",
+                                                           "wall_s")},
+                       "eager_wall_s": eager_s}
+    out["embed"] = walls
+    water = build_molecule(WATER.read_text(), "sto-3g")
+    engine._JIT_PROGRAM_CACHE.clear()
+    c0, s0 = _captures()
+    hess, wall = _timed(lambda: hessian_fd(water, xc="b3lyp", device=device))
+    captures, capture_s = _captures()[0] - c0, _captures()[1] - s0
+    if captures != 2:
+        raise RuntimeError(f"shared_programs: the B3LYP Hessian's 18 engines made {captures} "
+                           "captures, not one chunk and one final build")
+    hess_off, wall_off = _timed(lambda: hessian_fd(water, xc="b3lyp", device=device,
+                                                   jit_kernel="off"))
+    out["ks_hessian"] = {"captures": captures, "capture_s": capture_s, "graphed_s": wall,
+                         "eager_s": wall_off, "dev": _gate_array(
+                             "shared_programs B3LYP Hessian graphed vs eager", hess, hess_off,
+                             1e-6)}
+    print("shared_programs", json.dumps(out), flush=True)
+
+
+def run_incremental_graphed(device="cuda"):
+    """Acetonitrile's B3LYP5 UKS with ``incremental_jk="on"`` as graphed
+    programs against the same engine eager: within 1e-10 Ha in as many
+    mixed-loop and polish cycles, at one cycle per replay (each cycle's
+    variant a captured graph picked on the host) and at three (selected
+    on the device with torch.where over both builds); the warm
+    ``kernel()`` of each way graphed and eager."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.scf import SCFEngine
+
+    mol = build_molecule(ACETONITRILE, "sto-3g")
+    out = {}
+    for label, dispatch in (("host", None), ("chunk3", 3)):
+        eng = SCFEngine(mol, xc="b3lyp5", incremental_jk="on", dispatch_cycles=dispatch,
+                        device=device, **GRAPH_SCF)
+        row = _hold_engine(f"incremental_graphed {label}", eng)
+        _, warm = _timed(eng.kernel)
+        eng.jit_kernel = "off"
+        _, eager = _timed(eng.kernel)
+        out[label] = {**{k: row[k] for k in ("cycles", "mixed_cycles", "captures", "capture_s",
+                                              "replays", "de")},
+                      "kernel_graph_warm_s": warm, "kernel_eager_warm_s": eager}
+    print("incremental_graphed", json.dumps(out), flush=True)
+
+
+def run_pfoa_warmup_graphed(driver):
+    """pfoa's global DF-UKS with the float32 warm-up (exact float32 J/K
+    through the fused kernel, float32 cuSOLVER eigh at n = 126) graphed
+    against the same engine eager: within 1e-8 Ha of each other and of the
+    driver's float64 energy, with equal warm-up and float64 cycles."""
+    from nbed_tpu_torch.scf import SCFEngine
+
+    ks = driver._ks_engine
+    eng = SCFEngine(ks.mol, xc=ks.xc, conv_tol=ks.conv_tol, max_cycle=ks.max_cycle,
+                    density_fitting=True, df_b=ks.df_b, warmup_f32=True,
+                    max_memory_mb=ks.max_memory_mb, device="cuda")
+    graphed = eng.kernel()
+    run = dict(eng.last_run)
+    eng.jit_kernel = "off"
+    eager = eng.kernel()
+    eager_run = dict(eng.last_run)
+    _gate("pfoa_warmup_graphed", [("graph vs eager", graphed.e_tot, eager.e_tot),
+                                  ("graph vs float64", graphed.e_tot,
+                                   driver._global_ks.e_tot)], 1e-8)
+    for key in ("warmup_cycles", "cycles"):
+        if run[key] != eager_run[key]:
+            raise RuntimeError(f"pfoa_warmup_graphed: graphed {key} {run[key]}, eager "
+                               f"{eager_run[key]}")
+    print("pfoa_warmup_graphed", json.dumps({
+        "de": graphed.e_tot - eager.e_tot, "dev_vs_f64": graphed.e_tot - driver._global_ks.e_tot,
+        **{k: run[k] for k in ("warmup_cycles", "cycles", "captures", "capture_s")}}),
+        flush=True)
+
+
+def run_water_tpss_kernel(device="cuda"):
+    """TPSS and TPSSh on water on the card: the UKS energy within 1e-7 of
+    nbed_tpu's, f_xc . t (``torch.func.jvp`` of the response closure along
+    a seeded symmetric tangent) within 1e-6 relative of a central
+    difference of vxc (h = 1e-4), and the TDA-TDDFT roots, finite and
+    positive."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.scf import SCFEngine
+    from nbed_tpu_torch.solvers import run_tddft_tda
+
+    mol = build_molecule(WATER.read_text(), "sto-3g")
+    out = {}
+    for xc in ("tpss", "tpssh"):
+        eng = SCFEngine(mol, xc=xc, device=device, **WATER_SCF)
+        sol = eng.kernel()
+        _gate(f"water {xc}", [("e_tot", sol.e_tot, E_WATER[xc])], 1e-7)
+        n = mol.nao
+        t = np.random.default_rng(3).standard_normal((2, n, n))
+        t = torch.tensor(0.5 * (t + t.swapaxes(-1, -2)), dtype=torch.float64, device=device)
+        dm0 = sol.make_rdm1()
+        response = eng._build_xc(torch.float64, differentiable=True)
+        _, jvp = torch.func.jvp(lambda d: response(d)[1], (dm0,), (t,))
+        h = 1e-4
+        fd = (eng.xc_fn(dm0 + h * t)[1] - eng.xc_fn(dm0 - h * t)[1]) / (2 * h)
+        miss = float((jvp - fd).abs().max() / fd.abs().max())
+        _gate(f"water {xc} f_xc vs central difference", [("relative miss", miss, 0.0)], 1e-6)
+        roots = run_tddft_tda(sol, nroots=4).excitations
+        roots = np.asarray(torch.as_tensor(roots).cpu())
+        if not (np.all(np.isfinite(roots)) and np.all(roots > 0)):
+            raise RuntimeError(f"water {xc} TDA roots {roots}")
+        out[xc] = {"e_tot": sol.e_tot, "fxc_miss": miss, "tda_roots": roots.tolist()}
+    print("water_tpss_kernel", json.dumps(out), flush=True)
 
 
 def build_all():
@@ -2704,15 +3048,19 @@ def build_all():
 # their SCFs on the card, every phase of engine SCFs launches the cuSOLVER
 # eigh from inside its graphs
 F64 = ("fused_jk_f64", "eigh_f64")
-JK64 = ("fused_jk_f64",)  # hf_gradient's SCF: run_scf on the torch ERIs, eager
 MIXED = ("fused_jk_f64", "fused_jk_f32", "eigh_f64", "eigh_f32")
-LANES = ("fused_jk_f64", "lanes")  # and the lane/slab entry (B > 1 or R < M)
-# the phases of the post-SCF, derivatives, parallel and compiled-program
-# slices, summarised at the end
+# the lane programs: the lane/slab entry (B > 1 or R < M) inside graphs
+LANES = ("fused_jk_f64", "lanes", "eigh_f64")
+# the incremental SCF's float32 J/K of density changes inside graphs
+INCREMENTAL = ("fused_jk_f32", "eigh_f64")
+# the phases of the post-SCF, derivatives, parallel, compiled-program and
+# shared-program slices, summarised at the end
 NEW_PHASES = ("water_global", "acetonitrile_post", "h2_stability", "water_qse", "pfoa_post",
               "water_derivatives", "acetonitrile_derivatives", "water_ccpvdz_gradient",
               "water_fleet", "water_fleet_gradients", "water_embed_fleet", "sharded",
-              "pfoa_sharded", "graphed_scf", "hessian_mesh")
+              "pfoa_sharded", "graphed_scf", "hessian_mesh", "shared_programs",
+              "incremental_graphed", "water_tpss_kernel", "pfoa_incremental",
+              "pfoa_warmup_graphed")
 
 
 def main():
@@ -2799,7 +3147,10 @@ def main():
         ("h2_stability", run_h2_stability, F64),
         ("water_derivatives", run_water_derivatives, LANES),
         ("acetonitrile_derivatives", run_acetonitrile_derivatives, LANES),
-        ("water_ccpvdz_gradient", run_water_ccpvdz_gradient, JK64),
+        ("water_ccpvdz_gradient", run_water_ccpvdz_gradient, F64),
+        ("shared_programs", run_shared_programs, F64),
+        ("incremental_graphed", run_incremental_graphed, INCREMENTAL),
+        ("water_tpss_kernel", run_water_tpss_kernel, F64),
         ("water_functionals", run_water_functionals, F64),
         ("methyl_rohf", run_methyl_rohf, F64), ("water_qmmm", run_water_qmmm, F64),
         ("acetonitrile_camb3lyp", run_acetonitrile_camb3lyp, F64),
@@ -2832,6 +3183,8 @@ def main():
     phase_s["pfoa_one_electron"] = time.perf_counter() - t0
     peak_gb["pfoa_one_electron"] = torch.cuda.max_memory_allocated() / 1e9
 
+    # pfoa's incremental DF SCF, graphed: its float32 J/K of density
+    # changes is DF (plain torch), so its graphs launch the eigh only
     torch.cuda.reset_peak_memory_stats()
     clear()
     t0 = time.perf_counter()
@@ -2839,6 +3192,20 @@ def main():
     phase_s["pfoa_incremental"] = time.perf_counter() - t0
     count("pfoa_incremental")
     peak_gb["pfoa_incremental"] = torch.cuda.max_memory_allocated() / 1e9
+    if not per_phase["pfoa_incremental"].get("eigh_f64"):
+        raise RuntimeError("the pfoa_incremental phase ran without launching eigh_f64")
+
+    # pfoa's float32 warm-up graphed against eager: exact float32 J/K
+    torch.cuda.reset_peak_memory_stats()
+    clear()
+    t0 = time.perf_counter()
+    run_pfoa_warmup_graphed(driver)
+    phase_s["pfoa_warmup_graphed"] = time.perf_counter() - t0
+    count("pfoa_warmup_graphed")
+    peak_gb["pfoa_warmup_graphed"] = torch.cuda.max_memory_allocated() / 1e9
+    missing = [k for k in MIXED if not per_phase["pfoa_warmup_graphed"].get(k, 0)]
+    if missing:
+        raise RuntimeError(f"the pfoa_warmup_graphed phase ran without launching {missing}")
 
     # the post-SCF slice on the pfoa driver: DF throughout, so no fused
     # J/K launch is expected; its count is read all the same

@@ -426,10 +426,13 @@ void eri_quartet_cart(const Mol& mol, const Shell& A, const Shell& B,
 // Cauchy-Schwarz screening |(ab|cd)| <= sqrt((ab|ab)) sqrt((cd|cd)).
 // omega > 0 computes the long-range erf(omega*r12)/r12 integrals instead
 // (the erf kernel is positive definite, so the Schwarz bound still holds
-// with attenuated diagonal factors).
+// with attenuated diagonal factors). Only the unique quartets whose first
+// shell index lies in [ia_lo, ia_hi) are computed and scattered: calls on
+// disjoint ranges write disjoint elements of eri_out, so they may run on
+// concurrent threads; [0, n_shells) is the whole tensor.
 void nbed_eri(int n_shells, const int32_t* meta, const double* exps,
               const double* coefs, const double* c2s, const double* coords,
-              double* eri_out, double omega) {
+              double* eri_out, double omega, int ia_lo, int ia_hi) {
   Mol mol = unpack(n_shells, meta, exps, coefs, c2s, coords);
   const int nao = mol.nao;
   const size_t n2 = (size_t)nao * nao;
@@ -459,7 +462,7 @@ void nbed_eri(int n_shells, const int32_t* meta, const double* exps,
       schwarz[ia * n_sh + ib] = schwarz[ib * n_sh + ia] = std::sqrt(mx);
     }
 
-  for (size_t ia = 0; ia < n_sh; ++ia)
+  for (size_t ia = (size_t)ia_lo; ia < (size_t)ia_hi && ia < n_sh; ++ia)
   for (size_t ib = 0; ib <= ia; ++ib)
   for (size_t ic = 0; ic <= ia; ++ic)
   for (size_t id = 0; id <= (ic == ia ? ib : ic); ++id) {

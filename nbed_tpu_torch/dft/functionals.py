@@ -354,14 +354,18 @@ def tpss_c(ra, rb, gaa, gab, gbb, ta, tb):
 
     zeta = _clip_zeta((ra - rb) / rho)
     # |grad zeta|^2 = 4 (rb^2 gaa - 2 ra rb gab + ra^2 gbb) / rho^4, in the
-    # reference's factoring; xi^2 = |grad zeta|^2 / (4 (3 pi^2)^{2/3} rho^{2/3})
+    # reference's factoring; xi^2 = |grad zeta|^2 / (4 (3 pi^2)^{2/3} rho^{2/3}).
+    # The bracket is |rb grad ra - ra grad rb|^2 / rho^4 >= 0 exactly, so the
+    # clip at 0 only guards rounding: at a closed-shell point the bracket is
+    # 0, or a rounding error either side of it, and its gradient goes whole
+    # to the bracket (weight 1, where JAX's tie weight of 1/2, or 0 below
+    # the tie, drops part of its curvature and the reference's f_xc misses
+    # a central difference of its vxc)
     za, zb = ra / rho, rb / rho
-    gz2 = 4.0 * _max(
-        zb * zb * (gaa / (rho * rho))
-        - 2.0 * za * zb * (gab / (rho * rho))
-        + za * za * (gbb / (rho * rho)),
-        0.0,
-    )
+    q = (zb * zb * (gaa / (rho * rho))
+         - 2.0 * za * zb * (gab / (rho * rho))
+         + za * za * (gbb / (rho * rho)))
+    gz2 = 4.0 * (q + (_max(q, 0.0) - q).detach())
     xi2 = gz2 * rho ** (-2.0 / 3.0) / (4.0 * (3.0 * np.pi**2) ** (2.0 / 3.0))
     c0 = 0.53 + zeta**2 * (0.87 + zeta**2 * (0.50 + 2.26 * zeta**2))
     damp_arg = xi2 * 0.5 * ((1.0 + zeta) ** (-4.0 / 3.0)

@@ -37,6 +37,7 @@ def _lib():
     lib.nbed_one_electron.restype = None
     lib.nbed_eri.argtypes = [
         ctypes.c_int, _IPTR, _DPTR, _DPTR, _DPTR, _DPTR, _DPTR, ctypes.c_double,
+        ctypes.c_int, ctypes.c_int,
     ]
     lib.nbed_eri.restype = None
     lib.nbed_eri_3c.argtypes = [
@@ -107,15 +108,26 @@ def one_electron(mol, coords=None):
 def eri(mol, coords=None, omega: float = 0.0):
     """Full (nao, nao, nao, nao) ERI tensor in chemist notation, float64.
     ``omega > 0`` evaluates the long-range erf(omega*r12)/r12 kernel of
-    range-separated exchange."""
+    range-separated exchange. The unique quartets are split by their first
+    shell into ranges of about equal work, evaluated on one thread per
+    available core into disjoint elements of the result; each integral is
+    computed exactly as in one call."""
     meta, exps, coefs, c2s = _pack(mol)
     coords = _coords(mol, coords)
-    nao = mol.nao
+    nao, n_sh = mol.nao, len(mol.shells)
     out = np.zeros((nao, nao, nao, nao))
-    _lib().nbed_eri(
-        len(mol.shells), meta.ctypes.data_as(_IPTR),
-        _dp(exps), _dp(coefs), _dp(c2s), _dp(coords), _dp(out), float(omega),
-    )
+    n_threads = len(os.sched_getaffinity(0))
+    # the quartets of first shell ia number ~ (ia + 1)^3 / 2
+    work = np.cumsum((np.arange(n_sh) + 1.0) ** 3)
+    cuts = np.searchsorted(work, work[-1] * np.arange(1, 4 * n_threads) / (4 * n_threads))
+    ranges = [(lo, hi) for lo, hi in zip([0, *cuts], [*cuts, n_sh]) if hi > lo]
+
+    def fill(rng):
+        _lib().nbed_eri(n_sh, meta.ctypes.data_as(_IPTR), _dp(exps), _dp(coefs), _dp(c2s),
+                        _dp(coords), _dp(out), float(omega), int(rng[0]), int(rng[1]))
+
+    with ThreadPoolExecutor(max_workers=n_threads) as pool:
+        list(pool.map(fill, ranges[::-1]))
     return out
 
 

@@ -30,13 +30,17 @@ import torch
 from .._compile import build_shared_library
 from .jk import _NVCC_FLAGS, _nvcc, count_launch
 
-__all__ = ["eigh", "eigh_reference", "prepare_eigh", "failure_count", "Eigh", "LAUNCHES",
-           "build_library"]
+__all__ = ["eigh", "eigh_retry", "eigh_reference", "prepare_eigh", "failure_count", "Eigh",
+           "LAUNCHES", "build_library"]
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "eigh.cu"
 
 # launches through the wrapper in this process: "eigh_f64" and "eigh_f32"
 LAUNCHES: Counter = Counter()
+
+# residual |A V - V diag(w)| relative to max |A|, and |V^T V - I|, within
+# which eigh_retry counts a matrix that cuSOLVER flags as solved
+_RESIDUAL_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 
 
 @lru_cache(maxsize=1)
@@ -74,8 +78,9 @@ class Eigh:
     lower triangle is read (row-major), eigenvalues ascend, eigenvector j
     is ``v[..., :, j]``. Each call adds the number of matrices whose
     solver status was nonzero to :attr:`failures`, the device's
-    :func:`failure_count`; nothing is read back, so the call can be captured
-    in a CUDA graph.
+    :func:`failure_count` (with ``count``, a (...) mask over the leading
+    axes, only those whose result the caller uses); nothing is read back,
+    so the call can be captured in a CUDA graph.
     """
 
     def __init__(self, n: int, batch: int, dtype, device):
@@ -117,7 +122,15 @@ class Eigh:
         if lib is not None and handle is not None:
             lib.nbed_eigh_destroy(handle)
 
-    def __call__(self, a):
+    def __call__(self, a, count=None):
+        w, v = self.solve(a)
+        failed = self.info if count is None else self.info * count.reshape(-1)
+        self.failures.add_(torch.count_nonzero(failed))
+        return w, v
+
+    def solve(self, a):
+        """(w, v) of a call, adding no failure: :attr:`info` holds each
+        matrix's solver status until the next call."""
         n = self.n
         if not (a.shape[-2:] == (n, n) and a.dtype == self.dtype and a.device == self.device
                 and a[..., 0, 0].numel() == self.batch):
@@ -141,15 +154,22 @@ class Eigh:
                                       self._host_bytes, self.info.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"eigh: cuSOLVER launch failed with status {err}")
-        self.failures.add_(torch.count_nonzero(self.info))
         return w, v.transpose(-1, -2)
 
 
-@lru_cache(maxsize=None)
 def failure_count(device) -> torch.Tensor:
     """The device int64 to which every :class:`Eigh` call on ``device`` adds
     its number of failed matrices; a reader that finds it nonzero zeroes it
-    and raises."""
+    and raises. One per card: "cuda" names the current card, as a tensor's
+    "cuda:0" does."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _failure_count(device)
+
+
+@lru_cache(maxsize=None)
+def _failure_count(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int64, device=device)
 
 
@@ -161,10 +181,61 @@ def prepare_eigh(n: int, batch: int, dtype, device) -> Eigh:
     return Eigh(n, batch, dtype, device)
 
 
-def eigh(a):
-    """``torch.linalg.eigh`` for ``a`` on the CPU; on CUDA the prepared
-    cuSOLVER call of :class:`Eigh`, capturable in a CUDA graph."""
+def _solved(solver: Eigh, a, w, v):
+    """Per matrix of ``solver``'s last call on ``a`` (flat (batch,) bool),
+    whether it is solved: cuSOLVER's status is 0, or its decomposition
+    (``w``, ``v``) meets :data:`_RESIDUAL_TOL` (the batched solver flags
+    matrices whose eigenvalues cluster at rounding level, the DIIS system
+    of a nearly converged SCF, whose eigenpairs are accurate)."""
+    n = solver.n
+    flat_a, flat_v = a.reshape(-1, n, n), v.reshape(-1, n, n)
+    scale = torch.amax(torch.abs(flat_a), dim=(-2, -1))
+    residual = torch.amax(torch.abs(flat_a @ flat_v - flat_v * w.reshape(-1, 1, n)),
+                          dim=(-2, -1))
+    eye = torch.eye(n, dtype=a.dtype, device=a.device)
+    orth = torch.amax(torch.abs(flat_v.mT @ flat_v - eye), dim=(-2, -1))
+    tol = _RESIDUAL_TOL[solver.dtype]
+    return (solver.info == 0) | ((residual <= tol * scale) & (orth <= tol))
+
+
+def eigh_retry(a, count=None):
+    """:func:`eigh`, with every matrix on which cuSOLVER fails solved
+    again shifted positive definite past its Gershgorin bound (the same
+    eigenvectors; eigenvalues shifted back). cuSOLVER's batched eigh can
+    stop short of its tolerance on a nearly converged SCF's DIIS system,
+    whose eigenvalues cluster at rounding level beside a border of ones,
+    and solves it shifted (the acetonitrile Hessian's lanes on the H100,
+    CUDA 12.9); a matrix counts as solved unshifted where its status is 0
+    or its decomposition meets :data:`_RESIDUAL_TOL`, and keeps that
+    result, so the shift moves no other iterate. A matrix that neither
+    solve gives counts as failed, as in :class:`Eigh`. The CPU takes
+    :func:`eigh_reference`."""
     if a.device.type == "cpu":
         return eigh_reference(a)
     n = a.shape[-1]
-    return prepare_eigh(n, a[..., 0, 0].numel(), a.dtype, a.device)(a)
+    solver = prepare_eigh(n, a[..., 0, 0].numel(), a.dtype, a.device)
+    w, v = solver.solve(a)
+    solved = _solved(solver, a, w, v)
+    shift = torch.amax(torch.sum(torch.abs(a), dim=-1), dim=-1) + 1.0
+    eye = torch.eye(n, dtype=a.dtype, device=a.device)
+    shifted = a + shift[..., None, None] * eye
+    w1, v1 = solver.solve(shifted)
+    solved1 = _solved(solver, shifted, w1, v1)
+    keep = solved.reshape(shift.shape)
+    w = torch.where(keep[..., None], w, w1 - shift[..., None])
+    v = torch.where(keep[..., None, None], v, v1)
+    failed = ~(solved | solved1)
+    if count is not None:
+        failed = failed & count.reshape(-1)
+    solver.failures.add_(torch.count_nonzero(failed))
+    return w, v
+
+
+def eigh(a, count=None):
+    """``torch.linalg.eigh`` for ``a`` on the CPU; on CUDA the prepared
+    cuSOLVER call of :class:`Eigh`, capturable in a CUDA graph (``count``
+    as there)."""
+    if a.device.type == "cpu":
+        return eigh_reference(a)
+    n = a.shape[-1]
+    return prepare_eigh(n, a[..., 0, 0].numel(), a.dtype, a.device)(a, count)

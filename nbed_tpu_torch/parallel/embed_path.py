@@ -38,7 +38,7 @@ from .._device import DTYPE, resolve_device
 from ..chem.molecule import Molecule
 from ..integrals import eri_tensor, kinetic, nuclear_attraction, overlap
 from ..ops.jk import forward_ad_jk
-from ..scf.hf import run_scf
+from ..scf.engine import lane_scf, lane_spec
 from .sharding import _lane_groups, _lanes_jk, _supermatrices
 
 __all__ = ["make_mu_embed_energy", "batched_embedding_energies"]
@@ -100,11 +100,28 @@ def _topk_projector(m, k: int):
     return _TopK.apply(m, k)
 
 
+def _lane_build(n: int, xc, dual: bool):
+    """``build`` of :func:`~nbed_tpu_torch.scf.engine.lane_scf` for the
+    program's SCFs: J/K of "g_j"/"g_k" through the lane kernel (with
+    forward-mode tangents where the operands carry them), and the XC of the
+    AO tables "ao", "ao_grad", "w" where ``xc`` has grid terms, in its
+    differentiable form for ``dual`` operands."""
+    from ..dft.xc import make_xc_fn
+
+    def build(t):
+        xc_fn = None
+        if xc is not None:
+            xc_fn = make_xc_fn(t["ao"], t["ao_grad"], t["w"], xc, differentiable=dual)
+        return _lanes_jk(forward_ad_jk(t["g_j"], t["g_k"]), n), xc_fn
+
+    return build
+
+
 def make_mu_embed_energy(mol: Molecule, n_active_atoms: int, n_act_mos, xc: str = "b3lyp",
                          mu_level_shift: float = 1e6, conv_tol: float = 1e-9,
                          dm_conv_tol: float = 1e-7, max_cycle: int = 100,
                          grid_level: int = 3, projector: str = "mu", grad_cycles: int = 0,
-                         device="cuda"):
+                         device="cuda", jit_kernel: str = "auto"):
     """Build ``energy(coords) -> dict``, the embedding program.
 
     Args:
@@ -125,6 +142,10 @@ def make_mu_embed_energy(mol: Molecule, n_active_atoms: int, n_act_mos, xc: str 
             forward-mode tangents (see the module docstring).
         device: where the program runs; ``"cuda"`` unless the caller asks
             for the CPU.
+        jit_kernel: how the global KS and the embedded HF run, as
+            ``SCFEngine``'s: on a card (``"auto"``) primal coordinates run
+            them as shared lane programs (CUDA graphs), dual ones eagerly
+            (:func:`~nbed_tpu_torch.scf.engine.lane_scf`).
 
     ``energy`` takes (natm, 3) or (B, natm, 3) coordinates in bohr (a
     tensor, dual under ``forward_ad`` for derivatives) and returns
@@ -140,7 +161,6 @@ def make_mu_embed_energy(mol: Molecule, n_active_atoms: int, n_act_mos, xc: str 
     if projector not in ("mu", "huzinaga"):
         raise ValueError(f"unknown projector {projector!r}")
     from ..dft.functionals import resolve_functional
-    from ..dft.xc import make_xc_fn
     from ..grids import build_grid, eval_aos
 
     terms, hyb, rsh = resolve_functional(xc) if xc else ([], 1.0, None)
@@ -173,28 +193,29 @@ def make_mu_embed_energy(mol: Molecule, n_active_atoms: int, n_act_mos, xc: str 
         s = overlap(mol, x, device=dev)
         hcore = kinetic(mol, x, device=dev) + nuclear_attraction(mol, x, device=dev)
         eri_j, eri_k = _supermatrices(eri_tensor(mol, x, device=dev))
+        eri_k_xc, hyb_xc = eri_k, hyb
         if rsh is not None:
             eri_k_lr = _supermatrices(eri_tensor(mol, x, omega=rsh[1], device=dev))[1]
-            jk_xc = _lanes_jk(forward_ad_jk(eri_j, hyb * eri_k + rsh[0] * eri_k_lr), n)
-            jk_hf, hyb_xc = _lanes_jk(forward_ad_jk(eri_j, eri_k), n), 1.0
-        else:
-            jk_xc = jk_hf = _lanes_jk(forward_ad_jk(eri_j, eri_k), n)
-            hyb_xc = hyb
+            eri_k_xc, hyb_xc = hyb * eri_k + rsh[0] * eri_k_lr, 1.0
+        ks_ops = {"hcore": hcore, "s": s, "g_j": eri_j, "g_k": eri_k_xc}
+        hf_ops = {"hcore": hcore, "s": s, "g_j": eri_j, "g_k": eri_k}
         e_nuc = mol.energy_nuc_tensor(x)
 
-        xc_fn = None
         if terms:
             grids = [build_grid(mol, xb, level=grid_level, device=dev) for xb in x]
             tables = [eval_aos(mol, p, xb) for (p, _), xb in zip(grids, x)]
-            # the differentiable closure carries the density's tangent
-            # into the potential; without one the faster detached form
-            xc_fn = make_xc_fn(torch.stack([a for a, _ in tables]),
-                               torch.stack([g for _, g in tables]),
-                               torch.stack([w for _, w in grids]), xc, differentiable=dual)
+            ks_ops.update(ao=torch.stack([a for a, _ in tables]),
+                          ao_grad=torch.stack([g for _, g in tables]),
+                          w=torch.stack([w for _, w in grids]))
+        # the differentiable XC closure carries the density's tangent into
+        # the potential; without one the faster detached form
+        jk_xc, xc_fn = _lane_build(n, xc if terms else None, dual)(ks_ops)
+        run = dict(jit_kernel=jit_kernel, **scf_kw)
 
         # global KS (the driver's _global_ks)
-        glob = run_scf(hcore=hcore, s=s, jk_fn=jk_xc, xc_fn=xc_fn, hyb=hyb_xc, nelec=n_occ,
-                       **scf_kw)
+        glob = lane_scf(lane_spec(mol, "embed_ks", xc, grid_level, hyb_xc), ks_ops,
+                        _lane_build(n, xc if terms else None, dual), hyb=hyb_xc,
+                        nelec=n_occ, **run)
         e_global = glob.e_elec + e_nuc
 
         # SPADE with a static active count: the top-k right-singular
@@ -236,15 +257,16 @@ def make_mu_embed_energy(mol: Molecule, n_active_atoms: int, n_act_mos, xc: str 
 
         # embedded HF
         v_pot = v_tot - v_act
+        hf_build, hf_spec = _lane_build(n, None, dual), lane_spec(mol, "embed_hf")
         if projector == "mu":
             p_env = torch.einsum("bij,bsjk,bkl->bsil", s, dm_env, s)
             v_emb = mu_level_shift * p_env + v_pot
-            emb = run_scf(hcore=hcore, s=s, jk_fn=jk_hf, nelec=n_act, v_emb=v_emb,
-                          dm0=dm_act, **scf_kw)
+            emb = lane_scf(hf_spec, hf_ops, hf_build, nelec=n_act, v_emb=v_emb, dm0=dm_act,
+                           **run)
             v_corr = v_emb
         else:
-            emb = run_scf(hcore=hcore, s=s, jk_fn=jk_hf, nelec=n_act, v_emb=v_pot,
-                          dm_env_occ=dm_env, dm0=dm_act, **scf_kw)
+            emb = lane_scf(hf_spec, hf_ops, hf_build, nelec=n_act, v_emb=v_pot,
+                           dm_env_occ=dm_env, dm0=dm_act, **run)
             v_corr = emb.huzinaga_op + v_pot
         corr = torch.einsum("bsij,bsij->b", v_corr, dm_act)
         out = dict(zip(_KEYS, (emb.e_elec + e_nuc + e_env + two_e_cross - corr, e_global,

@@ -33,7 +33,8 @@ from .._device import DTYPE, resolve_device
 from ..chem.molecule import Molecule
 from ..integrals import eri_tensor, overlap
 from ..ops.jk import prepare_jk
-from ..scf.hf import run_scf
+from ..scf.engine import lane_scf, lane_spec
+from ..scf.engine import single_scf as _single_scf
 from ..solvers.gradients import _autograd, _energy_functional, _hcore, _w_from_dm
 
 __all__ = ["Mesh", "make_mesh", "sharded_scf", "make_sharded_scf", "sharded_df_scf",
@@ -123,16 +124,28 @@ def _supermatrices(g):
             g_k.reshape(*lead, n * n, n * n).contiguous())
 
 
-def _lane_scf(mol: Molecule, x, nelec=None, **scf_kw):
+def _exact_lanes(n: int):
+    """``build`` of :func:`~nbed_tpu_torch.scf.engine.lane_scf` for exact
+    J/K over lanes: the fused kernel on the (B, M, M) "g_j", "g_k"."""
+    def build(t):
+        return _lanes_jk(prepare_jk(t["g_j"], t["g_k"]), n), None
+
+    return build
+
+
+def _lane_scf(mol: Molecule, x, nelec=None, jit_kernel: str = "auto", **scf_kw):
     """UHF of the (B, natm, 3) lanes ``x`` on their device, one batched SCF
-    with every cycle's J/K in one fused-kernel launch: (SCFResult of lanes,
-    ERI tensors (B, n, n, n, n))."""
+    with every cycle's J/K in one fused-kernel launch, as a shared program
+    (:func:`~nbed_tpu_torch.scf.engine.lane_scf`; ``jit_kernel`` as
+    there): (SCFResult of lanes, ERI tensors (B, n, n, n, n))."""
     with torch.no_grad():
         g = eri_tensor(mol, x, device=x.device)
-        jk = prepare_jk(*_supermatrices(g))
-        res = run_scf(hcore=_hcore(mol, x), s=overlap(mol, x, device=x.device),
-                      jk_fn=_lanes_jk(jk, mol.nao),
-                      nelec=mol.nelec if nelec is None else nelec, **scf_kw)
+        g_j, g_k = _supermatrices(g)
+        res = lane_scf(lane_spec(mol, "uhf"),
+                       {"hcore": _hcore(mol, x), "s": overlap(mol, x, device=x.device),
+                        "g_j": g_j, "g_k": g_k}, _exact_lanes(mol.nao),
+                       nelec=mol.nelec if nelec is None else nelec, jit_kernel=jit_kernel,
+                       **scf_kw)
     return res, g
 
 
@@ -160,19 +173,23 @@ def _gather(parts, mesh, device):
 
 
 def batched_hf_energies(mol: Molecule, coords_batch, mesh: Mesh | None = None,
-                        conv_tol: float = 1e-8, max_cycle: int = 50, device="cuda"):
+                        conv_tol: float = 1e-8, max_cycle: int = 50, device="cuda",
+                        jit_kernel: str = "auto"):
     """UHF total energies of a batch of conformers.
 
     ``coords_batch``: (B, natm, 3) in bohr. Each lane group (all lanes
     without a mesh; one group per 'batch' row of a mesh) runs as one
     batched SCF: its one-electron integrals and ERI tensors in one
     computation per class, every SCF cycle's J/K in one fused-kernel launch
-    for the group, converged lanes frozen. Returns ``(e (B,), converged
-    (B,))`` on the mesh's first device (or ``device``).
+    for the group, converged lanes frozen; on a card as CUDA graphs shared
+    by every batch of the molecule and size (``jit_kernel``, see
+    :func:`~nbed_tpu_torch.scf.engine.lane_scf`). Returns ``(e (B,),
+    converged (B,))`` on the mesh's first device (or ``device``).
     """
     es, convs = [], []
     for _, x in _lane_groups(coords_batch, mesh, device):
-        res, _ = _lane_scf(mol, x, conv_tol=conv_tol, max_cycle=max_cycle)
+        res, _ = _lane_scf(mol, x, conv_tol=conv_tol, max_cycle=max_cycle,
+                           jit_kernel=jit_kernel)
         es.append(res.e_elec + mol.energy_nuc_tensor(x))
         convs.append(res.converged)
     return _gather(es, mesh, device), _gather(convs, mesh, device)
@@ -223,19 +240,19 @@ def _lane_gradients(mol: Molecule, x, res, g):
 
 def batched_hf_gradients(mol: Molecule, coords_batch, mesh: Mesh | None = None,
                          conv_tol: float = 1e-10, dm_conv_tol: float = 1e-8,
-                         max_cycle: int = 100, device="cuda"):
+                         max_cycle: int = 100, device="cuda", jit_kernel: str = "auto"):
     """UHF energies and analytic nuclear gradients of a conformer batch.
 
     Returns ``(e (B,), grad (B, natm, 3), converged (B,))``: each lane group
-    runs one batched SCF (as :func:`batched_hf_energies`) and then the
-    reverse-mode gradient of the stationary energy functional over its
-    lanes at once. On a card the lanes of one backward pass are limited by
-    the free device memory (:func:`_lanes_per_pass`).
+    runs one batched SCF (as :func:`batched_hf_energies`, ``jit_kernel``
+    as there) and then the reverse-mode gradient of the stationary energy
+    functional over its lanes at once. On a card the lanes of one backward
+    pass are limited by the free device memory (:func:`_lanes_per_pass`).
     """
     es, grads, convs = [], [], []
     for _, x in _lane_groups(coords_batch, mesh, device):
         res, g = _lane_scf(mol, x, conv_tol=conv_tol, dm_conv_tol=dm_conv_tol,
-                           max_cycle=max_cycle)
+                           max_cycle=max_cycle, jit_kernel=jit_kernel)
         es.append(res.e_elec + mol.energy_nuc_tensor(x))
         grads.append(_lane_gradients(mol, x, res, g))
         convs.append(res.converged)
@@ -278,17 +295,24 @@ def make_sharded_scf(mol: Molecule, mesh: Mesh, coords=None, nelec=None, **scf_k
     slabs_j = [g_j[i * r:(i + 1) * r].to(d).clone() for i, d in enumerate(devs)]
     slabs_k = [g_k[i * r:(i + 1) * r].to(d).clone() for i, d in enumerate(devs)]
 
-    def padded_run(hcore, s, slabs_j, slabs_k):
-        jks = [(sj.device, prepare_jk(sj[None], sk[None])) for sj, sk in zip(slabs_j, slabs_k)]
+    def build(t):
+        jks = [(t[f"j{i}"].device, prepare_jk(t[f"j{i}"][None], t[f"k{i}"][None]))
+               for i in range(len(devs))]
+        dev0 = t["hcore"].device
 
         def jk_fn(dm):
             dm = dm.contiguous()[None]
-            out = torch.cat([jk(dm.to(d))[0].to(hcore.device) for d, jk in jks], dim=-1)
+            out = torch.cat([jk(dm.to(d))[0].to(dev0) for d, jk in jks], dim=-1)
             out = out[:, :m]  # the pad rows, dropped from the small output only
             return out[0].reshape(n, n), out[1:].reshape(2, n, n)
 
-        return run_scf(hcore=hcore, s=s, jk_fn=jk_fn,
-                       nelec=mol.nelec if nelec is None else nelec, **scf_kwargs)
+        return jk_fn, None
+
+    def padded_run(hcore, s, slabs_j, slabs_k):
+        ops = {"hcore": hcore, "s": s, **{f"j{i}": a for i, a in enumerate(slabs_j)},
+               **{f"k{i}": a for i, a in enumerate(slabs_k)}}
+        return _single_scf(lane_spec(mol, "uhf_row_slabs", len(devs)), ops, build,
+                           nelec=mol.nelec if nelec is None else nelec, **scf_kwargs)
 
     return padded_run, (hcore, s, slabs_j, slabs_k)
 
@@ -348,9 +372,13 @@ def make_sharded_df_scf(mol: Molecule, mesh: Mesh, coords=None, nelec=None,
         hcore, s = _hcore(mol, c), overlap(mol, c, device=dev0)
     b_slabs = _aux_slabs(mol, c, devs, df_beta)
 
+    def build(t):
+        return _df_jk_fn([t[f"b{i}"] for i in range(len(devs))], t["hcore"].device), None
+
     def df_run(hcore, s, b_slabs):
-        return run_scf(hcore=hcore, s=s, jk_fn=_df_jk_fn(b_slabs, hcore.device),
-                       nelec=mol.nelec if nelec is None else nelec, **scf_kwargs)
+        ops = {"hcore": hcore, "s": s, **{f"b{i}": b for i, b in enumerate(b_slabs)}}
+        return _single_scf(lane_spec(mol, "df_uhf_aux_slabs", len(devs), df_beta), ops,
+                           build, nelec=mol.nelec if nelec is None else nelec, **scf_kwargs)
 
     return df_run, (hcore, s, b_slabs)
 
@@ -404,19 +432,32 @@ def make_sharded_df_ks(mol: Molecule, mesh: Mesh, xc: str = "b3lyp", coords=None
     w_slabs = [weights[i * gs:(i + 1) * gs].to(d).contiguous() for i, d in enumerate(devs)]
     hyb_eff = 1.0 if rsh is not None else hyb
 
-    def ks_run(hcore, s, b_slabs, *rest):
-        b_lr, (ao_s, grad_s, w_s) = (rest[0], rest[1:]) if rsh is not None else (None, rest)
-        fns = [make_xc_fn(a, g, w, xc) for a, g, w in zip(ao_s, grad_s, w_s)]
-        dev0 = hcore.device
+    def build(t):
+        slabs = range(n_model)
+        ao_s = [t[f"ao{i}"] for i in slabs]
+        fns = [make_xc_fn(ao_s[i], t[f"grad{i}"], t[f"w{i}"], xc) for i in slabs]
+        dev0 = t["hcore"].device
 
         def xc_fn(dm):
             parts = [fn(dm.to(a.device)) for fn, a in zip(fns, ao_s)]
             return (sum(e.to(dev0) for e, _ in parts), sum(v.to(dev0) for _, v in parts))
 
-        jk_fn = _df_jk_fn(b_slabs, dev0, b_lr, hyb, 0.0 if rsh is None else rsh[0])
-        return run_scf(hcore=hcore, s=s, jk_fn=jk_fn,
-                       xc_fn=None if fns[0] is None else xc_fn, hyb=hyb_eff,
-                       nelec=mol.nelec if nelec is None else nelec, **scf_kwargs)
+        b_lr = None if rsh is None else [t[f"b_lr{i}"] for i in slabs]
+        jk_fn = _df_jk_fn([t[f"b{i}"] for i in slabs], dev0, b_lr, hyb,
+                          0.0 if rsh is None else rsh[0])
+        return jk_fn, None if fns[0] is None else xc_fn
+
+    def ks_run(hcore, s, b_slabs, *rest):
+        b_lr, (ao_s, grad_s, w_s) = (rest[0], rest[1:]) if rsh is not None else (None, rest)
+        ops = {"hcore": hcore, "s": s}
+        for i in range(n_model):
+            ops.update({f"b{i}": b_slabs[i], f"ao{i}": ao_s[i], f"grad{i}": grad_s[i],
+                        f"w{i}": w_s[i]})
+            if b_lr is not None:
+                ops[f"b_lr{i}"] = b_lr[i]
+        return _single_scf(lane_spec(mol, "df_uks_aux_grid_slabs", n_model, xc, df_beta),
+                           ops, build, hyb=hyb_eff,
+                           nelec=mol.nelec if nelec is None else nelec, **scf_kwargs)
 
     lr = () if rsh is None else (b_lr_slabs,)
     return ks_run, (hcore, s, b_slabs, *lr, ao_slabs, grad_slabs, w_slabs)

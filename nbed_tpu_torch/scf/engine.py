@@ -40,17 +40,29 @@ cycle of :class:`nbed_tpu_torch.scf.hf.SCFProgram` (J/K through the fused
 kernel or DF, XC, DIIS and the Fock diagonalisation through the capturable
 cuSOLVER eigh of :mod:`nbed_tpu_torch.ops.eigh`) is captured ``K`` cycles
 at a time, with one host read per replay, and the final Fock build once;
-the float32 warm-up has its own float32 graphs. ``get_veff`` and the
-subsystem-DFT stage are one replay each. Graphs are captured once per
-engine and call signature and kept on the engine. The reference's program
-cache, its jit-argument packing and its TPU streaming-crash chunking are
-not ported, nor is its Pallas switch (``pallas_jk``): the port always runs
-its kernel.
+the float32 warm-up has its own float32 graphs, and the incremental SCF
+its mixed loop's cycle variants (see :class:`_GraphedSCF`).
+``get_veff`` and the subsystem-DFT stage are one replay each.
+
+Programs are shared as the reference shares its compiled ones
+(``_jit_spec``, ``_shared_jit``, ``_JIT_PROGRAM_CACHE``, ``engine.py:
+144-145, 657-685``): keyed by structure, operand shapes, call signature
+and card, never by engine or geometry, in a bounded LRU. A program reads
+its operators from fixed buffers (:class:`_Operands`), into which an
+engine's operators are copied when it is not their current owner, so the
+engines of a geometry scan, a Hessian or a second driver replay the first
+one's graphs. :func:`lane_scf` runs the lane SCFs of the batched
+energies, gradients, Hessians and the embedding program as programs of
+the same cache. The reference's jit-argument packing and its TPU
+streaming-crash chunking are not ported, nor is its Pallas switch
+(``pallas_jk``): the port always runs its kernel.
 """
 
 import gc
+import itertools
 import logging
 import time
+import weakref
 from collections import Counter
 from dataclasses import dataclass, field
 from functools import cached_property, lru_cache
@@ -70,12 +82,13 @@ from ..integrals import (eri_tensor, kinetic, native, nuclear_attraction, overla
                          point_charge_attraction)
 from ..ops import eigh as eigh_ops
 from ..ops.jk import LAUNCHES, LaunchRecord, recording, prepare_jk
-from .hf import SCFProgram, lowdin_x, make_rdm1, run_scf
+from .hf import (SCFProgram, _first_lane, _one_lane, carries_derivative, lowdin_x, make_rdm1,
+                 run_scf)
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["SCFEngine", "SCFSolution", "VeffResult", "df_b_factor", "DISPATCH_CYCLES",
-           "RUNS"]
+           "RUNS", "lane_scf", "lane_spec", "single_scf"]
 
 # SCF cycles per graph replay when dispatch_cycles is None: capture time
 # grows by 30-160 ms per captured cycle (water to pfoa) and is paid once
@@ -224,15 +237,9 @@ def _atomic_density(symbol: str, basis: str, device: str, jit_kernel: str = "aut
     return 0.5 * (dm[0] + dm[1])
 
 
-def _carries_derivative(t) -> bool:
-    """Whether ``t`` is a tensor that autograd follows or a forward-mode
-    dual tensor (a call that must stay differentiable never takes a
-    graph)."""
-    if not isinstance(t, torch.Tensor):
-        return False
-    from torch.autograd import forward_ad
-
-    return t.requires_grad or forward_ad.unpack_dual(t).tangent is not None
+# whether a CUDA graph capture is running in this process: programs leave
+# the cache (destroying their graphs) only outside one
+_CAPTURING = [False]
 
 
 class _Captured:
@@ -244,12 +251,13 @@ class _Captured:
     ``fn``. The launches captured are added to the launch counters once per
     replay (:class:`nbed_tpu_torch.ops.jk.LaunchRecord`).
 
-    ``pool`` is a one-item list shared by the graphs of one engine: the
-    first capture fills it with its memory pool and the later ones capture
-    into the same pool. A graph's allocations are temporaries that die
-    within its replay (results are copied into buffers made outside the
-    capture), and one engine's graphs replay one after another on the
-    stream, so the pool holds the largest graph's memory, not the sum."""
+    ``pool`` is a one-item list shared by the graphs of one structure's
+    programs (:class:`_Operands`): the first capture fills it with its
+    memory pool and the later ones capture into the same pool. A graph's
+    allocations are temporaries that die within its replay (results are
+    copied into buffers made outside the capture), and the graphs replay
+    one after another on the stream, so the pool holds the largest graph's
+    memory, not the sum."""
 
     def __init__(self, fn, device, pool: list, warmup=None):
         self.fn, self.device, self.pool, self.warmup = fn, device, pool, warmup or fn
@@ -267,16 +275,18 @@ class _Captured:
             self.warmup()
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        # no garbage collection during the capture: collecting an engine
+        # no garbage collection during the capture: collecting a program
         # dropped earlier (alive in some reference cycle) would destroy its
         # CUDA graphs there, which invalidates the capture
         collecting = gc.isenabled()
         gc.disable()
+        _CAPTURING[0] = True
         try:
             with recording(self.record), torch.cuda.graph(graph, pool=self.pool[0],
                                                           stream=side):
                 self.fn()
         finally:
+            _CAPTURING[0] = False
             if collecting:
                 gc.enable()
         if self.pool[0] is None:
@@ -294,53 +304,231 @@ class _Captured:
 
 
 class _GraphedSCF:
-    """An :class:`SCFProgram` with its chunk of ``cycles`` cycles and its
-    final Fock build as two graphs in the engine's memory pool (direct
-    calls off CUDA), captured at the first :meth:`run`."""
+    """An :class:`nbed_tpu_torch.scf.hf.SCFProgram` and its graphs in its
+    structure's memory pool (direct calls off CUDA), each captured at its
+    first use: the chunk of ``cycles`` plain cycles, the final Fock build,
+    the ``grad_cycles`` polish, and for the incremental SCF the mixed
+    loop's cycle variants: at one cycle per replay one graph per variant
+    (float64 rebase or float32 increment, float32 or float64 XC), picked
+    from the replay's one host read; a chunk of K > 1 cycles selects on
+    the device with ``torch.where`` over both builds. A program of
+    the cache (:func:`_shared_program`) holds its operator buffers
+    (``operands``, which :data:`_OPERANDS` holds only weakly) and the
+    names of the operator groups it reads (``needs``, see
+    ``SCFEngine._operand_sources``), never an engine."""
 
-    def __init__(self, program: SCFProgram, cycles: int, pool: list):
-        self.program, self.cycles = program, cycles
-        device = program.device
-        self.chunk = _Captured(lambda: program.run_cycles(cycles), device, pool,
-                               warmup=lambda: program.run_cycles(1))
-        self.final = _Captured(program.finish, device, pool)
+    def __init__(self, program: SCFProgram, cycles: int, pool: list, operands=None,
+                 needs: tuple = ()):
+        self.program, self.cycles, self.pool = program, cycles, pool
+        self.operands, self.needs = operands, needs
+        self.chunk = self._captured(lambda: program.run_cycles(cycles),
+                                    lambda: program.run_cycles(1))
+        self.final = self._captured(program.finish)
+        self.grad = self._captured(program.grad_polish) if program.grad_cycles else None
+        self.mixed = {}
+
+    def _captured(self, fn, warmup=None):
+        return _Captured(fn, self.program.device, self.pool, warmup)
+
+    def _variant(self, variant, k: int) -> _Captured:
+        """The graph of ``k`` incremental cycles of ``variant``."""
+        if (variant, k) not in self.mixed:
+            prog = self.program
+            self.mixed[variant, k] = self._captured(lambda: prog.run_cycles(k, variant),
+                                                    lambda: prog.run_cycles(1, variant))
+        return self.mixed[variant, k]
 
     def launches_per_replay(self) -> dict:
         """{key: fused J/K launches} of one chunk replay."""
         return self.chunk.record.launches(LAUNCHES)
 
-    def run(self, inputs: dict, stats: dict):
-        """Load ``inputs`` (:meth:`SCFProgram.load`), replay the chunk until
-        the flags read converged or ``max_cycle`` cycles (one host read per
-        replay), then the final build; returns the
-        :class:`nbed_tpu_torch.scf.hf.SCFResult` and adds replays, host
-        reads and capture seconds to ``stats``."""
+    def _ensure(self, captured: _Captured, stats: dict):
+        """Capture ``captured`` at its first use, keeping the program's
+        state: the capture's warm-up call runs the body once."""
+        if not captured.captures or captured.graph is not None:
+            return
         prog = self.program
-        prog.load(**inputs)
-        if self.chunk.captures and self.chunk.graph is None:
-            t0 = time.perf_counter()
-            self.chunk.capture()
-            self.final.capture()
-            prog.load(**inputs)  # the warm-up cycle moved the state
-            stats["capture_s"] += time.perf_counter() - t0
-            stats["captures"] += 2
-        max_cycle = int(inputs["max_cycle"])
+        buffers = [*prog.state.values(), prog.flags, prog.status, prog.fock, prog.huz,
+                   prog.e_fin]
+        saved = [t.clone() for t in buffers]
+        t0 = time.perf_counter()
+        captured.capture()
+        stats["capture_s"] += time.perf_counter() - t0
+        stats["captures"] += 1
+        for t, value in zip(buffers, saved):
+            t.copy_(value)
+
+    def _replay(self, captured: _Captured, stats: dict):
+        self._ensure(captured, stats)
+        captured()
+        stats["replays"] += 1
+
+    def _loop(self, pick, max_cycle: int, stats: dict) -> list:
+        """Replay ``pick(it, ddm)`` (a graph and its cycles) until the
+        flags read converged or ``max_cycle`` cycles, one host read per
+        replay; returns the last status."""
+        prog = self.program
+        it, ddm = 0, float("inf")
         while True:
-            self.chunk()
-            conv, cycles, failures = prog.flags.tolist()  # the replay's one host read
-            stats["replays"] += 1
+            graph, k = pick(it, ddm)
+            self._replay(graph, stats)
+            status = prog.status.tolist()  # the replay's one host read
             stats["host_reads"] += 1
+            conv, cycles, failures, ddm, _ = status
             if failures:
                 prog.flags.zero_()
                 eigh_ops.failure_count(prog.device).zero_()
-                raise RuntimeError(f"eigh: cuSOLVER failed on {failures} matrices in a "
+                raise RuntimeError(f"eigh: cuSOLVER failed on {int(failures)} matrices in a "
                                    "graphed SCF")
+            it += k
             if conv or cycles >= max_cycle:
-                break
-        self.final()
-        stats["replays"] += 1
+                return status
+
+    def run(self, inputs: dict, stats: dict):
+        """Load ``inputs`` (:meth:`SCFProgram.load`), run the incremental
+        mixed loop and restart for the polish where the program is
+        incremental, replay the chunk until converged or ``max_cycle``
+        cycles, then the ``grad_cycles`` polish if any lane converged and
+        the final build; returns the
+        :class:`nbed_tpu_torch.scf.hf.SCFResult` and adds replays, host
+        reads, captures and capture seconds to ``stats``."""
+        prog = self.program
+        prog.load(**inputs)
+        max_cycle = int(inputs["max_cycle"])
+        mixed = 0
+        if prog.incremental:
+            def pick(it, ddm):
+                if self.cycles > 1:
+                    return self._variant((None, None), self.cycles), self.cycles
+                coarse = prog.xc_fast and ddm > prog.xc_switch_tol
+                return self._variant((it % prog.rebase_every == 0, coarse), 1), 1
+
+            mixed = int(self._loop(pick, max_cycle, stats)[1])
+            prog.start_polish()
+        status = self._loop(lambda it, ddm: (self.chunk, self.cycles), max_cycle, stats)
+        if self.grad is not None and status[4]:
+            self._replay(self.grad, stats)
+        self._replay(self.final, stats)
         stats["host_reads"] += 1  # the energy, read by result()
-        return prog.result()
+        return prog.result(mixed)
+
+
+class _FixedProgram:
+    """A one-replay program of the cache (graphed ``get_veff`` or subsystem
+    stage): its input and output ``buffers`` and the :class:`_Captured`
+    function that reads and writes them, over its structure's float64
+    operator buffers (``operands``)."""
+
+    needs = ("f64",)
+
+    def __init__(self, buffers: dict, captured: _Captured, operands):
+        self.buffers, self.captured, self.operands = buffers, captured, operands
+
+
+class _Operands:
+    """The operator buffers of one structure's programs (the reference's
+    jit arguments): fixed device tensors that the programs' closures and
+    graphs read, each holding one owner's operator at a time (an engine,
+    or one lane call), and the memory pool of the structure's graphs. A
+    call from another owner copies its operators in first (eager
+    ``copy_``, outside any graph); the first fill allocates them."""
+
+    def __init__(self):
+        self.buffers, self.owners = {}, {}
+        self.pool = [None]
+
+    def fill(self, owner: int, sources: dict):
+        """Make the buffers of ``sources`` ({name: () -> tensor}) hold
+        ``owner``'s operators; a source is called only where the buffer
+        holds another owner's."""
+        for name, source in sources.items():
+            if self.owners.get(name) == owner:
+                continue
+            value = source().detach()
+            buf = self.buffers.get(name)
+            if buf is None:
+                self.buffers[name] = torch.empty_like(
+                    value, memory_format=torch.contiguous_format).copy_(value)
+            else:
+                buf.copy_(value)
+            self.owners[name] = owner
+
+
+# shared programs across engines, geometries and lane calls, keyed by
+# (kind, structure (SCFEngine._jit_spec), operand shapes, call signature,
+# card): geometry enters only through the operator buffers, so a new engine,
+# driver, conformer or geometry step reuses a program and its graphs
+# instead of capturing again. An LRU bounded as the reference bounds its
+# own (nbed_tpu/scf/engine.py:144-145, 672-685): each entry pins its
+# structure's operator buffers and graph memory
+_JIT_PROGRAM_CACHE: dict = {}
+_JIT_PROGRAM_CACHE_MAX = 24
+# the live operator buffers by (structure, shapes, card): held by their
+# programs
+_OPERANDS = weakref.WeakValueDictionary()
+# owner tokens of the operator buffers (engines and lane calls)
+_OWNERS = itertools.count(1)
+
+
+def _shared_program(key, build):
+    """The cached program of ``key``, promoted to most recently used; else
+    ``build()``'s, inserted after evicting the least recently used entries
+    beyond :data:`_JIT_PROGRAM_CACHE_MAX` (``_shared_jit``'s rules)."""
+    if _CAPTURING[0]:
+        raise RuntimeError("the program cache is not touched during a CUDA graph capture")
+    prog = _JIT_PROGRAM_CACHE.get(key)
+    if prog is None:
+        while len(_JIT_PROGRAM_CACHE) >= _JIT_PROGRAM_CACHE_MAX:
+            _JIT_PROGRAM_CACHE.pop(next(iter(_JIT_PROGRAM_CACHE)))
+        prog = build()
+    else:
+        del _JIT_PROGRAM_CACHE[key]
+    _JIT_PROGRAM_CACHE[key] = prog
+    return prog
+
+
+def _card(device) -> torch.device:
+    """``device`` with its CUDA index (the current card for "cuda"): the
+    card a program's buffers and graphs live on, a part of its keys (the
+    reference's jit specialises per placement)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _operands(key) -> _Operands:
+    """The live :class:`_Operands` of ``key``, or new ones."""
+    ops = _OPERANDS.get(key)
+    if ops is None:
+        ops = _OPERANDS[key] = _Operands()
+    return ops
+
+
+def _stack_spins(h):
+    """A (.., n, n) core Hamiltonian as (.., 2, n, n)."""
+    return torch.stack([h, h], dim=-3)
+
+
+def _jk_closure(buffers, suffix: str, density_fitting: bool, fold, chunk: int):
+    """``dm (2, n, n) -> (J, K)`` over the operator buffers of one dtype
+    (``suffix`` "" for float64, "32" for float32): the fused kernel on
+    ``g_j``/``g_k``, or DF J/K on ``b`` (and ``b_lr``)."""
+    if density_fitting:
+        b, b_lr = buffers["b" + suffix], buffers.get("b_lr" + suffix)
+        return lambda dm: (_df_j(b, dm[0] + dm[1]), _df_k_folded(dm, b, b_lr, chunk, fold))
+    jk = prepare_jk(buffers["g_j" + suffix], buffers["g_k" + suffix])
+    return lambda dm: jk(dm.contiguous())
+
+
+def _xc_closure(buffers, suffix: str, mol, xc: str, streams: bool, dtype):
+    """The engine's XC closure (``_build_xc``) over the operator buffers:
+    AO tables, or the grid points and atoms of the streaming quadrature."""
+    if streams:
+        return make_xc_fn_streaming(mol, buffers["points"], buffers["w" + suffix], xc,
+                                    chunk=STREAM_CHUNK, dtype=dtype, coords=buffers["atoms"])
+    return make_xc_fn(buffers["ao" + suffix], buffers["ao_grad" + suffix],
+                      buffers["w" + suffix], xc, chunk=TABLE_CHUNK)
 
 
 @dataclass(eq=False)
@@ -396,11 +584,12 @@ class SCFEngine:
           same chunk body runs without capture. ``"auto"``: graphed on a
           CUDA device, eager on the CPU. ``"off"``: eager. A call whose
           inputs carry ``requires_grad`` or a forward-mode tangent runs
-          eagerly under "auto" and raises under "on";
-          ``incremental_jk="on"``, whose cycles pick their kernels on the
-          host, runs ``kernel()`` eagerly under "auto" and raises
-          ``NotImplementedError`` under "on". ``last_run`` records how the
-          last ``kernel()`` ran.
+          eagerly under "auto" and raises under "on". The programs are
+          shared by every engine of the same structure (``_jit_spec``),
+          operand shapes and call signature, from a bounded LRU
+          (:data:`_JIT_PROGRAM_CACHE`): a second engine of a molecule, at
+          the same or another geometry, reuses the first one's graphs.
+          ``last_run`` records how the last ``kernel()`` ran.
         dispatch_cycles: SCF cycles per graph replay: K with
           0 < K < max_cycle gives K cycles per replay and one host read of
           the convergence flags after each; 0 (or K >= max_cycle) one
@@ -439,11 +628,11 @@ class SCFEngine:
     df_timings: dict = field(default_factory=dict, init=False, repr=False)
     df_lr_timings: dict = field(default_factory=dict, init=False, repr=False)
     # how the last kernel() ran: mode "graph" or "eager", replays,
-    # host_reads, captures, capture_s, cycles (and warmup_cycles)
+    # host_reads, captures, capture_s, cycles (and warmup_cycles, and the
+    # incremental SCF's mixed_cycles)
     last_run: dict = field(default_factory=dict, init=False, repr=False)
-    _graphs: dict = field(default_factory=dict, init=False, repr=False)
-    # the memory pool of every graph of this engine (see _Captured)
-    _graph_pool: list = field(default_factory=lambda: [None], init=False, repr=False)
+    # this engine as the owner of shared operator buffers (_Operands)
+    _token: int = field(default_factory=lambda: next(_OWNERS), init=False, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -626,11 +815,13 @@ class SCFEngine:
     def _f32_ops(self):
         """Float32 operators of the warm-up SCF: hcore, S, the XC closure,
         hyb, and exact J/K through the fused kernel on float32 casts of the
-        ERI supermatrices (``nbed_tpu/scf/engine.py:462-479``)."""
+        ERI supermatrices ``eri_j``/``eri_k``
+        (``nbed_tpu/scf/engine.py:462-479``)."""
         f32 = torch.float32
-        jk = prepare_jk(self.eri_j.to(f32).contiguous(), self.eri_k.to(f32).contiguous())
+        eri_j, eri_k = self.eri_j.to(f32).contiguous(), self.eri_k.to(f32).contiguous()
+        jk = prepare_jk(eri_j, eri_k)
         return {
-            "hcore": self.hcore.to(f32), "s": self.s.to(f32),
+            "hcore": self.hcore.to(f32), "s": self.s.to(f32), "eri_j": eri_j, "eri_k": eri_k,
             "jk_fn": lambda dm: jk(dm.contiguous()),
             "xc_fn": self._xc_f32, "hyb": self.hyb,
         }
@@ -677,8 +868,9 @@ class SCFEngine:
         n = self.mol.nao
         dm = torch.zeros((n, n), dtype=DTYPE, device=self.device)
         sl = self.mol.aoslice_by_atom()
+        device = _card(self.device)  # "cuda" and "cuda:0" alike
         for ia, z in enumerate(self.mol.atom_charges):
-            blk = _atomic_density(Z_TO_SYMBOL[int(z)], self.mol.basis, str(self.device),
+            blk = _atomic_density(Z_TO_SYMBOL[int(z)], self.mol.basis, str(device),
                                   self.jit_kernel)
             p0, p1 = int(sl[ia, 2]), int(sl[ia, 3])
             dm[p0:p1, p0:p1] = blk
@@ -736,25 +928,18 @@ class SCFEngine:
         return VeffResult(matrix=v, ecoul=ecoul, exc=exc)
 
     # ------------------------------------------------------ graphed programs
-    def _takes_graphs(self, inputs, kernel: bool = False) -> bool:
+    def _takes_graphs(self, inputs) -> bool:
         """Whether a call with tensors ``inputs`` runs as graphed programs
-        (see ``jit_kernel``); ``kernel`` marks a ``kernel()`` call, which the
-        incremental SCF keeps eager."""
+        (see ``jit_kernel``)."""
         if self.jit_kernel == "off":
             return False
-        differentiable = any(_carries_derivative(t) for t in inputs)
-        incremental = kernel and self.incremental_jk == "on"
+        differentiable = any(carries_derivative(t) for t in inputs)
         if self.jit_kernel == "on":
-            if incremental:
-                raise NotImplementedError(
-                    "jit_kernel='on' with incremental_jk='on': the incremental SCF picks "
-                    "its J/K kernels per cycle on the host (rebase cycles, |dD| switch) "
-                    "and is not graphed")
             if differentiable:
                 raise ValueError("jit_kernel='on' takes no input that carries requires_grad "
                                  "or a forward-mode tangent; use 'auto' or 'off'")
             return True
-        return self.device.type == "cuda" and not (incremental or differentiable)
+        return self.device.type == "cuda" and not differentiable
 
     def _dispatch_chunk(self, total: int) -> Optional[int]:
         """SCF cycles per graph replay for a ``total``-cycle SCF, or None
@@ -763,35 +948,139 @@ class SCFEngine:
         k = DISPATCH_CYCLES if self.dispatch_cycles is None else int(self.dispatch_cycles)
         return k if 0 < k < total else None
 
-    def _scf_graph(self, dtype, nelec, present, level_shift: float, cycles: int):
-        """The :class:`_GraphedSCF` of one call signature: ``dtype`` (the
-        float32 warm-up or the float64 SCF), ``nelec``, which of v_emb,
-        dm_env_occ, dm_env_virt are ``present``, the level shift and the
-        cycles per replay."""
-        key = (dtype, tuple(int(v) for v in nelec), present, float(level_shift), cycles)
-        graph = self._graphs.get(key)
-        if graph is None:
-            if dtype == DTYPE:
-                hcore, s, x, xc_fn = self.hcore, self.s, self.x, self.xc_fn
-                jk_fn = self._jk_function  # not self.get_jk: see _jk_function
+    @cached_property
+    def _jit_spec(self) -> tuple:
+        """The structure that keys shared programs (the reference's
+        ``_jit_spec``, ``engine.py:657-670``, less its Pallas switch, which
+        the port lacks): atoms, basis, charge, spin, MM charges present,
+        method and the options that shape a program. Geometry enters
+        through the operator buffers, so conformers and geometry steps of
+        one molecule share programs."""
+        mol = self.mol
+        return (
+            tuple(int(z) for z in mol.atom_charges), mol.basis, mol.charge, mol.spin,
+            mol.mm_coords is not None,
+            self.xc, self.rohf, self.density_fitting, float(self.df_beta),
+            self.incremental_jk == "on", int(self.rebase_every),
+            self.grid_scheme, tuple(self.grid_size), int(self.grid_level),
+            self._df_chunk_elems, float(self._XC_TABLE_LIMIT),
+        )
+
+    @property
+    def _operand_shapes(self) -> tuple:
+        """The operand sizes a program is traced for where JAX would
+        retrace: nao, the kept auxiliary functions of the DF factor(s) and
+        the grid points (all of which can change with the geometry)."""
+        naux = self.df_factor().shape[1] if self.density_fitting else None
+        naux_lr = (self.df_factor_lr().shape[1]
+                   if self.density_fitting and self._rsh is not None else None)
+        points = self._grid[0].shape[0] if self._xc_meta[0] else None
+        return self.mol.nao, naux, naux_lr, points
+
+    def _shared_jit(self, kind: str, build, signature: tuple = ()):
+        """The shared program of ``kind`` for this engine's structure,
+        operand shapes, call ``signature`` and card, from the bounded LRU
+        :data:`_JIT_PROGRAM_CACHE` (built by ``build(operands)`` on a miss),
+        with this engine's operators in its buffers."""
+        card = _card(self.device)
+        ops = _operands((self._jit_spec, self._operand_shapes, card))
+        prog = _shared_program((kind, self._jit_spec, self._operand_shapes, signature, card),
+                               lambda: build(ops))
+        ops.fill(self._token, self._operand_sources(prog.needs))
+        return prog
+
+    def _operand_sources(self, groups) -> dict:
+        """{buffer name: () -> this engine's tensor} of the operator groups
+        ``groups``: "f64" (hcore, S, X, J/K and XC operators), "f32" (the
+        warm-up's float32 casts, exact J/K), "fast" (the incremental SCF's
+        float32 J/K and XC operators)."""
+        f32 = torch.float32
+        out = {}
+        streams = self._xc_streams if self._xc_meta[0] else False
+
+        def xc(suffix, dtype):
+            if not self._xc_meta[0]:
+                return
+            points, weights = self._grid
+            if streams:
+                out.update(points=lambda: points, atoms=lambda: self._tensor(self.coords))
+                out["w" + suffix] = lambda: weights.to(dtype)
             else:
-                ops = self._f32_ops
-                hcore, s, jk_fn, xc_fn = ops["hcore"], ops["s"], ops["jk_fn"], ops["xc_fn"]
-                x = lowdin_x(s)
-            cuda = self.device.type == "cuda"
+                out["ao" + suffix] = lambda: self._ao_tables[0].to(dtype)
+                out["ao_grad" + suffix] = lambda: self._ao_tables[1].to(dtype)
+                out["w" + suffix] = lambda: weights.to(dtype)
+
+        if "f64" in groups:
+            out.update(hcore=lambda: _stack_spins(self.hcore), s=lambda: self.s,
+                       x=lambda: self.x)
+            if self.density_fitting:
+                out["b"] = self.df_factor
+                if self._rsh is not None:
+                    out["b_lr"] = self.df_factor_lr
+            else:
+                out.update(g_j=lambda: self.eri_j, g_k=lambda: self.eri_k)
+            xc("", DTYPE)
+        if "f32" in groups:
+            out.update(hcore32=lambda: _stack_spins(self._f32_ops["hcore"]),
+                       s32=lambda: self._f32_ops["s"],
+                       x32=lambda: lowdin_x(self._f32_ops["s"]),
+                       g_j32=lambda: self._f32_ops["eri_j"], g_k32=lambda: self._f32_ops["eri_k"])
+            xc("32", f32)
+        if "fast" in groups:
+            if self.density_fitting:
+                out["b32"] = lambda: self.df_factor().to(f32)
+                if self._rsh is not None:
+                    out["b_lr32"] = lambda: self.df_factor_lr().to(f32)
+            else:
+                out.update(g_j32=lambda: self._f32_ops["eri_j"],
+                           g_k32=lambda: self._f32_ops["eri_k"])
+            xc("32", f32)
+        return out
+
+    def _scf_graph(self, dtype, nelec, present, level_shift: float, cycles: int):
+        """The shared :class:`_GraphedSCF` of one call signature: ``dtype``
+        (the float32 warm-up or the float64 SCF), ``nelec``, which of v_emb,
+        dm_env_occ, dm_env_virt are present, the level shift and the cycles
+        per replay; with this engine's operators in its buffers."""
+        nelec = tuple(int(v) for v in nelec)
+        incremental = dtype == DTYPE and self.incremental_jk == "on"
+        mol, xc, streams = self.mol, self.xc, self._xc_meta[0] and self._xc_streams
+        density_fitting, fold, chunk = self.density_fitting, self._k_fold, self._df_chunk_elems
+        hyb, rohf, rebase_every = self.hyb, self.rohf, self.rebase_every
+        device = self.device
+
+        def build(ops):
+            # the closures read the buffers only: a cached program holds no
+            # engine (a dropped engine goes at once, see _Captured.capture)
+            needs = ("f64", "fast") if incremental else ("f64",) if dtype == DTYPE else ("f32",)
+            ops.fill(self._token, self._operand_sources(needs))
+            b = ops.buffers
+            sfx = "" if dtype == DTYPE else "32"
+            fast = {}
+            if incremental:
+                fast = dict(jk_fast=_jk_closure(b, "32", density_fitting, fold, chunk),
+                            xc_fast=None if not self._xc_meta[0] else
+                            _xc_closure(b, "32", mol, xc, streams, torch.float32),
+                            rebase_every=rebase_every)
             program = SCFProgram(
-                hcore=hcore, s=s, x=x, nelec=nelec, jk_fn=jk_fn, xc_fn=xc_fn, hyb=self.hyb,
-                huzinaga=present[1], level_shift=level_shift, rohf=self.rohf,
-                eigh=eigh_ops.eigh,
-                failures=eigh_ops.failure_count(self.device) if cuda else None)
-            graph = self._graphs[key] = _GraphedSCF(program, cycles, self._graph_pool)
-        return graph
+                hcore=b["hcore" + sfx], s=b["s" + sfx], x=b["x" + sfx], nelec=nelec,
+                jk_fn=_jk_closure(b, sfx, density_fitting and dtype == DTYPE, fold, chunk),
+                xc_fn=None if not self._xc_meta[0] else
+                _xc_closure(b, sfx, mol, xc, streams, dtype),
+                hyb=hyb, huzinaga=present[1], level_shift=level_shift, rohf=rohf,
+                failures=eigh_ops.failure_count(device) if device.type == "cuda" else None,
+                **fast)
+            return _GraphedSCF(program, cycles, ops.pool, ops, needs)
+
+        key = (dtype, nelec, present, float(level_shift), cycles)
+        return self._shared_jit("kernel", build, key)
 
     def _graphed_kernel(self, nelec, v_emb, dm_env_occ, dm_env_virt, dm0, conv_tol,
                         dm_conv_tol, max_cycle, level_shift, warmup, stats):
         """The SCF of :meth:`kernel` as graphed programs: the float32
-        warm-up when ``warmup``, then the float64 SCF (the reference's
-        ``_jitted_kernel``, ``engine.py:764-851``)."""
+        warm-up when ``warmup``, then the float64 SCF, incremental where
+        ``incremental_jk`` is "on" (the reference's ``_jitted_kernel``,
+        ``engine.py:764-851``)."""
         chunk = self._dispatch_chunk(max_cycle)
         cycles = max_cycle if chunk is None else chunk
         present = (v_emb is not None, dm_env_occ is not None, dm_env_virt is not None)
@@ -815,55 +1104,77 @@ class SCFEngine:
         stats["launches_per_replay"] = graph.launches_per_replay()
         return res
 
-    @cached_property
+    def _fixed_program(self, kind: str, make):
+        """The shared veff or subsystem program: ``make(jk, xc_fn, hcore,
+        device)`` over the float64 operator buffers returns (its input and
+        output buffers, the function to capture)."""
+        mol, xc, streams = self.mol, self.xc, self._xc_meta[0] and self._xc_streams
+        density_fitting, fold, chunk = self.density_fitting, self._k_fold, self._df_chunk_elems
+        device = self.device
+
+        def build(ops):
+            ops.fill(self._token, self._operand_sources(("f64",)))
+            b = ops.buffers
+            jk = _jk_closure(b, "", density_fitting, fold, chunk)
+            xc_fn = None if not self._xc_meta[0] else _xc_closure(b, "", mol, xc, streams, DTYPE)
+            buffers, fn = make(jk, xc_fn, b["hcore"][0])
+            prog = _FixedProgram(buffers, _Captured(fn, device, ops.pool), ops)
+            return prog
+
+        return self._shared_jit(kind, build)
+
     def _veff_graph(self):
-        """(dm buffer, output buffers, :class:`_Captured`) of ``get_veff``
-        (the reference's ``_jitted_veff``, ``engine.py:857-870``)."""
-        n = self.mol.nao
-        dm_in = torch.zeros((2, n, n), dtype=DTYPE, device=self.device)
-        out = {"matrix": torch.zeros_like(dm_in),
-               "e": torch.zeros(2, dtype=DTYPE, device=self.device)}
-        xc_fn, hyb = self._xc
-        jk, veff_math = self._jk_function, self._veff_math  # not self: see _jk_function
+        """The shared ``get_veff`` program (the reference's
+        ``_jitted_veff``, ``engine.py:857-870``): buffers "dm", "matrix",
+        "e"."""
+        n, hyb, veff_math, device = self.mol.nao, self.hyb, self._veff_math, self.device
 
-        def fn():
-            j, k = jk(dm_in)
-            v = veff_math(dm_in, j, k, xc_fn, hyb)
-            out["matrix"].copy_(v.matrix)
-            out["e"].copy_(torch.stack([v.ecoul, v.exc]))
+        def make(jk, xc_fn, _h):
+            dm_in = torch.zeros((2, n, n), dtype=DTYPE, device=device)
+            out = {"dm": dm_in, "matrix": torch.zeros_like(dm_in),
+                   "e": torch.zeros(2, dtype=DTYPE, device=device)}
 
-        return dm_in, out, _Captured(fn, self.device, self._graph_pool)
+            def fn():
+                j, k = jk(dm_in)
+                v = veff_math(dm_in, j, k, xc_fn, hyb)
+                out["matrix"].copy_(v.matrix)
+                out["e"].copy_(torch.stack([v.ecoul, v.exc]))
 
-    @cached_property
+            return out, fn
+
+        return self._fixed_program("veff", make)
+
     def _subsystem_graph(self):
-        """(dm_act, dm_env buffers, output buffers, :class:`_Captured`) of
-        the subsystem-DFT stage: three J/K and XC builds in one program (the
-        reference's ``_jitted_subsys``, ``engine.py:904-937``)."""
-        n = self.mol.nao
-        dm_act = torch.zeros((2, n, n), dtype=DTYPE, device=self.device)
-        dm_env = torch.zeros_like(dm_act)
-        out = {"e": torch.zeros(3, dtype=DTYPE, device=self.device),
-               "v_emb": torch.zeros_like(dm_act)}
-        xc_fn, hyb = self._xc
-        h = self.hcore
-        jk, veff_math = self._jk_function, self._veff_math  # not self: see _jk_function
+        """The shared subsystem-DFT program: three J/K and XC builds in one
+        graph (the reference's ``_jitted_subsys``, ``engine.py:904-937``):
+        buffers "dm_act", "dm_env", "e", "v_emb"."""
+        n, hyb, veff_math, device = self.mol.nao, self.hyb, self._veff_math, self.device
 
-        def comp(dm):
-            j, k = jk(dm)
-            v = veff_math(dm, j, k, xc_fn, hyb)
-            return torch.einsum("ij,ji->", h, dm[0] + dm[1]) + v.ecoul + v.exc, v, j
+        def make(jk, xc_fn, h):
+            dm_act = torch.zeros((2, n, n), dtype=DTYPE, device=device)
+            dm_env = torch.zeros_like(dm_act)
+            out = {"dm_act": dm_act, "dm_env": dm_env,
+                   "e": torch.zeros(3, dtype=DTYPE, device=device),
+                   "v_emb": torch.zeros_like(dm_act)}
 
-        def fn():
-            e_act, v_act, j_act = comp(dm_act)
-            e_env, v_env, j_env = comp(dm_env)
-            _, v_tot, _ = comp(dm_act + dm_env)
-            j_cross = 0.5 * (torch.einsum("ij,ij", dm_act[0] + dm_act[1], j_env)
-                             + torch.einsum("ij,ij", dm_env[0] + dm_env[1], j_act))
-            xc_cross = v_tot.exc - v_act.exc - v_env.exc
-            out["e"].copy_(torch.stack([e_act, e_env, j_cross + xc_cross]))
-            out["v_emb"].copy_(v_tot.matrix - v_act.matrix)
+            def comp(dm):
+                j, k = jk(dm)
+                v = veff_math(dm, j, k, xc_fn, hyb)
+                return torch.einsum("ij,ji->", h, dm[0] + dm[1]) + v.ecoul + v.exc, v, j
 
-        return dm_act, dm_env, out, _Captured(fn, self.device, self._graph_pool)
+            def fn():
+                e_act, v_act, j_act = comp(dm_act)
+                e_env, v_env, j_env = comp(dm_env)
+                _, v_tot, _ = comp(dm_act + dm_env)
+                j_cross = 0.5 * (torch.einsum("ij,ij", dm_act[0] + dm_act[1], j_env)
+                                 + torch.einsum("ij,ij", dm_env[0] + dm_env[1], j_act))
+                xc_cross = v_tot.exc - v_act.exc - v_env.exc
+                out["e"].copy_(torch.stack([e_act, e_env, j_cross + xc_cross]))
+                out["v_emb"].copy_(v_tot.matrix - v_act.matrix)
+
+            return out, fn
+
+        return self._fixed_program("subsys", make)
 
     @staticmethod
     def _replay(captured: _Captured, what: str):
@@ -882,11 +1193,11 @@ class SCFEngine:
         graph replay where ``jit_kernel`` graphs the call."""
         dm = _spinify(self._tensor(dm))
         if self._takes_graphs((dm,)):
-            dm_in, out, captured = self._veff_graph
-            dm_in.copy_(dm)
-            self._replay(captured, "veff_graph")
-            ecoul, exc = out["e"].clone()
-            return VeffResult(matrix=out["matrix"].clone(), ecoul=ecoul, exc=exc)
+            prog = self._veff_graph()
+            prog.buffers["dm"].copy_(dm)
+            self._replay(prog.captured, "veff_graph")
+            ecoul, exc = prog.buffers["e"].clone()
+            return VeffResult(matrix=prog.buffers["matrix"].clone(), ecoul=ecoul, exc=exc)
         j, k = self.get_jk(dm)
         xc_fn, hyb = self._xc
         return self._veff_math(dm, j, k, xc_fn, hyb)
@@ -897,13 +1208,13 @@ class SCFEngine:
         one replay and one host read of the three energies."""
         dm_act, dm_env = _spinify(self._tensor(dm_act)), _spinify(self._tensor(dm_env))
         if self._takes_graphs((dm_act, dm_env)):
-            act_in, env_in, out, captured = self._subsystem_graph
-            act_in.copy_(dm_act)
-            env_in.copy_(dm_env)
-            self._replay(captured, "subsystem_graph")
-            e_act, e_env, cross = out["e"].tolist()
+            prog = self._subsystem_graph()
+            prog.buffers["dm_act"].copy_(dm_act)
+            prog.buffers["dm_env"].copy_(dm_env)
+            self._replay(prog.captured, "subsystem_graph")
+            e_act, e_env, cross = prog.buffers["e"].tolist()
             RUNS["host_reads"] += 1
-            return e_act, e_env, cross, out["v_emb"].clone()
+            return e_act, e_env, cross, prog.buffers["v_emb"].clone()
         v_act = self.get_veff(dm_act)
         v_env = self.get_veff(dm_env)
         v_tot = self.get_veff(dm_act + dm_env)
@@ -947,7 +1258,7 @@ class SCFEngine:
         v_emb_t = None if v_emb is None else self._tensor(v_emb)
         stats = {"mode": "eager", "replays": 0, "host_reads": 0, "captures": 0,
                  "capture_s": 0.0}
-        if self._takes_graphs((v_emb_t, dm_env_occ, dm_env_virt, dm0), kernel=True):
+        if self._takes_graphs((v_emb_t, dm_env_occ, dm_env_virt, dm0)):
             stats["mode"] = "graph"
             v2 = v_emb_t if v_emb_t is None or v_emb_t.ndim == 3 else \
                 torch.stack([v_emb_t, v_emb_t])
@@ -977,6 +1288,8 @@ class SCFEngine:
                 level_shift=level_shift, rohf=self.rohf,
             )
         stats["cycles"] = res.n_iter
+        if self.incremental_jk == "on":
+            stats["mixed_cycles"] = res.n_mixed
         self.last_run = stats
         RUNS[stats["mode"]] += 1
         for key in ("replays", "host_reads", "captures", "capture_s", "cycles"):
@@ -1109,3 +1422,140 @@ class SCFSolution:
         sz = 0.5 * (na - nb)
         s2 = sz * (sz + 1.0) + nb - float(torch.sum(ovlp * ovlp))
         return s2, 2.0 * (s2 + 0.25) ** 0.5
+
+
+def _lanes_take_graphs(jit_kernel: str, tensors, inputs, use_diis: bool) -> bool:
+    """Whether a lane call runs as a program of the cache: "on", or "auto"
+    on one CUDA device; never with inputs that carry a derivative, without
+    DIIS or over several devices, which run eagerly under "auto" and are
+    refused under "on"."""
+    if jit_kernel not in ("on", "off", "auto"):
+        raise ValueError(f"jit_kernel must be 'on', 'off' or 'auto', got {jit_kernel!r}")
+    if jit_kernel == "off":
+        return False
+    everything = [*tensors, *(t for t in inputs if t is not None)]
+    if any(carries_derivative(t) for t in everything):
+        if jit_kernel == "on":
+            raise ValueError("jit_kernel='on' takes no input that carries requires_grad "
+                             "or a forward-mode tangent; use 'auto' or 'off'")
+        return False
+    devices = {t.device for t in everything}
+    if not use_diis or len(devices) != 1:
+        if jit_kernel == "on":
+            raise ValueError("jit_kernel='on' runs the lane program with DIIS on one device; "
+                             "use 'auto' or 'off' for use_diis=False or operands on "
+                             f"{len(devices)} devices")
+        return False
+    return jit_kernel == "on" or next(iter(devices)).type == "cuda"
+
+
+def lane_scf(spec: tuple, operands: dict, build, *, nelec, hyb: float = 1.0, v_emb=None,
+             dm_env_occ=None, dm_env_virt=None, dm0=None, conv_tol: float = 1e-6,
+             dm_conv_tol: float = 1e-6, max_cycle: int = 50, level_shift: float = 0.0,
+             grad_cycles: int = 0, diis_space: int = 8, use_diis: bool = True,
+             jit_kernel: str = "auto", dispatch_cycles: Optional[int] = None):
+    """The SCF of B lanes (:func:`nbed_tpu_torch.scf.hf.run_scf` over a lane
+    axis) as a shared program of :data:`_JIT_PROGRAM_CACHE`: the batched
+    energies, gradients and Hessians, the embedding program's primal lanes
+    and ``hf_gradient``'s SCF (the reference's ``jax.jit(jax.vmap(...))``).
+
+    ``operands``: "hcore" (B, n, n) or (B, 2, n, n), "s" (B, n, n) and the
+    tensors ``build`` reads; ``build(tensors) -> (jk_fn, xc_fn)`` gives the
+    lane closures over (B, 2, n, n) densities of any such dict, and must
+    hold nothing else (it is called once on the program's own buffers).
+    ``spec`` names the structure and the closures' constants (the lanes'
+    ``_jit_spec``): programs are keyed by (spec, operand shapes, call
+    signature), so every call of one structure and B shares one program and
+    its graphs; each call copies its operators into the program's buffers.
+
+    ``jit_kernel`` as ``SCFEngine``'s: "auto" runs the program on a CUDA
+    device and :func:`run_scf` on the closures over ``operands`` elsewhere,
+    "on" the program everywhere (uncaptured off CUDA), "off" ``run_scf``.
+    Inputs that carry a derivative, ``use_diis=False`` and operands on
+    several devices run ``run_scf`` under "auto" and raise under "on".
+    ``dispatch_cycles`` as ``SCFEngine``'s.
+    Returns the lanes' :class:`~nbed_tpu_torch.scf.hf.SCFResult`."""
+    hcore = operands["hcore"]
+    tensors = dict(operands, hcore=_stack_spins(hcore) if hcore.ndim == 3 else hcore)
+    if v_emb is not None and v_emb.ndim == 3:
+        v_emb = _stack_spins(v_emb)
+    scf_kw = dict(nelec=nelec, hyb=hyb, v_emb=v_emb, dm_env_occ=dm_env_occ,
+                  dm_env_virt=dm_env_virt, dm0=dm0, conv_tol=conv_tol,
+                  dm_conv_tol=dm_conv_tol, max_cycle=max_cycle, level_shift=level_shift,
+                  grad_cycles=grad_cycles, diis_space=diis_space)
+    if not _lanes_take_graphs(jit_kernel, tensors.values(), (v_emb, dm_env_occ, dm_env_virt,
+                                                             dm0), use_diis):
+        jk_fn, xc_fn = build(operands)
+        RUNS["lanes_eager"] += 1
+        return run_scf(hcore=hcore, s=operands["s"], jk_fn=jk_fn, xc_fn=xc_fn,
+                       use_diis=use_diis, **scf_kw)
+    s = tensors["s"]
+    tensors["x"] = lowdin_x(s)
+    k = DISPATCH_CYCLES if dispatch_cycles is None else int(dispatch_cycles)
+    cycles = k if 0 < k < max_cycle else int(max_cycle)
+    nelec = tuple(int(v) for v in nelec)
+    present = (v_emb is not None, dm_env_occ is not None, dm_env_virt is not None)
+    shapes = tuple(sorted((name, tuple(t.shape), str(t.dtype)) for name, t in tensors.items()))
+    device = _card(s.device)
+    ops = _operands(("lanes", spec, shapes, device))
+
+    def make():
+        b = ops.buffers
+        jk_fn, xc_fn = build(b)
+        program = SCFProgram(
+            hcore=b["hcore"], s=b["s"], x=b["x"], nelec=nelec, jk_fn=jk_fn, xc_fn=xc_fn,
+            hyb=hyb, huzinaga=present[1], level_shift=level_shift, diis_space=diis_space,
+            lanes=True, grad_cycles=grad_cycles,
+            failures=eigh_ops.failure_count(device) if device.type == "cuda" else None)
+        return _GraphedSCF(program, cycles, ops.pool, ops)
+
+    owner = next(_OWNERS)  # a lane call's operators are its own
+    ops.fill(owner, {name: (lambda t=t: t) for name, t in tensors.items()})
+    graph = _shared_program(
+        ("lanes", spec, shapes, (nelec, present, float(level_shift), cycles,
+                                 int(grad_cycles), float(hyb), int(diis_space)), device),
+        make)
+    stats = {"replays": 0, "host_reads": 0, "captures": 0, "capture_s": 0.0}
+    res = graph.run(dict(v_emb=v_emb, dm_env_occ=dm_env_occ, dm_env_virt=dm_env_virt,
+                         dm0=None if dm0 is None else dm0.to(s.dtype),
+                         conv_tol=conv_tol, dm_conv_tol=dm_conv_tol, max_cycle=max_cycle),
+                    stats)
+    RUNS["lanes_graph"] += 1
+    for key, value in stats.items():
+        RUNS[key] += value
+    return res
+
+
+def lane_spec(mol: Molecule, tag: str, *extra) -> tuple:
+    """The structure key of a lane program: ``mol``'s atoms, basis, charge,
+    spin and MM charges (the fields of ``SCFEngine._jit_spec`` that a
+    molecule sets), the closures' kind ``tag`` and their constants."""
+    return (tuple(int(z) for z in mol.atom_charges), mol.basis, mol.charge, mol.spin,
+            mol.mm_coords is not None, tag, *extra)
+
+
+def single_scf(spec: tuple, operands: dict, build, *, jit_kernel: str = "auto",
+               use_diis: bool = True, **scf_kw):
+    """One geometry's SCF as a program of the cache: :func:`lane_scf` of one
+    lane. ``operands`` as there with "hcore" (n, n) or (2, n, n) and "s"
+    (n, n); ``build`` gives single-geometry closures. Where the call does
+    not take a program (see :func:`lane_scf`), :func:`run_scf` on the
+    closures over ``operands``. Returns a single-geometry
+    :class:`~nbed_tpu_torch.scf.hf.SCFResult`."""
+    inputs = tuple(scf_kw.get(k) for k in ("v_emb", "dm_env_occ", "dm_env_virt", "dm0"))
+    if not _lanes_take_graphs(jit_kernel, operands.values(), inputs, use_diis):
+        jk_fn, xc_fn = build(operands)
+        RUNS["lanes_eager"] += 1
+        return run_scf(hcore=operands["hcore"], s=operands["s"], jk_fn=jk_fn, xc_fn=xc_fn,
+                       use_diis=use_diis, **scf_kw)
+
+    def lane_build(t):
+        jk_fn, xc_fn = build(dict(t, hcore=t["hcore"][0], s=t["s"][0]))
+        return _one_lane(jk_fn), _one_lane(xc_fn)
+
+    for key in ("v_emb", "dm_env_occ", "dm_env_virt", "dm0"):
+        if scf_kw.get(key) is not None:
+            scf_kw[key] = scf_kw[key][None]
+    return _first_lane(lane_scf(
+        spec, dict(operands, hcore=operands["hcore"][None], s=operands["s"][None]),
+        lane_build, jit_kernel=jit_kernel, **scf_kw))

@@ -17,28 +17,32 @@ float64 J/K of the previous cycle, rebuilding J/K in float64 every
 ``rebase_every`` cycles; coarse cycles may take float32 XC. A short
 float64 polish loop then lands on the float64 fixed point
 (``nbed_tpu/scf/hf.py:299-429``). The reference's ``lax.cond`` branches
-become Python ``if`` on host scalars.
+become a per-cycle choice of cycle variant from the cycle's host read (or
+``torch.where`` over both builds, see :func:`_lane_ops`).
 
 Lanes: an ``s`` of shape (B, n, n) runs B SCFs at once (a batch of
 conformers), the reference's ``vmap`` of its ``while_loop``. Every operator
-and the DIIS history carry the lane axis, ``eigh`` and the DIIS solve are
-batched ``torch.linalg`` calls, and the loop reads one (B,) convergence
-tensor per cycle. A converged lane is frozen: as the vmapped loop selects
-the old carry where a lane's condition is false, each cycle's update is
-taken only on the lanes still running, so lane b ends where the same
-geometry run alone ends, in the same number of cycles. The lane form takes
-the float64 operators of HF, KS and Huzinaga SCFs; ROHF and the mixed
-precision modes stay single-geometry.
+and the DIIS history carry the lane axis, the Fock diagonalisation and the
+DIIS solve are batched eigh calls (:func:`scf_eigh`), and the loop reads
+one (B,) convergence tensor per cycle. A converged lane is frozen: as the
+vmapped loop selects the old carry where a lane's condition is false, each
+cycle's update is taken only on the lanes still running, so lane b ends
+where the same geometry run alone ends, in the same number of cycles. The
+lane form takes the float64 operators of HF, KS and Huzinaga SCFs; ROHF
+and the mixed precision modes run over lanes for one geometry only.
 
 One cycle of the lane form is a function of device state alone
 (:func:`_lane_ops`): the DIIS slot, the fill count, the cycle counter and
 the convergence test are device tensors, and the cycle reads nothing back
 to the host. The lane loop reads its (B,) convergence tensor after each
-cycle; :class:`SCFProgram` runs the same cycle at B = 1 on fixed buffers,
-K cycles at a time, which is what the engine captures as a CUDA graph
-(``SCFEngine(jit_kernel=...)``, the port of the reference's one compiled
-program per SCF). The single-geometry loop of :func:`run_scf` keeps its own
-per-cycle host reads.
+cycle; :class:`SCFProgram` runs the same cycle on fixed buffers, K cycles
+at a time, which is what the engine captures as CUDA graphs
+(``SCFEngine(jit_kernel=...)`` and the lane programs of
+:func:`nbed_tpu_torch.scf.engine.lane_scf`, the port of the reference's
+compiled programs). A float64 single-geometry :func:`run_scf` keeps its own
+loop, whose rounding follows the reference's; a float32 or incremental one
+runs the lane loop over one lane, so that it takes the programs' iterates
+(float32 rounding compounds over the cycles).
 
 ``grad_cycles`` (``nbed_tpu/scf/hf.py:431-455``) adds that many DIIS-free
 cycles, damped by 0.5, after a converged loop: a no-op on the converged
@@ -57,6 +61,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops import eigh as eigh_ops
 from ..ops.jk import prepare_jk
 
 __all__ = ["SCFResult", "SCFProgram", "run_scf", "make_rdm1", "lowdin_x",
@@ -78,6 +83,7 @@ class SCFResult:
     fock: torch.Tensor  # (2, n, n) final Fock (incl. v_emb + huzinaga)
     huzinaga_op: torch.Tensor  # (2, n, n) final Huzinaga operator (zeros if off)
     n_iter: int
+    n_mixed: int = 0  # of n_iter, the incremental mixed loop's cycles (0 without one)
 
 
 def make_rdm1(mo_coeff, mo_occ):
@@ -87,7 +93,11 @@ def make_rdm1(mo_coeff, mo_occ):
 
 
 def lowdin_x(s):
-    """S^{-1/2} via eigh, of (n, n) or (B, n, n)."""
+    """S^{-1/2} via eigh, of (n, n) or (B, n, n), one matrix at a time (a
+    batched eigh rounds differently, and a float32 SCF from another X
+    takes other cycles)."""
+    if s.ndim == 3:
+        return torch.stack([lowdin_x(m) for m in s])
     w, v = torch.linalg.eigh(s)
     return (v * (1.0 / torch.sqrt(w))[..., None, :]) @ v.transpose(-1, -2)
 
@@ -130,13 +140,15 @@ def roothaan_effective(f, dm, s):
     return torch.stack([feff, feff], dim=-3)
 
 
-def _diis_extrapolate(hist_f, hist_e, nfill, eigh=torch.linalg.eigh):
+def _diis_extrapolate(hist_f, hist_e, nfill, eigh=torch.linalg.eigh, count=None):
     """Pulay extrapolation of the history Focks ([B,] m, 2, n, n) over the
     ``nfill`` (an int or a device integer) filled slots of the ring buffer,
     with the reference's eigh pseudo-inverse and relative cut
-    (``hf.py:260-292``), per lane; ``eigh`` solves the padded system. The
-    coefficients come from the detached errors, so no derivative reaches
-    them."""
+    (``hf.py:260-292``), per lane; ``eigh`` solves the padded system (with
+    ``count``, the (B,) lanes whose solver failures count, and a retry of
+    failed solves, where given).
+    The coefficients come from the detached errors, so no derivative
+    reaches them."""
     hist_e = hist_e.detach()
     m = hist_e.shape[-4]
     lead = tuple(hist_e.shape[:-4])
@@ -152,7 +164,9 @@ def _diis_extrapolate(hist_f, hist_e, nfill, eigh=torch.linalg.eigh):
     # e_m, built on the device (a host scalar written into a device tensor
     # is a copy that a CUDA graph capture refuses)
     rhs = (torch.arange(m + 1, device=device) == m).to(dtype)
-    ew, ev = eigh(big)
+    # the lane SCFs' eigh retries a failed solve shifted (a nearly converged
+    # SCF's DIIS system: see nbed_tpu_torch.ops.eigh.eigh_retry)
+    ew, ev = eigh(big) if count is None else eigh(big, count, retry=True)
     cut = torch.amax(torch.abs(ew), dim=-1, keepdim=True) * max(
         1e-12, (m + 1) * torch.finfo(dtype).eps)
     inv_ew = torch.where(torch.abs(ew) > cut, 1.0 / ew, torch.zeros_like(ew))
@@ -234,6 +248,21 @@ def run_scf(
             dm_env_occ=dm_env_occ, dm_env_virt=dm_env_virt, dm0=dm0, conv_tol=conv_tol,
             dm_conv_tol=dm_conv_tol, max_cycle=max_cycle, diis_space=diis_space,
             level_shift=level_shift, use_diis=use_diis, grad_cycles=grad_cycles)
+    if jk_fn_fast is not None or xc_fn_fast is not None or hcore.dtype == torch.float32:
+        # the mixed-precision loops, one geometry as one lane: the graphed
+        # programs' cycle and eigh, so that a float32 loop, whose rounding
+        # compounds, runs the same iterates eagerly and graphed
+        def lane(t):
+            return None if t is None else t[None]
+
+        return _first_lane(_run_scf_lanes(
+            hcore=lane(hcore), s=s[None], nelec=nelec, jk_fn=_one_lane(jk_fn),
+            v_emb=lane(v_emb), xc_fn=_one_lane(xc_fn), hyb=hyb, dm_env_occ=lane(dm_env_occ),
+            dm_env_virt=lane(dm_env_virt), dm0=lane(dm0), conv_tol=conv_tol,
+            dm_conv_tol=dm_conv_tol, max_cycle=max_cycle, diis_space=diis_space,
+            level_shift=level_shift, use_diis=use_diis, grad_cycles=grad_cycles, rohf=rohf,
+            jk_fn_fast=_one_lane(jk_fn_fast), xc_fn_fast=_one_lane(xc_fn_fast),
+            rebase_every=rebase_every, xc_switch_tol=xc_switch_tol))
     n = s.shape[-1]
     if hcore.ndim == 2:
         hcore = torch.stack([hcore, hcore])
@@ -277,10 +306,6 @@ def run_scf(
         ex_hf = -0.5 * hyb * torch.einsum("sij,sji->", k, dm)
         return f, huz, e1 + ecoul + ex_hf + exc
 
-    def xc_f32(dm):
-        exc, vxc = xc_fn_fast(dm.to(torch.float32))
-        return exc.to(dm.dtype), vxc.to(dm.dtype)
-
     def eig_fock(f):
         f_ortho = torch.einsum("pi,spq,qj->sij", x, f, x)
         mo_e, c_ortho = torch.linalg.eigh(f_ortho)
@@ -303,29 +328,18 @@ def run_scf(
         dm_new = make_rdm1(c, occ)
         return (1.0 - damp) * dm_new + damp * dm, e_cur, c, mo_e
 
-    def loop(dm, e_prev, c, mo_e, inc: bool, xcfast: bool):
+    def loop(dm, e_prev, c, mo_e):
         """SCF cycles from ``dm`` until convergence or ``max_cycle``, with a
         fresh DIIS history; returns (dm, e, c, mo_e, converged, cycles)."""
         m = diis_space
         hist_f = torch.zeros((m, 2, n, n), dtype=dm.dtype, device=dm.device)
         hist_e = torch.zeros_like(hist_f)
         nfill = 0
-        ddm = float("inf")
         conv = False
         cycle = 0
         while cycle < max_cycle and not conv:
-            xc = xc_f32 if xcfast and ddm > xc_switch_tol else xc_fn
-            if inc:
-                if cycle % rebase_every == 0:
-                    j, k = jk_fn(dm)
-                else:
-                    jd, kd = jk_fn_fast((dm - dm_ref).to(torch.float32))
-                    j = j_ref + jd.to(dm.dtype)
-                    k = k_ref + kd.to(dm.dtype)
-                dm_ref, j_ref, k_ref = dm, j, k
-            else:
-                j, k = jk_fn(dm)
-            f, _, e_cur = assemble_fock(dm, j, k, xc)
+            j, k = jk_fn(dm)
+            f, _, e_cur = assemble_fock(dm, j, k)
             if rohf:
                 # the per-spin error of F_eff covers every coupling block:
                 # D_beta tests closed-open and closed-virtual, D_alpha
@@ -359,15 +373,7 @@ def run_scf(
     dm = dm0.to(h_eff.dtype)
     c = torch.zeros((2, n, n), dtype=dm.dtype, device=dm.device)
     mo_e = torch.zeros((2, n), dtype=dm.dtype, device=dm.device)
-    inc = jk_fn_fast is not None
-    xcfast = xc_fn_fast is not None and xc_fn is not None
-    dm, e_prev, c, mo_e, conv, cycles = loop(dm, float("inf"), c, mo_e, inc, xcfast)
-    if inc or xcfast:
-        # full-precision polish: the mixed loop's fixed point carries its
-        # float32 contraction noise, and a few pure cycles from its density
-        # land on the float64 fixed point
-        dm, e_prev, c, mo_e, conv, more = loop(dm, e_prev, c, mo_e, False, False)
-        cycles += more
+    dm, e_prev, c, mo_e, conv, cycles = loop(dm, float("inf"), c, mo_e)
     if grad_cycles and conv:
         for _ in range(grad_cycles):
             j, k = jk_fn(dm)
@@ -381,29 +387,90 @@ def run_scf(
     )
 
 
+def _one_lane(fn):
+    """A single-geometry J/K or XC closure as a lane closure of one lane."""
+    if fn is None:
+        return None
+
+    def lane_fn(dm):
+        a, b = fn(dm[0])
+        return a.reshape((1,) + tuple(a.shape)), b[None]
+
+    return lane_fn
+
+
+def _first_lane(res: "SCFResult") -> "SCFResult":
+    """The single-geometry :class:`SCFResult` of a one-lane result (one
+    host read of the energy, flag and counts)."""
+    e_elec, conv, n_iter = torch.stack([res.e_elec[0].detach().to(torch.float64),
+                                        res.converged[0].to(torch.float64),
+                                        res.n_iter[0].to(torch.float64)]).tolist()
+    return SCFResult(mo_coeff=res.mo_coeff[0], mo_energy=res.mo_energy[0],
+                     mo_occ=res.mo_occ[0], dm=res.dm[0], e_elec=e_elec, converged=bool(conv),
+                     fock=res.fock[0], huzinaga_op=res.huzinaga_op[0], n_iter=int(n_iter),
+                     n_mixed=int(res.n_mixed))
+
+
+def carries_derivative(t) -> bool:
+    """Whether ``t`` is a tensor that autograd follows or a forward-mode
+    dual tensor."""
+    if not isinstance(t, torch.Tensor):
+        return False
+    from torch.autograd import forward_ad
+
+    return t.requires_grad or forward_ad.unpack_dual(t).tangent is not None
+
+
+def scf_eigh(a, count=None, retry: bool = False):
+    """The lane SCF's eigh, graphed and eager: the capturable cuSOLVER call
+    of :func:`nbed_tpu_torch.ops.eigh.eigh` (``eigh_retry`` with ``retry``;
+    ``torch.linalg.eigh`` on the CPU); ``torch.linalg.eigh`` for a matrix
+    that carries a derivative (the cuSOLVER call has none). ``count`` as
+    there."""
+    if carries_derivative(a):
+        return torch.linalg.eigh(a)
+    return (eigh_ops.eigh_retry if retry else eigh_ops.eigh)(a, count)
+
+
 def _lane_ops(*, h_eff, s, x, occ, jk_fn, xc_fn, hyb, dm_occ_s=None, dm_virt_s=None,
               level_shift=0.0, rohf=False, use_diis=True, diis_space=8,
-              eigh=torch.linalg.eigh):
-    """(assemble_fock, eig_fock, cycle) of an SCF over a leading lane axis:
-    ``h_eff`` (B, 2, n, n), ``s`` and ``x`` (B, n, n), ``occ`` (B, 2, n),
-    ``jk_fn`` and ``xc_fn`` over (B, 2, n, n) densities, the Huzinaga
-    products ``dm_occ_s``/``dm_virt_s`` (B, 2, n, n) or None, and ``eigh``
-    for the Fock diagonalisation and the DIIS solve.
+              eigh=None, jk_fast=None, xc_fast=None, rebase_every=8,
+              xc_switch_tol=1e-4):
+    """(assemble_fock, eig_fock, cycle, grad_step) of an SCF over a leading
+    lane axis: ``h_eff`` (B, 2, n, n), ``s`` and ``x`` (B, n, n), ``occ``
+    (B, 2, n), ``jk_fn`` and ``xc_fn`` over (B, 2, n, n) densities, the
+    Huzinaga products ``dm_occ_s``/``dm_virt_s`` (B, 2, n, n) or None, and
+    ``eigh`` for the Fock diagonalisation and the DIIS solve.
 
-    ``cycle(st, conv_tol, dm_conv_tol, max_cycle)`` is one SCF cycle of the
-    state ``st`` (:func:`_initial_state`) and returns the next state. It
-    reads nothing back to the host: the DIIS slot and fill count follow
-    the device counter ``it``, the extrapolation is selected from cycle 1
-    on by ``torch.where``, and a lane that has converged, or has run
+    ``cycle(st, conv_tol, dm_conv_tol, max_cycle, variant=None)`` is one SCF
+    cycle of the state ``st`` (:func:`_initial_state`) and returns the next
+    state. It reads nothing back to the host: the DIIS slot and fill count
+    follow the device counter ``it``, the extrapolation is selected from
+    cycle 1 on by ``torch.where``, and a lane that has converged, or has run
     ``max_cycle`` cycles (an int or a device integer), keeps its state, as
-    the reference's vmapped loop selects the old carry."""
-    m = diis_space
+    the reference's vmapped loop selects the old carry.
 
-    def assemble_fock(dm, j, k):
+    With ``jk_fast`` (float32 J/K of a density change) a ``variant`` =
+    (rebase, xc32) makes the cycle one of the incremental loop's
+    (``nbed_tpu/scf/hf.py:302-389``): J/K in full with ``jk_fn`` (``rebase``
+    True), or the float32 contraction of the change since the previous
+    cycle added to that cycle's J/K (False); the float32 XC ``xc_fast``
+    (``xc32`` True) or ``xc_fn`` (False). None selects on the device, as the
+    reference's ``lax.cond`` does, from ``it % rebase_every == 0`` and from
+    the previous cycle's density change against ``xc_switch_tol``, at the
+    cost of both builds. ``variant`` None is the plain cycle.
+
+    ``grad_step(dm, c, mo_e, conv)`` is one damped DIIS-free cycle of the
+    lanes in ``conv`` (see ``grad_cycles``). ``eigh(a, count)`` defaults
+    to :func:`scf_eigh`."""
+    m = diis_space
+    eigh = scf_eigh if eigh is None else eigh
+
+    def assemble_fock(dm, j, k, xc=xc_fn):
         """(F incl. huz, huz, e_elec (B,) of dm) from dm and its J/K pair."""
         vhf = j[:, None] - hyb * k
-        if xc_fn is not None:
-            exc, vxc = xc_fn(dm)
+        if xc is not None:
+            exc, vxc = xc(dm)
             vhf = vhf + vxc
         else:
             exc = 0.0
@@ -419,16 +486,57 @@ def _lane_ops(*, h_eff, s, x, occ, jk_fn, xc_fn, hyb, dm_occ_s=None, dm_virt_s=N
         ex_hf = -0.5 * hyb * torch.einsum("bsij,bsji->b", k, dm)
         return f, huz, e1 + ecoul + ex_hf + exc
 
-    def eig_fock(f):
+    def eig_fock(f, count=None):
         f_ortho = torch.einsum("bpi,bspq,bqj->bsij", x, f, x)
-        mo_e, c_ortho = eigh(f_ortho)
+        if count is None:
+            mo_e, c_ortho = eigh(f_ortho)
+        else:
+            mo_e, c_ortho = eigh(f_ortho, count[:, None].expand(f.shape[:2]))
         return mo_e, torch.einsum("bpi,bsij->bspj", x, c_ortho)
 
-    def cycle(st, conv_tol, dm_conv_tol, max_cycle):
+    def xc32(dm):
+        exc, vxc = xc_fast(dm.to(torch.float32))
+        return exc.to(dm.dtype), vxc.to(dm.dtype)
+
+    def incremental_jk(st, rebase):
+        """J/K of the incremental cycle (see ``variant``)."""
+        dm = st["dm"]
+        if rebase is not False:
+            j_full, k_full = jk_fn(dm)
+            if rebase:
+                return j_full, k_full
+        jd, kd = jk_fast((dm - st["dm_ref"]).to(torch.float32))
+        j_inc = st["j_ref"] + jd.to(dm.dtype)
+        k_inc = st["k_ref"] + kd.to(dm.dtype)
+        if rebase is False:
+            return j_inc, k_inc
+        full = st["it"] % rebase_every == 0
+        return torch.where(full, j_full, j_inc), torch.where(full, k_full, k_inc)
+
+    def incremental_xc(st, use32):
+        """The XC closure of the incremental cycle (see ``variant``)."""
+        if xc_fast is None or xc_fn is None or use32 is False:
+            return xc_fn
+        if use32:
+            return xc32
+
+        def select(dm):
+            coarse = st["ddm"] > xc_switch_tol
+            e32, v32 = xc32(dm)
+            e64, v64 = xc_fn(dm)
+            return torch.where(coarse, e32, e64), _take(coarse, v32, v64)
+
+        return select
+
+    def cycle(st, conv_tol, dm_conv_tol, max_cycle, variant=None):
         dm, it = st["dm"], st["it"]
         active = ~st["conv"] & (it < max_cycle)  # the lanes this cycle updates
-        j, k = jk_fn(dm)
-        f, _, e_cur = assemble_fock(dm, j, k)
+        if variant is None:
+            j, k = jk_fn(dm)
+            f, _, e_cur = assemble_fock(dm, j, k)
+        else:
+            j, k = incremental_jk(st, variant[0])
+            f, _, e_cur = assemble_fock(dm, j, k, incremental_xc(st, variant[1]))
         if rohf:
             # the per-spin error of F_eff covers every coupling block (see
             # run_scf)
@@ -439,13 +547,16 @@ def _lane_ops(*, h_eff, s, x, occ, jk_fn, xc_fn, hyb, dm_occ_s=None, dm_virt_s=N
         hist_f = torch.where(slot, f[:, None], st["hist_f"])
         hist_e = torch.where(slot, err[:, None], st["hist_e"])
         f_use = f
+        # solver failures count on the lanes this cycle updates only: a
+        # converged lane's near-zero DIIS errors can keep cuSOLVER's batched
+        # eigh from meeting its tolerance, and its results are not taken
         if use_diis:
             f_use = torch.where(it > 0, _diis_extrapolate(
-                hist_f, hist_e, torch.clamp(it + 1, max=m), eigh), f)
+                hist_f, hist_e, torch.clamp(it + 1, max=m), eigh, active), f)
         if level_shift:
             sds = torch.einsum("bij,bsjk,bkl->bsil", s, dm, s)
             f_use = f_use + level_shift * (s[:, None] - sds)
-        mo_e_new, c_new = eig_fock(f_use)
+        mo_e_new, c_new = eig_fock(f_use, active)
         dm_new = make_rdm1(c_new, occ)
         # the test in float64, as the single-geometry loop takes it on the
         # host: float32 loops compare their energy and density changes in
@@ -454,15 +565,28 @@ def _lane_ops(*, h_eff, s, x, occ, jk_fn, xc_fn, hyb, dm_occ_s=None, dm_virt_s=N
         de = torch.abs(e_cur - st["e"])
         ddm = torch.amax(torch.linalg.matrix_norm(dm_new - dm), dim=-1).to(st["e"].dtype)
         now = (de < conv_tol) & (ddm < dm_conv_tol)
-        return {
+        out = {
+            **st,
             "dm": _take(active, dm_new, dm), "e": _take(active, e_cur, st["e"]),
             "c": _take(active, c_new, st["c"]), "mo_e": _take(active, mo_e_new, st["mo_e"]),
             "conv": st["conv"] | (active & now),
             "cycles": st["cycles"] + active.to(st["cycles"].dtype),
             "it": it + 1, "hist_f": hist_f, "hist_e": hist_e,
+            "ddm": _take(active, ddm, st["ddm"]),
         }
+        if variant is not None:
+            out.update(dm_ref=_take(active, dm, st["dm_ref"]),
+                       j_ref=_take(active, j, st["j_ref"]), k_ref=_take(active, k, st["k_ref"]))
+        return out
 
-    return assemble_fock, eig_fock, cycle
+    def grad_step(dm, c, mo_e, conv):
+        j, k = jk_fn(dm)
+        f, _, _ = assemble_fock(dm, j, k)
+        mo_e_new, c_new = eig_fock(f)
+        return (_take(conv, 0.5 * make_rdm1(c_new, occ) + 0.5 * dm, dm),
+                _take(conv, c_new, c), _take(conv, mo_e_new, mo_e))
+
+    return assemble_fock, eig_fock, cycle, grad_step
 
 
 def _take(mask, new, old):
@@ -470,13 +594,16 @@ def _take(mask, new, old):
     return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)), new, old)
 
 
-def _initial_state(dm0, diis_space: int) -> dict:
+def _initial_state(dm0, diis_space: int, incremental: bool = False) -> dict:
     """The SCF state of :func:`_lane_ops` at cycle 0 from the (B, 2, n, n)
-    density ``dm0``: energies in float64 whatever the loop's dtype."""
+    density ``dm0``: energies and density changes in float64 whatever the
+    loop's dtype; ``incremental`` adds the incremental loop's reference
+    density and J/K (cycle 0 rebuilds in full, so their zeros are never
+    used)."""
     nb, n = dm0.shape[0], dm0.shape[-1]
     dtype, device = dm0.dtype, dm0.device
     hist = torch.zeros((nb, diis_space, 2, n, n), dtype=dtype, device=device)
-    return {
+    st = {
         "dm": dm0, "e": torch.full((nb,), float("inf"), dtype=torch.float64, device=device),
         "c": torch.zeros((nb, 2, n, n), dtype=dtype, device=device),
         "mo_e": torch.zeros((nb, 2, n), dtype=dtype, device=device),
@@ -484,7 +611,13 @@ def _initial_state(dm0, diis_space: int) -> dict:
         "cycles": torch.zeros(nb, dtype=torch.int64, device=device),
         "it": torch.zeros((), dtype=torch.int64, device=device),
         "hist_f": hist, "hist_e": torch.zeros_like(hist),
+        "ddm": torch.full((nb,), float("inf"), dtype=torch.float64, device=device),
     }
+    if incremental:
+        st.update(dm_ref=torch.zeros_like(dm0),
+                  j_ref=torch.zeros((nb, n, n), dtype=dtype, device=device),
+                  k_ref=torch.zeros_like(dm0))
+    return st
 
 
 def _huzinaga_products(dm_env_occ, dm_env_virt, s):
@@ -501,11 +634,23 @@ def _occupations(nelec, nb: int, n: int, dtype, device):
     return occ.expand(nb, 2, n)
 
 
+def _restart(st: dict) -> dict:
+    """The polish loop's start: ``st``'s density, energy and orbitals with a
+    new DIIS history and counters (``SCFProgram.start_polish``)."""
+    zero = {key: torch.zeros_like(st[key]) for key in ("hist_f", "hist_e", "conv", "cycles",
+                                                        "it")}
+    return {**st, **zero, "ddm": torch.full_like(st["ddm"], float("inf"))}
+
+
 def _run_scf_lanes(*, hcore, s, nelec, jk_fn, v_emb, xc_fn, hyb, dm_env_occ, dm_env_virt,
                    dm0, conv_tol, dm_conv_tol, max_cycle, diis_space, level_shift, use_diis,
-                   grad_cycles) -> SCFResult:
+                   grad_cycles, rohf=False, jk_fn_fast=None, xc_fn_fast=None,
+                   rebase_every=8, xc_switch_tol=1e-4) -> SCFResult:
     """:func:`run_scf` over a leading lane axis (see the module docstring):
-    the cycles of :func:`_lane_ops`, with one (B,) host read after each."""
+    the cycles of :func:`_lane_ops`, with one host read after each. The
+    incremental loop (``jk_fn_fast``, ``xc_fn_fast``: one lane) picks each
+    cycle's variant from that read, as the graphed program does at one
+    cycle per replay, then restarts for the float64 polish."""
     nb, n = s.shape[0], s.shape[-1]
     dtype = s.dtype
     if hcore.ndim == 3:
@@ -520,10 +665,12 @@ def _run_scf_lanes(*, hcore, s, nelec, jk_fn, v_emb, xc_fn, hyb, dm_env_occ, dm_
     if dm_env_occ is not None:
         dm_occ_s, dm_virt_s = _huzinaga_products(dm_env_occ, dm_env_virt, s)
     occ = _occupations(nelec, nb, n, dtype, s.device)
-    assemble_fock, eig_fock, cycle = _lane_ops(
+    mixed = jk_fn_fast is not None or (xc_fn_fast is not None and xc_fn is not None)
+    assemble_fock, eig_fock, cycle, grad_step = _lane_ops(
         h_eff=h_eff, s=s, x=x, occ=occ, jk_fn=jk_fn, xc_fn=xc_fn, hyb=hyb, dm_occ_s=dm_occ_s,
-        dm_virt_s=dm_virt_s, level_shift=level_shift, use_diis=use_diis,
-        diis_space=diis_space)
+        dm_virt_s=dm_virt_s, level_shift=level_shift, rohf=rohf, use_diis=use_diis,
+        diis_space=diis_space, eigh=scf_eigh, jk_fast=jk_fn_fast, xc_fast=xc_fn_fast,
+        rebase_every=rebase_every, xc_switch_tol=xc_switch_tol)
 
     if dm0 is None:
         f_init = h_eff
@@ -531,64 +678,105 @@ def _run_scf_lanes(*, hcore, s, nelec, jk_fn, v_emb, xc_fn, hyb, dm_env_occ, dm_
             f_init = f_init + huzinaga_operator(f_init, dm_occ_s, dm_virt_s)
         dm0 = make_rdm1(eig_fock(f_init)[1], occ)
 
-    st = _initial_state(dm0.to(dtype), diis_space)
-    it = 0
-    running = True
-    while it < max_cycle and running:
-        st = cycle(st, conv_tol, dm_conv_tol, max_cycle)
-        it += 1
-        running = not bool(st["conv"].all().cpu())  # the cycle's one host read
+    def loop(st, variant):
+        it, ddm = 0, float("inf")
+        while it < max_cycle:
+            v = None if variant is None else variant(it, ddm)
+            st = cycle(st, conv_tol, dm_conv_tol, max_cycle, v)
+            it += 1
+            # the cycle's one host read
+            done, ddm = torch.stack([st["conv"].all().to(torch.float64),
+                                     st["ddm"].max().detach()]).tolist()
+            if done:
+                break
+        return st
+
+    st = _initial_state(dm0.to(dtype), diis_space, mixed)
+    n_mixed = 0
+    if mixed:
+        coarse = xc_fn_fast is not None and xc_fn is not None
+        st = loop(st, lambda it, ddm: (jk_fn_fast is None or it % rebase_every == 0,
+                                       coarse and ddm > xc_switch_tol))
+        n_mixed = st["cycles"]
+        st = _restart(st)
+    st = loop(st, None)
     dm, c, mo_e, conv = st["dm"], st["c"], st["mo_e"], st["conv"]
     if grad_cycles and bool(conv.any()):
         for _ in range(grad_cycles):
-            j, k = jk_fn(dm)
-            f, _, _ = assemble_fock(dm, j, k)
-            mo_e_new, c_new = eig_fock(f)
-            dm = _take(conv, 0.5 * make_rdm1(c_new, occ) + 0.5 * dm, dm)
-            c = _take(conv, c_new, c)
-            mo_e = _take(conv, mo_e_new, mo_e)
+            dm, c, mo_e = grad_step(dm, c, mo_e, conv)
 
     j, k = jk_fn(dm)
     f_fin, huz_fin, e_fin = assemble_fock(dm, j, k)
+    if s.device.type == "cuda":
+        failures = eigh_ops.failure_count(s.device)
+        if int(failures):
+            n_bad = int(failures)
+            failures.zero_()
+            raise RuntimeError(f"eigh: cuSOLVER failed on {n_bad} matrices in an SCF")
     return SCFResult(
         mo_coeff=c, mo_energy=mo_e, mo_occ=occ, dm=dm, e_elec=e_fin, converged=conv,
-        fock=f_fin, huzinaga_op=huz_fin, n_iter=st["cycles"],
+        fock=f_fin, huzinaga_op=huz_fin, n_iter=st["cycles"] + n_mixed,
+        n_mixed=int(n_mixed.max()) if mixed else 0,
     )
 
 
 class SCFProgram:
-    """One geometry's SCF on fixed device buffers: the cycle of
-    :func:`_lane_ops` at B = 1, advanced in place, so that a chunk of
-    cycles and the final Fock build can each be captured once as a CUDA
-    graph and replayed (``SCFEngine(jit_kernel=...)``).
+    """An SCF on fixed device buffers: the cycle of :func:`_lane_ops`,
+    advanced in place, so that a chunk of cycles and the final Fock build
+    can each be captured once as a CUDA graph and replayed
+    (``SCFEngine(jit_kernel=...)``, the lane SCFs of
+    :func:`nbed_tpu_torch.scf.engine.lane_scf`).
 
-    The operators (``hcore`` (n, n) or (2, n, n), ``s``, ``x`` = S^-1/2,
-    the single-geometry ``jk_fn`` and ``xc_fn`` of :func:`run_scf`) are
-    fixed at construction, as are ``nelec``, whether Huzinaga projectors
-    are present, the level shift, ROHF and the DIIS length. :meth:`load`
-    copies one call's inputs into the input buffers and resets the state
-    (eager work); :meth:`run_cycles` advances ``k`` cycles and writes the
-    flags [converged, cycles, eigh failures]; :meth:`finish` builds the
-    final J/K and Fock of the density reached. Neither reads anything back
-    to the host. State carries from one :meth:`run_cycles` to the next
-    (density, energy, DIIS history, counters), so K cycles at a time give
-    the iterates of one uninterrupted loop, whatever K is; a converged
-    state no longer changes.
+    One geometry (``lanes`` False): ``hcore`` (n, n) or (2, n, n), ``s``,
+    ``x`` = S^-1/2 and the single-geometry ``jk_fn`` and ``xc_fn`` of
+    :func:`run_scf`, run as one lane. B geometries (``lanes`` True):
+    ``hcore`` (B, n, n) or (B, 2, n, n), ``s`` and ``x`` (B, n, n), and lane
+    closures over (B, 2, n, n) densities, each lane frozen once it has
+    converged. The program reads its operators from the tensors it was
+    given (a (2, n, n) or (B, 2, n, n) ``hcore``, ``s`` and ``x`` of its
+    dtype are kept as views, so a caller that owns them as buffers can copy
+    another geometry's operators in); ``nelec``, whether Huzinaga projectors
+    are present, the level shift, ROHF, the DIIS length and ``grad_cycles``
+    are fixed at construction.
+
+    :meth:`load` copies one call's inputs into the input buffers and resets
+    the state (eager work); :meth:`run_cycles` advances ``k`` cycles and
+    writes the flags; :meth:`finish` builds the final J/K and Fock of the
+    density reached; :meth:`grad_polish` runs the ``grad_cycles`` damped
+    cycles of the converged lanes. None reads anything back to the host.
+    State carries from one :meth:`run_cycles` to the next (density, energy,
+    DIIS history, counters), so K cycles at a time give the iterates of one
+    uninterrupted loop, whatever K is; a converged state no longer changes.
+
+    ``jk_fast`` (with ``xc_fast``, ``rebase_every``, ``xc_switch_tol``)
+    makes the program the incremental SCF of :func:`run_scf`: the mixed
+    loop's cycles run through :meth:`run_cycles` with a ``variant`` (see
+    :func:`_lane_ops`), :meth:`start_polish` restarts the DIIS history and
+    the counters from the mixed loop's state, and the polish loop's cycles
+    are the plain ones.
     """
 
     def __init__(self, *, hcore, s, x, nelec, jk_fn, xc_fn=None, hyb=1.0,
                  huzinaga=False, level_shift=0.0, rohf=False, diis_space=8,
-                 eigh=torch.linalg.eigh, failures=None):
+                 eigh=None, failures=None, lanes=False, grad_cycles=0,
+                 jk_fast=None, xc_fast=None, rebase_every=8, xc_switch_tol=1e-4):
         n = s.shape[-1]
         dtype, device = s.dtype, s.device
         self.dtype, self.device, self.nelec = dtype, device, tuple(int(v) for v in nelec)
-        if hcore.ndim == 2:
-            hcore = torch.stack([hcore, hcore])
-        self.hcore = hcore[None].to(dtype).contiguous()
-        self.s, self.x = s[None].contiguous(), x[None].to(dtype).contiguous()
-        self.occ = _occupations(nelec, 1, n, dtype, device)
+        self.lanes = lanes
+        if not lanes:
+            hcore, s, x = hcore[None], s[None], x[None]
+        if hcore.ndim == 3:
+            hcore = torch.stack([hcore, hcore], dim=1)
+        nb = s.shape[0]
+        self.hcore = hcore.to(dtype).contiguous()
+        self.s, self.x = s.contiguous(), x.to(dtype).contiguous()
+        self.occ = _occupations(nelec, nb, n, dtype, device)
         self.diis_space = diis_space
-        self.eigh = eigh
+        self.grad_cycles = int(grad_cycles)
+        self.incremental = jk_fast is not None
+        self.xc_fast = self.incremental and xc_fast is not None and xc_fn is not None
+        self.rebase_every, self.xc_switch_tol = int(rebase_every), xc_switch_tol
         self._failures = (torch.zeros((), dtype=torch.int64, device=device)
                           if failures is None else failures)
 
@@ -596,46 +784,52 @@ class SCFProgram:
             return torch.zeros(shape, dtype=dtype, device=device)
 
         # inputs of one call, and what load() derives from them
-        self.v_emb = zeros(1, 2, n, n)
-        self.h_eff = zeros(1, 2, n, n)
+        self.v_emb = zeros(nb, 2, n, n)
+        self.h_eff = zeros(nb, 2, n, n)
         self.huzinaga = huzinaga
         if huzinaga:
-            self.dm_env_occ, self.dm_env_virt = zeros(1, 2, n, n), zeros(1, 2, n, n)
-            self.dm_occ_s, self.dm_virt_s = zeros(1, 2, n, n), zeros(1, 2, n, n)
+            self.dm_env_occ, self.dm_env_virt = zeros(nb, 2, n, n), zeros(nb, 2, n, n)
+            self.dm_occ_s, self.dm_virt_s = zeros(nb, 2, n, n), zeros(nb, 2, n, n)
         self.conv_tol = torch.zeros((), dtype=torch.float64, device=device)
         self.dm_conv_tol = torch.zeros((), dtype=torch.float64, device=device)
         self.max_cycle = torch.zeros((), dtype=torch.int64, device=device)
-        self.state = _initial_state(zeros(1, 2, n, n), diis_space)
-        # outputs: [converged, cycles, eigh failures] and the final build
+        self.state = _initial_state(zeros(nb, 2, n, n), diis_space, self.incremental)
+        # outputs: the flags [all converged, most cycles of a lane, eigh
+        # failures]; the same and [largest density change, any converged]
+        # as float64 for the one host read of a replay; the final build
         self.flags = torch.zeros(3, dtype=torch.int64, device=device)
-        self.fock, self.huz = zeros(1, 2, n, n), zeros(1, 2, n, n)
-        self.e_fin = torch.zeros(1, dtype=dtype, device=device)
+        self.status = torch.zeros(5, dtype=torch.float64, device=device)
+        self.fock, self.huz = zeros(nb, 2, n, n), zeros(nb, 2, n, n)
+        self.e_fin = torch.zeros(nb, dtype=dtype, device=device)
 
-        def jk_lanes(dm):
-            j, k = jk_fn(dm[0])
-            return j[None], k[None]
+        def single(fn):
+            return fn if lanes else _one_lane(fn)
 
-        def xc_lanes(dm):
-            exc, vxc = xc_fn(dm[0])
-            return exc.reshape(1), vxc[None]
-
-        self._assemble, self._eig_fock, self._cycle = _lane_ops(
-            h_eff=self.h_eff, s=self.s, x=self.x, occ=self.occ, jk_fn=jk_lanes,
-            xc_fn=None if xc_fn is None else xc_lanes, hyb=hyb,
+        self._assemble, self._eig_fock, self._cycle, self._grad_step = _lane_ops(
+            h_eff=self.h_eff, s=self.s, x=self.x, occ=self.occ, jk_fn=single(jk_fn),
+            xc_fn=single(xc_fn), hyb=hyb,
             dm_occ_s=self.dm_occ_s if huzinaga else None,
             dm_virt_s=self.dm_virt_s if huzinaga else None,
-            level_shift=level_shift, rohf=rohf, diis_space=diis_space, eigh=eigh)
-        self._jk = jk_lanes
+            level_shift=level_shift, rohf=rohf, diis_space=diis_space, eigh=eigh,
+            jk_fast=single(jk_fast), xc_fast=single(xc_fast), rebase_every=rebase_every,
+            xc_switch_tol=xc_switch_tol)
+        self._jk = single(jk_fn)
+
+    def _lane(self, t):
+        return t if t is None or self.lanes else t[None]
 
     def load(self, *, v_emb=None, dm_env_occ=None, dm_env_virt=None, dm0=None,
              conv_tol, dm_conv_tol, max_cycle):
         """Copy one call's inputs ((2, n, n) tensors of the program's dtype,
-        or None) into the buffers, derive h_eff and the projector products,
-        and reset the state at ``dm0`` or, where it is None, the core guess
-        (``h_eff`` plus the projectors, diagonalised with ``eigh``)."""
+        (B, 2, n, n) for lanes, or None) into the buffers, derive h_eff and
+        the projector products, and reset the state at ``dm0`` or, where it
+        is None, the core guess (``h_eff`` plus the projectors,
+        diagonalised with ``eigh``)."""
         if (dm_env_occ is not None) != self.huzinaga:
             raise ValueError("this SCFProgram was built "
                              f"{'with' if self.huzinaga else 'without'} Huzinaga projectors")
+        v_emb, dm_env_occ, dm_env_virt, dm0 = map(self._lane,
+                                                  (v_emb, dm_env_occ, dm_env_virt, dm0))
         if v_emb is None:
             self.v_emb.zero_()
         else:
@@ -659,20 +853,43 @@ class SCFProgram:
             if self.huzinaga:
                 f_init = f_init + huzinaga_operator(f_init, self.dm_occ_s, self.dm_virt_s)
             dm0 = make_rdm1(self._eig_fock(f_init)[1], self.occ)
-        else:
-            dm0 = dm0[None]
-        for key, value in _initial_state(dm0.to(self.dtype), self.diis_space).items():
+        for key, value in _initial_state(dm0.to(self.dtype), self.diis_space,
+                                         self.incremental).items():
             self.state[key].copy_(value)
 
-    def run_cycles(self, k: int):
-        """``k`` cycles in place, then the flags."""
+    def run_cycles(self, k: int, variant=None):
+        """``k`` cycles in place (of the incremental ``variant``, see
+        :func:`_lane_ops`; None: plain cycles), then the flags."""
         st = dict(self.state)
         for _ in range(k):
-            st = self._cycle(st, self.conv_tol, self.dm_conv_tol, self.max_cycle)
+            st = self._cycle(st, self.conv_tol, self.dm_conv_tol, self.max_cycle, variant)
         for key, value in st.items():
             self.state[key].copy_(value)
-        self.flags.copy_(torch.stack([st["conv"][0].to(torch.int64), st["cycles"][0],
-                                      self._failures]))
+        flags = torch.stack([st["conv"].all().to(torch.int64), st["cycles"].max(),
+                             self._failures])
+        self.flags.copy_(flags)
+        self.status.copy_(torch.cat([flags.to(torch.float64),
+                                     torch.stack([st["ddm"].max(),
+                                                  st["conv"].any().to(torch.float64)])]))
+
+    def start_polish(self):
+        """The polish loop's start (eager): the mixed loop's density,
+        energy and orbitals, with a new DIIS history and counters."""
+        st = self.state
+        for key in ("hist_f", "hist_e", "conv", "cycles", "it"):
+            st[key].zero_()
+        st["ddm"].fill_(float("inf"))
+
+    def grad_polish(self):
+        """``grad_cycles`` damped DIIS-free cycles of the converged lanes
+        (``run_scf(grad_cycles=...)``), in place."""
+        st = self.state
+        dm, c, mo_e = st["dm"], st["c"], st["mo_e"]
+        for _ in range(self.grad_cycles):
+            dm, c, mo_e = self._grad_step(dm, c, mo_e, st["conv"])
+        st["dm"].copy_(dm)
+        st["c"].copy_(c)
+        st["mo_e"].copy_(mo_e)
 
     def finish(self):
         """The final J/K, Fock, Huzinaga operator and energy of the state's
@@ -684,15 +901,24 @@ class SCFProgram:
         self.huz.copy_(huz)
         self.e_fin.copy_(e)
 
-    def result(self) -> SCFResult:
+    def result(self, extra_cycles: int = 0) -> SCFResult:
         """The :class:`SCFResult` of the state after :meth:`finish`, on
-        copies of the buffers (the next call overwrites them); one host
-        read (the energy and the flags)."""
+        copies of the buffers (the next call overwrites them), with
+        ``extra_cycles`` (the incremental mixed loop's) added to the cycle
+        count. One
+        geometry: one host read (the energy and the flags); lanes: tensors
+        (B,) as :func:`run_scf` returns them, no host read."""
         st = self.state
+        if self.lanes:
+            return SCFResult(
+                mo_coeff=st["c"].clone(), mo_energy=st["mo_e"].clone(),
+                mo_occ=self.occ.clone(), dm=st["dm"].clone(), e_elec=self.e_fin.clone(),
+                converged=st["conv"].clone(), fock=self.fock.clone(),
+                huzinaga_op=self.huz.clone(), n_iter=st["cycles"] + extra_cycles)
         e_fin, conv, cycles = torch.cat([self.e_fin.to(torch.float64),
                                          self.flags[:2].to(torch.float64)]).tolist()
         return SCFResult(
             mo_coeff=st["c"][0].clone(), mo_energy=st["mo_e"][0].clone(),
             mo_occ=self.occ[0].clone(), dm=st["dm"][0].clone(), e_elec=e_fin,
             converged=bool(conv), fock=self.fock[0].clone(), huzinaga_op=self.huz[0].clone(),
-            n_iter=int(cycles))
+            n_iter=int(cycles) + extra_cycles, n_mixed=extra_cycles)

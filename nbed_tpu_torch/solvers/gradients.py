@@ -35,7 +35,6 @@ from ..grids import build_grid, eval_aos
 from ..integrals import (eri_tensor, kinetic, nuclear_attraction, overlap,
                          point_charge_attraction)
 from ..ops.jk import prepare_jk
-from ..scf.hf import run_scf
 
 logger = logging.getLogger(__name__)
 
@@ -147,17 +146,30 @@ def _autograd(energy, x):
     return torch.autograd.grad(torch.sum(energy(x)), x)[0]
 
 
-def _hf_scf(mol, x, dm0=None, conv_tol=1e-10, dm_conv_tol=1e-8, max_cycle=100):
+def _exact_jk(t):
+    """``build`` of :func:`~nbed_tpu_torch.scf.engine.single_scf`: exact
+    J/K through the fused kernel on the supermatrices "g_j", "g_k"."""
+    jk = prepare_jk(t["g_j"], t["g_k"])
+    return (lambda dm: jk(dm.contiguous())), None
+
+
+def _hf_scf(mol, x, dm0=None, conv_tol=1e-10, dm_conv_tol=1e-8, max_cycle=100,
+            jit_kernel="auto"):
     """UHF at coordinates ``x`` on the ``eri_tensor`` supermatrices, with
-    J/K through the fused kernel: (SCFResult, ERI tensor)."""
+    J/K through the fused kernel, as the single-lane program of the shared
+    cache on a card (``jit_kernel``, see
+    :func:`~nbed_tpu_torch.scf.engine.lane_scf`): (SCFResult, ERI
+    tensor)."""
+    from ..scf.engine import lane_spec, single_scf
+
     n = mol.nao
     with torch.no_grad():
         g = eri_tensor(mol, x, device=x.device)
-        jk = prepare_jk(g.reshape(n * n, n * n).contiguous(),
-                        g.permute(0, 2, 1, 3).reshape(n * n, n * n).contiguous())
-        res = run_scf(
-            hcore=_hcore(mol, x), s=overlap(mol, x, device=x.device),
-            jk_fn=lambda dm: jk(dm.contiguous()), nelec=mol.nelec,
+        ops = {"hcore": _hcore(mol, x), "s": overlap(mol, x, device=x.device),
+               "g_j": g.reshape(n * n, n * n).contiguous(),
+               "g_k": g.permute(0, 2, 1, 3).reshape(n * n, n * n).contiguous()}
+        res = single_scf(
+            lane_spec(mol, "uhf"), ops, _exact_jk, nelec=mol.nelec, jit_kernel=jit_kernel,
             dm0=None if dm0 is None else torch.as_tensor(dm0, dtype=DTYPE, device=x.device),
             conv_tol=conv_tol, dm_conv_tol=dm_conv_tol, max_cycle=max_cycle)
     return res, g
@@ -165,17 +177,19 @@ def _hf_scf(mol, x, dm0=None, conv_tol=1e-10, dm_conv_tol=1e-8, max_cycle=100):
 
 def hf_gradient(mol: Molecule, coords=None, scf_result=None, dm0=None,
                 conv_tol: float = 1e-10, dm_conv_tol: float = 1e-8, max_cycle: int = 100,
-                device="cuda"):
+                device="cuda", jit_kernel: str = "auto"):
     """Analytic nuclear gradient of the (U)HF total energy.
 
     Returns ``(e_tot, grad, scf_result)`` with ``grad`` a (natm, 3) tensor
     in Ha/bohr on ``device``. A converged ``scf_result``
     (:class:`~nbed_tpu_torch.scf.hf.SCFResult`) skips the SCF; ``dm0``
-    warm-starts it (as :func:`optimize_geometry` does).
+    warm-starts it (as :func:`optimize_geometry` does). ``jit_kernel`` as
+    ``SCFEngine``'s: on a card the SCF replays CUDA graphs shared by every
+    geometry of the molecule.
     """
     x = _coords_tensor(mol, coords, device)
     if scf_result is None:
-        scf_result, g = _hf_scf(mol, x, dm0, conv_tol, dm_conv_tol, max_cycle)
+        scf_result, g = _hf_scf(mol, x, dm0, conv_tol, dm_conv_tol, max_cycle, jit_kernel)
     else:
         g = None
     dm = scf_result.dm.to(x.device)
@@ -187,7 +201,7 @@ def hf_gradient(mol: Molecule, coords=None, scf_result=None, dm0=None,
 def ks_gradient(mol: Molecule, xc: str, coords=None, solution=None,
                 grid_scheme: str = "reference", grid_level: int = 3,
                 conv_tol: float = 1e-10, dm_conv_tol: float = 1e-8, max_cycle: int = 100,
-                device="cuda"):
+                device="cuda", jit_kernel: str = "auto"):
     """Analytic nuclear gradient of the (U)KS total energy, grid response
     included; range-separated hybrids add the long-range exchange.
 
@@ -196,7 +210,8 @@ def ks_gradient(mol: Molecule, xc: str, coords=None, solution=None,
     which skips the SCF. The XC energy is differentiated on the grid of the
     solution's engine (its scheme, level and product-grid size); the
     reference takes ``build_grid``'s own product-grid size there, a grid the
-    SCF did not use (ROADMAP queue 3).
+    SCF did not use (ROADMAP queue 3). ``jit_kernel`` is the SCF engine's
+    (its programs are shared by every geometry of the molecule).
     """
     from ..scf.engine import SCFEngine
 
@@ -205,7 +220,7 @@ def ks_gradient(mol: Molecule, xc: str, coords=None, solution=None,
         solution = SCFEngine(mol, xc=xc, coords=x.cpu().numpy(), grid_scheme=grid_scheme,
                              grid_level=grid_level, conv_tol=conv_tol,
                              dm_conv_tol=dm_conv_tol, max_cycle=max_cycle,
-                             device=x.device).kernel()
+                             device=x.device, jit_kernel=jit_kernel).kernel()
     c = solution.mo_coeff.to(x.device)
     occ = solution.mo_occ.to(x.device)
     if c.ndim == 2:  # restricted report: occupations count electrons
@@ -222,14 +237,15 @@ def ks_gradient(mol: Molecule, xc: str, coords=None, solution=None,
 
 
 def optimize_geometry(mol: Molecule, coords0=None, gtol: float = 3e-5, max_steps: int = 50,
-                      verbose: bool = False, device="cuda"):
+                      verbose: bool = False, device="cuda", jit_kernel: str = "auto"):
     """Geometry optimization on the analytic HF gradient (scipy BFGS on the
     host). Each evaluation re-runs the SCF warm-started from the previous
     one's density. Returns ``(coords, e_tot, n_steps, converged)``, coords
     in Bohr; converged when scipy reports success or the largest gradient
     component at the end is within ``gtol`` (scipy's flag trips on
     "precision loss" when line-search energy differences near the minimum
-    fall under the SCF's noise floor).
+    fall under the SCF's noise floor). ``jit_kernel`` as
+    :func:`hf_gradient`'s: every step replays one molecule's programs.
     """
     from scipy.optimize import minimize
 
@@ -238,7 +254,7 @@ def optimize_geometry(mol: Molecule, coords0=None, gtol: float = 3e-5, max_steps
 
     def fun(flat):
         e, g, res = hf_gradient(mol, coords=flat.reshape(-1, 3), dm0=state["dm0"],
-                                device=device)
+                                device=device, jit_kernel=jit_kernel)
         state["dm0"] = res.dm
         state["steps"] += 1
         g = g.cpu().numpy()
@@ -250,6 +266,7 @@ def optimize_geometry(mol: Molecule, coords0=None, gtol: float = 3e-5, max_steps
     out = minimize(fun, x0.ravel(), jac=True, method="BFGS",
                    options={"gtol": gtol, "maxiter": max_steps})
     coords = out.x.reshape(-1, 3)
-    _, g_final, _ = hf_gradient(mol, coords=coords, dm0=state["dm0"], device=device)
+    _, g_final, _ = hf_gradient(mol, coords=coords, dm0=state["dm0"], device=device,
+                                jit_kernel=jit_kernel)
     converged = bool(out.success) or float(torch.max(torch.abs(g_final))) <= gtol
     return coords, float(out.fun), state["steps"], converged

@@ -47,12 +47,14 @@ def _displacements(x0: np.ndarray, step: float) -> np.ndarray:
 
 def hessian_fd(mol: Molecule, coords=None, step: float = 5e-3, mesh=None, xc=None,
                conv_tol: float = 1e-10, dm_conv_tol: float = 1e-8, max_cycle: int = 100,
-               device="cuda"):
+               device="cuda", jit_kernel: str = "auto"):
     """Nuclear Hessian (3N, 3N) in Ha/bohr^2 by central differences of the
     analytic gradient (HF with ``xc=None``: the 6N displaced gradients as
     one batched call, its lanes split over ``mesh``'s 'batch' axis when
     given; else KS with grid response, one ``ks_gradient`` per
-    displacement), symmetrised, as a numpy array.
+    displacement), symmetrised, as a numpy array. ``jit_kernel`` as
+    ``SCFEngine``'s: on a card the 6N SCFs replay one set of CUDA graphs
+    (the lane program, or the KS engines' shared programs).
 
     Raises:
         RuntimeError: when a displaced SCF does not converge.
@@ -60,7 +62,7 @@ def hessian_fd(mol: Molecule, coords=None, step: float = 5e-3, mesh=None, xc=Non
     x0 = np.asarray(mol.coords if coords is None else coords, dtype=np.float64)
     disp = _displacements(x0, step)
     kw = dict(conv_tol=conv_tol, dm_conv_tol=dm_conv_tol, max_cycle=max_cycle,
-              device=device)
+              device=device, jit_kernel=jit_kernel)
     if xc is None:
         from ..parallel import batched_hf_gradients
 
@@ -125,19 +127,20 @@ def harmonic_frequencies(mol: Molecule, coords=None, step: float = 5e-3, mesh=No
 
 def dipole_derivative_fd(mol: Molecule, coords=None, step: float = 5e-3, mesh=None,
                          conv_tol: float = 1e-10, dm_conv_tol: float = 1e-8,
-                         max_cycle: int = 100, device="cuda"):
+                         max_cycle: int = 100, device="cuda", jit_kernel: str = "auto"):
     """Dipole derivatives dmu/dx, shape (3N, 3), in a.u. (e): central
     differences of the HF dipole over the 6N displaced geometries, their
     SCFs (cold, on the ``eri_tensor`` supermatrices) and dipole integrals
     as one batched call, every SCF cycle one fused J/K launch for the
-    lanes, split over ``mesh``'s 'batch' axis when given."""
+    lanes, split over ``mesh``'s 'batch' axis when given; ``jit_kernel``
+    as :func:`hessian_fd`'s."""
     from ..parallel.sharding import _gather, _lane_groups, _lane_scf
 
     x0 = np.asarray(mol.coords if coords is None else coords, dtype=np.float64)
     dips = []
     for dev, x in _lane_groups(_displacements(x0, step), mesh, device):
         res, _ = _lane_scf(mol, x, conv_tol=conv_tol, dm_conv_tol=dm_conv_tol,
-                           max_cycle=max_cycle)
+                           max_cycle=max_cycle, jit_kernel=jit_kernel)
         if not bool(res.converged.all()):
             raise RuntimeError("Displaced SCF did not converge; dipole derivative invalid.")
         z = torch.as_tensor(mol.atom_charges, dtype=x.dtype, device=dev)

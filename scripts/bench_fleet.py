@@ -1,6 +1,7 @@
 """Conformer-fleet throughput of nbed_tpu_torch.parallel on one CUDA card.
 
     python3 scripts/bench_fleet.py [--device cpu] [--batches 1 8 36]
+                                   [--jit-kernel auto off]
 
 The counterpart of ``scripts/embed_fleet_tpu.py``. For each batch size B,
 warm (one untimed call of the same shape first; host clock, synchronised):
@@ -14,9 +15,11 @@ warm (one untimed call of the same shape first; host clock, synchronised):
   whole Hessian's gradients);
 
 each with conformers/s, seconds, fused J/K launches and peak device
-memory. Then ``hessian_fd`` of acetonitrile once more under
+memory. Then ``hessian_fd`` of acetonitrile once more (warm) under
 ``nbed_tpu_torch.profiling.device_profile``: its wall time, device busy
-time and idle share. Prints the card's name and power limit first and one
+time and idle share. Each measurement runs for every ``--jit-kernel``
+mode: "auto", the lane SCFs as shared CUDA-graph programs, and "off", the
+eager lane loop. Prints the card's name and power limit first and one
 JSON line per measurement. ``--device cpu`` rehearses it without a card
 (its times say nothing about the card).
 """
@@ -64,6 +67,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8, 36])
+    ap.add_argument("--jit-kernel", nargs="+", default=["auto", "off"])
     args = ap.parse_args()
     cuda = torch.device(args.device).type == "cuda"
     if cuda:
@@ -76,28 +80,32 @@ def main():
     pra = build_molecule(ACETONITRILE, "sto-3g")
     disp = _displacements(np.asarray(pra.coords), 5e-3)
     dev = args.device
-    work = {
-        "hf": lambda b: (lambda: batched_hf_energies(
-            water, water_fleet_coords(water, b), conv_tol=1e-8, max_cycle=100,
-            device=dev)[0].cpu()),
-        "embed": lambda b: (lambda: batched_embedding_energies(
-            water, stretch_coords(water, b, 0.04), 1, 4, xc="b3lyp", grid_level=1,
-            conv_tol=1e-9, dm_conv_tol=1e-7, device=dev)["e_emb_rhf"].cpu()),
-        "hessian_lanes": lambda b: (lambda: batched_hf_gradients(
-            pra, disp[:b], device=dev)[1].cpu()),
-    }
-    for name, make in work.items():
-        for b in args.batches:
-            wall, launches, peak = timed(make(b), cuda)
-            print(json.dumps({"bench": name, "batch": b, "s": wall,
-                              "conformers_per_s": b / wall, "fused_jk_launches": launches,
-                              "peak_gb": peak, "device": dev}), flush=True)
-    _, prof = device_profile(lambda: hessian_fd(pra, device=dev))
-    print(json.dumps({"bench": "hessian_fd_profile", "molecule": "acetonitrile",
-                      "wall_s": prof["wall_s"], "device_busy_s": prof["device_busy_s"],
-                      "device_idle_share": prof["device_idle_share"],
-                      "device_events": prof["device_events"], "top": prof["top"][:6],
-                      "device": dev}), flush=True)
+    for mode in args.jit_kernel:
+        kw = dict(device=dev, jit_kernel=mode)
+        work = {
+            "hf": lambda b: (lambda: batched_hf_energies(
+                water, water_fleet_coords(water, b), conv_tol=1e-8, max_cycle=100,
+                **kw)[0].cpu()),
+            "embed": lambda b: (lambda: batched_embedding_energies(
+                water, stretch_coords(water, b, 0.04), 1, 4, xc="b3lyp", grid_level=1,
+                conv_tol=1e-9, dm_conv_tol=1e-7, **kw)["e_emb_rhf"].cpu()),
+            "hessian_lanes": lambda b: (lambda: batched_hf_gradients(
+                pra, disp[:b], **kw)[1].cpu()),
+        }
+        for name, make in work.items():
+            for b in args.batches:
+                wall, launches, peak = timed(make(b), cuda)
+                print(json.dumps({"bench": name, "batch": b, "s": wall,
+                                  "conformers_per_s": b / wall,
+                                  "fused_jk_launches": launches, "peak_gb": peak,
+                                  "device": dev, "jit_kernel": mode}), flush=True)
+        hessian_fd(pra, **kw)
+        _, prof = device_profile(lambda: hessian_fd(pra, **kw))
+        print(json.dumps({"bench": "hessian_fd_profile", "molecule": "acetonitrile",
+                          "wall_s": prof["wall_s"], "device_busy_s": prof["device_busy_s"],
+                          "device_idle_share": prof["device_idle_share"],
+                          "device_events": prof["device_events"], "top": prof["top"][:6],
+                          "device": dev, "jit_kernel": mode}), flush=True)
 
 
 if __name__ == "__main__":

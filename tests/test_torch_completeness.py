@@ -31,8 +31,6 @@ NOT_PORTED = {
     ("scf/hf.py", "eigh_refined"): "TPU-only Newton refinement of eigh (a no-op off the TPU)",
     ("scf/hf.py", "newton_refine_eigh"): "TPU-only, the body of eigh_refined",
     ("dft/functionals.py", "_TINY_TPU"): "the density floor of emulated float64 on the TPU",
-    ("scf/engine.py", "_JIT_PROGRAM_CACHE"): "the TPU's cache of compiled SCF programs",
-    ("scf/engine.py", "_JIT_PROGRAM_CACHE_MAX"): "the bound of that cache",
     ("utils.py", "pubchem_mol_geometry"): "needs the network (PubChem)",
     # the reference's prebuilt libraries and their probes: the port builds
     # both libraries from csrc/ at first use (_compile.py) and raises when

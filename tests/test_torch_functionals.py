@@ -316,6 +316,49 @@ def test_clips_split_the_gradient_at_ties_like_jax():
     np.testing.assert_array_equal(g.numpy(), np.asarray(ref))
 
 
+def _closed_shell_points(seed: int = 11, n: int = 16):
+    """Closed-shell meta-GGA inputs: ra = rb, equal spin gradients (gaa =
+    gab = gbb) and tau above tau_W, where the bracket that tpss_c clips,
+    |rb grad ra - ra grad rb|^2 / rho^4, is 0 up to rounding."""
+    rng = np.random.default_rng(seed)
+    r = 10.0 ** rng.uniform(-3, 1, n)
+    g = (r ** (4.0 / 3.0)) * rng.uniform(0.1, 2.0, n)
+    t = g / (8.0 * r) * rng.uniform(1.2, 3.0, n)
+    return [r, r.copy(), g, g.copy(), g.copy(), t, t.copy()]
+
+
+def test_tpss_c_closed_shell_clip_passes_its_gradient_whole():
+    """The one input gradient held apart from nbed_tpu's: at closed-shell
+    points the port's tpss_c passes the clip's gradient whole to the
+    bracket it guards, where JAX's tie rule passes half (or none below the
+    tie), so its f_xc matches central differences of its vxc
+    (test_torch_reference_faults.py). There, every input gradient equals
+    nbed_tpu's a hair off the closed-shell manifold (gab lowered by 1e-9
+    relative, where the bracket is positive and both clips pass the
+    gradient whole) to 1e-6 relative; the values stay nbed_tpu's to 1e-11."""
+    pts = _closed_shell_points()
+    off = [a.copy() for a in pts]
+    off[3] = off[3] * (1.0 - 1e-9)
+
+    def grads(fn, args, torch_fn):
+        if torch_fn:
+            ts = [torch.tensor(a, requires_grad=True) for a in args]
+            val = fn(*ts)
+            gs = torch.autograd.grad(val.sum(), ts)
+            return val.detach().numpy(), [g.numpy() for g in gs]
+        arrs = [jnp.asarray(a) for a in args]
+        val, gs = jax.value_and_grad(lambda *x: fn(*x).sum(), argnums=tuple(range(7)))(*arrs)
+        return np.asarray(fn(*arrs)), [np.asarray(g) for g in gs]
+
+    jax.config.update("jax_enable_x64", True)
+    val, ours = grads(P.tpss_c, pts, True)
+    ref_val, _ = grads(R.tpss_c, pts, False)
+    _, theirs_off = grads(R.tpss_c, off, False)
+    np.testing.assert_allclose(val, ref_val, rtol=1e-11, atol=0)
+    for i, (o, t) in enumerate(zip(ours, theirs_off)):
+        np.testing.assert_allclose(o, t, rtol=1e-6, atol=1e-300, err_msg=f"input {i}")
+
+
 CAM_SPEC = ("0.19*HF + 0.46*LR_HF(0.33) + 0.35*B88 + 0.46*SR_B88(0.33) "
             "+ 0.19*VWN5 + 0.81*LYP")
 

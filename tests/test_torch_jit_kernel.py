@@ -178,13 +178,24 @@ def test_dispatch_chunk_rules(mols):
         _port(mol, integrals_backend="pyscf")
 
 
-def test_incremental_jk_is_not_graphed(mols):
-    _, mol = mols
-    with pytest.raises(NotImplementedError):
-        _port(mol, jit_kernel="on", incremental_jk="on", **TIGHT).kernel()
-    # "auto" runs it eagerly (on the CPU "auto" is eager anyway); get_veff
-    # has no incremental build and is graphed under "on"
-    eng = _port(mol, jit_kernel="on", incremental_jk="on")
+def test_incremental_jk_is_graphed(mols):
+    """jit_kernel="on" with incremental_jk="on" runs the incremental SCF as
+    graphed programs: the port's eager incremental SCF within 1e-10 Ha in
+    as many mixed-loop and polish cycles, nbed_tpu's jitted incremental SCF
+    within 1e-8 Ha (the eager path's tolerance against nbed_tpu,
+    tests/test_torch_mixed_precision.py); get_veff has no incremental
+    build and is graphed as well."""
+    ref_mol, mol = mols
+    kw = dict(xc="b3lyp", incremental_jk="on", **TIGHT)
+    eng = _port(mol, jit_kernel="on", **kw)
+    ours = eng.kernel()
+    assert ours.converged and eng.last_run["mode"] == "graph"
+    eager_eng = _port(mol, jit_kernel="off", **kw)
+    eager = eager_eng.kernel()
+    assert abs(ours.e_tot - eager.e_tot) < 1e-10
+    assert eng.last_run["cycles"] == eager_eng.last_run["cycles"]
+    theirs = RefEngine(ref_mol, jit_kernel="on", **kw).kernel()
+    assert abs(ours.e_tot - theirs.e_tot) < 1e-8
     eng.get_veff(torch.eye(mol.nao, dtype=torch.float64) * 0.1)
 
 
@@ -204,13 +215,14 @@ def test_differentiable_inputs_stay_eager(mols):
     # no CUDA work)
     object.__setattr__(eng, "device", torch.device("cuda"))
     plain = v.detach()
-    assert eng._takes_graphs((plain, None), kernel=True)
-    assert not eng._takes_graphs((v, None), kernel=True)
+    assert eng._takes_graphs((plain, None))
+    assert not eng._takes_graphs((v, None))
     with torch.autograd.forward_ad.dual_level():
         dual = torch.autograd.forward_ad.make_dual(plain, torch.ones_like(plain))
-        assert not eng._takes_graphs((dual,), kernel=True)
+        assert not eng._takes_graphs((dual,))
+    # the incremental SCF is graphed too
     eng.incremental_jk = "on"
-    assert not eng._takes_graphs((plain,), kernel=True) and eng._takes_graphs((plain,))
+    assert eng._takes_graphs((plain,))
 
 
 @pytest.mark.parametrize("backend", ["torch", "jax"])
@@ -370,7 +382,8 @@ def test_cuda_replay_equals_uncaptured_body(water_xyz):
     eager = eager_eng.kernel()
     assert abs(ours.e_tot - eager.e_tot) < 1e-10
     assert eng.last_run["cycles"] == eager_eng.last_run["cycles"]
-    (graph,) = [g for key, g in eng._graphs.items() if key[0] == torch.float64]
+    graph = eng._scf_graph(torch.float64, mol.nelec, (False, False, False), 0.0,
+                           engine_mod.DISPATCH_CYCLES)
     prog = graph.program
     inputs = dict(dm0=eng._sad_guess(), conv_tol=1e-10, dm_conv_tol=1e-8, max_cycle=100)
     prog.load(**inputs)

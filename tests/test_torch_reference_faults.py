@@ -8,11 +8,13 @@ readings are printed (``pytest -s``) and recorded in ROADMAP.md, queue 3.
    takes K of the symmetrised transition density (its ``_df_k_spin``), so
    its roots miss that identity; the port builds the unsymmetrised
    exchange and keeps it to 1e-10.
-2. The TPSS kernel at closed-shell points. The jvp of vxc along a symmetric
-   tangent misses a central difference of vxc in both packages: the clip of
-   |grad zeta|^2 in ``tpss_c`` sits at its tie at every closed-shell point,
-   where the tie rule halves that term's curvature. The port's jvp is held
-   to nbed_tpu's; SCAN, with no such clip, to 1e-12.
+2. The TPSS kernel at closed-shell points. nbed_tpu's jvp of vxc along a
+   symmetric tangent misses a central difference of its vxc: the clip of
+   |grad zeta|^2 in ``tpss_c`` sits at its tie (or a rounding error below
+   it) at every closed-shell point, where JAX's tie rule halves that term's
+   curvature (or drops it). The port passes the clip's gradient whole to
+   the bracket it guards, so its TPSS/TPSSh jvp is held to the central
+   difference; SCAN, with no such clip, to nbed_tpu's jvp at 1e-12.
 3. The Boys function's derivative at t = 0. ``boys`` selects a Taylor
    series below t = 0.1 with ``jnp.where``, and the unselected closed form's
    derivative at the clamped t = 1e-30 divides by t^(2m+1), which underflows
@@ -76,12 +78,15 @@ def test_df_tddft_on_hf_keeps_the_cis_identity(df_pair, kind):
     assert spread["max"] < 1e-10
 
 
-@pytest.mark.parametrize("xc, tol", [("scan", 1e-12), ("tpss", 1e-4)])
+@pytest.mark.parametrize("xc, tol", [("scan", 1e-12), ("tpss", 1e-4), ("tpssh", 1e-4)])
 def test_meta_gga_kernel_matches_nbed_tpu(water_molecule, xc, tol):
-    """f_xc . t of the response closure against nbed_tpu's ``jax.jvp`` of
-    its closure, relative to the largest element. The TPSS tolerance is the
-    two packages' disagreement at the tie (3.0e-5 on this molecule), not a
-    claim of accuracy: both miss the central difference by about 6e-4."""
+    """f_xc . t of the response closure against a central difference of the
+    port's own vxc (h = 1e-5, within 1e-8 relative to the largest element)
+    and against nbed_tpu's ``jax.jvp`` of its closure. SCAN: the packages
+    agree within ``tol``. TPSS/TPSSh: nbed_tpu's jvp misses the central
+    difference by ~6e-4 (printed, not asserted), and the packages' jvps
+    differ by that miss; ``tol`` bounds the port's miss of the central
+    difference at h = 1e-4."""
     jax.config.update("jax_enable_x64", True)
     ref = RefEngine(water_molecule, xc=xc, **SCF).kernel()
     port = solution_from_reference(ref, "cpu")
@@ -96,14 +101,19 @@ def test_meta_gga_kernel_matches_nbed_tpu(water_molecule, xc, tol):
     _, jvp_port = torch.func.jvp(lambda d: response(d)[1], (dm0,), (tt,))
     jvp_port = jvp_port.numpy()
     rel = float(np.abs(jvp_port - jvp_ref).max() / np.abs(jvp_ref).max())
+    miss = {}
     for h in (1e-4, 1e-5):
         fd = ((eng.xc_fn(dm0 + h * tt)[1] - eng.xc_fn(dm0 - h * tt)[1]) / (2 * h)).numpy()
         scale = np.abs(fd).max()
+        miss[h] = float(np.abs(jvp_port - fd).max() / scale)
         print(f"{xc} jvp vs central difference, h={h:g}: nbed_tpu "
-              f"{np.abs(jvp_ref - fd).max() / scale:.3g}, nbed_tpu_torch "
-              f"{np.abs(jvp_port - fd).max() / scale:.3g}")
+              f"{np.abs(jvp_ref - fd).max() / scale:.3g}, nbed_tpu_torch {miss[h]:.3g}")
     print(f"{xc} jvp, nbed_tpu_torch vs nbed_tpu: {rel:.3g}")
-    assert rel < tol
+    assert miss[1e-5] < 1e-8
+    if xc == "scan":
+        assert rel < tol
+    else:
+        assert miss[1e-4] < tol
 
 
 @pytest.mark.parametrize("mmax", [4, 5, 8])
