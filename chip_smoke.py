@@ -83,6 +83,21 @@ subsystem stage (1e-12) and ``integrals_backend="torch"`` (1e-10), and
 prints the warm ``kernel()`` and ``nbed()`` walls of each way. Each
 phase's line of SCF runs says how its ``kernel()`` calls ran.
 
+The remaining compiled programs: the CCSD amplitude sweep (one CUDA graph
+per cycle, the DIIS solve in the cuSOLVER eigh) and the (T) energy (one
+graph for the whole chunk loop), the grid and the AO tables (shared
+programs of the structure) and the TDA/RPA matvec blocks (one graph per
+block kind and width) run as graphs wherever the work is on the card.
+``grid_programs`` gives a second engine of water, acetonitrile and pfoa
+its tables with no capture, bitwise equal to an eager engine's;
+``tddft_graphed`` holds acetonitrile's TDA, A+B and A-B blocks graphed
+against eager (1e-12) and its Davidson roots (1e-10), and ``pfoa_post``
+a pfoa TDA block; after pfoa, ``ccsd_graphed`` holds the sweep against
+its eager loop (1e-10 Ha in as many cycles) on water's mu and Huzinaga
+spaces, acetonitrile's 28-qubit space and pfoa's mu space, and
+water_global's (T) (1e-12). ``shared_programs`` asserts that a second
+``nbed()`` captures no program of any kind.
+
     python3 chip_smoke.py
 
 The kernel phases hold the fused J/K kernel (``ops.jk.FusedJK``, as the
@@ -113,6 +128,7 @@ The pipeline phases' launches are also printed by dtype and M, and by
 Exits non-zero, printing no result, where CUDA is unavailable.
 """
 
+import gc
 import json
 import subprocess
 import sys
@@ -1923,10 +1939,13 @@ def run_pfoa_post(driver):
     if not (max(stats["residuals"]) <= 1e-8 and np.all(np.diff(dav) >= 0) and dav[0] > 0):
         raise RuntimeError(f"pfoa_post Davidson: roots {dav}, residuals {stats['residuals']}")
     out.update(davidson_roots=dav.tolist(), davidson_iterations=stats["iterations"],
-               davidson_blocks=stats["matvec_blocks"],
+               davidson_blocks=stats["matvec_blocks"], davidson_matvec_s=stats["matvec_s"],
                davidson_s_per_block=stats["matvec_s"] / stats["matvec_blocks"],
                n_pairs_global=sum(int((o > 0).sum()) * int((o <= 0).sum())
                                   for o in ks.mo_occ))
+    # tddft_graphed at pfoa: one TDA block of the program's width graphed
+    # against eager (the Davidson above ran its blocks as graphs)
+    out["tda_block"] = hold_blocks("pfoa_post", ks, rows=1, kinds=("tda",))
     dm0 = ks.make_rdm1()
     gen = torch.Generator(device="cuda").manual_seed(7)
     t = 1e-3 * torch.randn(dm0.shape, generator=gen, dtype=torch.float64, device="cuda")
@@ -2874,18 +2893,21 @@ def run_shared_programs(device="cuda"):
     cache: water at three geometries and acetonitrile at two through
     default ("auto") engines, each within 1e-10 Ha of its own eager run in
     as many cycles, with captures at each structure's first engine only; a
-    second ``nbed()`` of water and of acetonitrile with no capture and
-    energies bitwise equal to the first call's (captures, capture seconds
-    and walls of both calls, and an eager call's wall, printed); the water
-    B3LYP Hessian (``hessian_fd(xc="b3lyp")``: 18 displaced KS engines)
-    with one capture set (a chunk and a final build), within 1e-6
+    second ``nbed()`` of water and of acetonitrile with no capture of any
+    kind (the first captures the CCSD sweep and the grid and AO tables
+    among its SCF programs) and energies bitwise equal to the first
+    call's (captures, capture seconds and walls of both calls, and an
+    eager call's wall, printed); the water B3LYP Hessian
+    (``hessian_fd(xc="b3lyp")``: 18 displaced KS engines) with one capture
+    set (a chunk, a final build, the grid and the AO tables), within 1e-6
     Ha/bohr^2 per element of the same Hessian with ``jit_kernel="off"``."""
     from nbed_tpu_torch import nbed
     from nbed_tpu_torch.chem import build_molecule
     from nbed_tpu_torch.scf import SCFEngine, engine
-    from nbed_tpu_torch.solvers import hessian_fd
+    from nbed_tpu_torch.solvers import ccsd, hessian_fd
 
     engine._JIT_PROGRAM_CACHE.clear()
+    ccsd._SWEEP_PROGRAMS.clear()
     out = {}
     for label, xyz, xc, n_geom in (("water", WATER.read_text(), "b3lyp", 3),
                                    ("acetonitrile", ACETONITRILE, "b3lyp5", 2)):
@@ -2905,31 +2927,40 @@ def run_shared_programs(device="cuda"):
     for name in ("water", "acetonitrile"):
         calls = []
         for _ in range(2):
-            c0, s0 = _captures()
-            driver, wall = _timed(lambda: nbed(**CONFIGS[name], device=device))
-            c1, s1 = _captures()
-            calls.append({"captures": c1 - c0, "capture_s": s1 - s0, "wall_s": wall,
-                          "e": pipeline_energies(driver)})
+            driver, wall, runs = _program_counts(lambda: nbed(**CONFIGS[name], device=device))
+            calls.append({"captures": runs.get("captures", 0),
+                          "capture_s": runs.get("capture_s", 0.0), "wall_s": wall,
+                          "e": pipeline_energies(driver),
+                          "by_kind": {k[:-len("_captures")]: v for k, v in runs.items()
+                                      if k.endswith("_captures")}})
         if calls[1]["captures"] or calls[1]["e"] != calls[0]["e"]:
             raise RuntimeError(f"shared_programs: the second nbed() of {name} made "
                                f"{calls[1]['captures']} captures, energies "
                                f"{calls[1]['e']} against {calls[0]['e']}")
+        # the first call captured the CCSD sweep and the grid/AO programs
+        # (its own structure's), the second none of any kind
+        if not all(calls[0]["by_kind"].get(k) for k in ("ccsd_graph", "grid_graph",
+                                                         "aos_graph")):
+            raise RuntimeError(f"shared_programs: the first nbed() of {name} captured "
+                               f"{calls[0]['by_kind']}")
         with driver_engines("off"):
             nbed(**CONFIGS[name], device=device)  # its SAD atoms, eager, cached
             _, eager_s = _timed(lambda: nbed(**CONFIGS[name], device=device))
-        walls[name] = {"first": {k: calls[0][k] for k in ("captures", "capture_s", "wall_s")},
+        walls[name] = {"first": {k: calls[0][k] for k in ("captures", "capture_s", "wall_s",
+                                                          "by_kind")},
                        "second": {k: calls[1][k] for k in ("captures", "capture_s",
                                                            "wall_s")},
                        "eager_wall_s": eager_s}
     out["embed"] = walls
     water = build_molecule(WATER.read_text(), "sto-3g")
     engine._JIT_PROGRAM_CACHE.clear()
-    c0, s0 = _captures()
-    hess, wall = _timed(lambda: hessian_fd(water, xc="b3lyp", device=device))
-    captures, capture_s = _captures()[0] - c0, _captures()[1] - s0
-    if captures != 2:
+    hess, wall, runs = _program_counts(lambda: hessian_fd(water, xc="b3lyp", device=device))
+    captures, capture_s = runs.get("captures", 0), runs.get("capture_s", 0.0)
+    tables = runs.get("grid_graph_captures", 0), runs.get("aos_graph_captures", 0)
+    if captures != 4 or tables != (1, 1):
         raise RuntimeError(f"shared_programs: the B3LYP Hessian's 18 engines made {captures} "
-                           "captures, not one chunk and one final build")
+                           f"captures, {tables} of them grid and AO tables, not one chunk, one "
+                           "final build, one grid and one AO table")
     hess_off, wall_off = _timed(lambda: hessian_fd(water, xc="b3lyp", device=device,
                                                    jit_kernel="off"))
     out["ks_hessian"] = {"captures": captures, "capture_s": capture_s, "graphed_s": wall,
@@ -3027,6 +3058,199 @@ def run_water_tpss_kernel(device="cuda"):
     print("water_tpss_kernel", json.dumps(out), flush=True)
 
 
+# --------------------------------------------------------------------------
+# the remaining compiled programs: CCSD sweep and (T), grid and AO tables,
+# TDA/RPA matvec blocks
+# --------------------------------------------------------------------------
+
+@contextmanager
+def eager_programs():
+    """Inside the block the CCSD sweep, (T) and the TDA/RPA matvec blocks
+    run their programs' functions uncaptured (their private switches: the
+    solvers have no public one, as the reference's jitted programs have
+    none)."""
+    from nbed_tpu_torch.solvers import ccsd, tddft
+
+    ccsd._GRAPHED, tddft._GRAPHED = False, False
+    try:
+        yield
+    finally:
+        ccsd._GRAPHED, tddft._GRAPHED = True, "auto"
+
+
+def _program_counts(fn):
+    """(fn(), wall seconds, the ops.programs.RUNS counts it added)."""
+    from nbed_tpu_torch.ops.programs import RUNS
+
+    before = dict(RUNS)
+    out, wall = _timed(fn)
+    return out, wall, {k: v - before.get(k, 0) for k, v in RUNS.items()
+                       if v != before.get(k, 0)}
+
+
+def hold_ccsd(label: str, h1, h2, occ, triples: bool = False) -> dict:
+    """``run_ccsd`` graphed (the default on the card) against the same
+    cycle function eager: within 1e-10 Ha (the (T) energy 1e-12) in as
+    many cycles; a second graphed solve captures nothing. Returns the
+    cycles, captures, capture seconds and both warm walls."""
+    from nbed_tpu_torch.solvers import run_ccsd
+
+    def solve():
+        return run_ccsd(h1, h2, occ, conv_tol=1e-10, triples=triples)
+
+    first, first_s, first_runs = _program_counts(solve)
+    graphed, graph_s, graph_runs = _program_counts(solve)
+    with eager_programs():
+        solve()
+        eager, eager_s, eager_runs = _program_counts(solve)
+    pairs = [("e_corr", graphed[0], eager[0]), ("first e_corr", first[0], eager[0])]
+    _gate(f"ccsd_graphed {label} graph vs eager", pairs, 1e-10)
+    if triples:
+        _gate(f"ccsd_graphed {label} (T) graph vs eager", [("e_t", graphed[1], eager[1])],
+              1e-12)
+    cycles = graph_runs.get("ccsd_cycles"), eager_runs.get("ccsd_cycles")
+    if cycles[0] != cycles[1] or first_runs.get("ccsd_cycles") != cycles[1]:
+        raise RuntimeError(f"ccsd_graphed {label}: graphed cycles {cycles[0]}, eager {cycles[1]}")
+    if graph_runs.get("captures", 0):
+        raise RuntimeError(f"ccsd_graphed {label}: a second solve captured "
+                           f"{graph_runs['captures']} graphs")
+    return {"cycles": cycles[0], "captures": first_runs.get("captures", 0),
+            "capture_s": first_runs.get("capture_s", 0.0), "first_s": first_s,
+            "warm_graph_s": graph_s, "warm_eager_s": eager_s,
+            "host_reads": graph_runs.get("ccsd_host_reads", 0),
+            "de": graphed[0] - eager[0], **({"de_t": graphed[1] - eager[1]} if triples else {})}
+
+
+def run_ccsd_graphed(pfoa_driver, device="cuda"):
+    """The CCSD sweep and (T) as CUDA-graph programs (``solvers.ccsd``)
+    against their eager loops, from empty program caches: water's mu and
+    Huzinaga embedded spaces, acetonitrile's 28-qubit Huzinaga space, and
+    the CCSD(T) of pfoa's mu space (78 spin orbitals) and water_global."""
+    from nbed_tpu_torch import nbed
+    from nbed_tpu_torch.config import NbedConfig
+    from nbed_tpu_torch.driver import NbedDriver
+    from nbed_tpu_torch.ham import HamiltonianBuilder
+    from nbed_tpu_torch.solvers import ccsd
+
+    water = nbed(**CONFIGS["water"], device=device)
+    aceto = nbed(**CONFIGS["acetonitrile"], device=device)
+    glob = NbedDriver(NbedConfig(**CONFIGS["water_global"]), device=device)
+    ccsd._SWEEP_PROGRAMS.clear()  # the drivers' solves captured theirs
+    ccsd._TRIPLES_PROGRAMS.clear()
+    out = {"sweep_cycles": ccsd.SWEEP_CYCLES}
+    for label, sol, triples in (("water_mu", water.mu["scf"], False),
+                                ("water_huzinaga", water.huzinaga["scf"], False),
+                                ("acetonitrile_huzinaga", aceto.huzinaga["scf"], False),
+                                ("pfoa_mu", pfoa_driver.mu["scf"], True),
+                                ("water_global", glob._global_hf, True)):
+        _, h1, h2 = HamiltonianBuilder(sol, 0.0).build()
+        out[label] = hold_ccsd(label, h1, h2, _interleaved(sol), triples)
+    print("ccsd_graphed", json.dumps(out), flush=True)
+
+
+def hold_tables(label: str, mol, xc: str, device="cuda") -> dict:
+    """The grid and AO tables of three engines of ``mol``: the first
+    captures the "grid" and "aos" programs, a second takes them from the
+    cache with no capture, both bitwise equal to an eager engine's
+    (``jit_kernel="off"``); seconds of each (programs dropped earlier are
+    collected before each clock starts)."""
+    from nbed_tpu_torch.scf import SCFEngine
+
+    def tables(**kw):
+        gc.collect()
+        eng = SCFEngine(mol, xc=xc, device=device, **kw)
+        return _program_counts(lambda: (*eng._grid, *eng._ao_tables))
+
+    first, first_s, first_runs = tables()
+    second, second_s, second_runs = tables()
+    eager, eager_s, _ = tables(jit_kernel="off")
+    if not all(torch.equal(a, c) and torch.equal(b, c) for a, b, c in zip(first, second, eager)):
+        raise RuntimeError(f"grid_programs {label}: graphed tables differ from eager")
+    if second_runs.get("captures", 0) or not first_runs.get("aos_graph_captures"):
+        raise RuntimeError(f"grid_programs {label}: captures {first_runs} then {second_runs}")
+    return {"points": int(first[0].shape[0]), "captures": first_runs.get("captures", 0),
+            "capture_s": first_runs.get("capture_s", 0.0), "first_s": first_s,
+            "second_s": second_s, "second_captures": second_runs.get("captures", 0),
+            "eager_s": eager_s, "ao_gb": (first[2].numel() + first[3].numel()) * 8 / 1e9}
+
+
+def run_grid_programs(device="cuda"):
+    """``SCFEngine._grid`` and ``_ao_tables`` as shared programs of
+    ``_JIT_PROGRAM_CACHE`` (kinds "grid" and "aos") for water, the
+    acetonitrile molecule and pfoa (383,890 points x 126 AOs), from an
+    empty cache (:func:`hold_tables`)."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.scf import engine
+
+    engine._JIT_PROGRAM_CACHE.clear()
+    out = {}
+    for label, xyz, xc in (("water", WATER.read_text(), "b3lyp"),
+                           ("acetonitrile", ACETONITRILE, "b3lyp5"),
+                           ("pfoa", PFOA.read_text(), "b3lyp")):
+        out[label] = hold_tables(label, build_molecule(xyz, "sto-3g"), xc, device)
+    engine._JIT_PROGRAM_CACHE.clear()  # pfoa's tables are not a later phase's
+    print("grid_programs", json.dumps(out), flush=True)
+
+
+def hold_blocks(label: str, sol, rows: int, kinds=("tda", "apb", "amb"), seed: int = 1) -> dict:
+    """The matvec blocks of ``kinds`` (TDA, A+B, A-B) of ``sol`` as graphed
+    programs (padded to their fixed width) against the eager blocks on
+    ``rows`` seeded trial vectors: within 1e-12, a second replay
+    bitwise."""
+    from nbed_tpu_torch.solvers import tddft
+
+    fr = tddft._response_frame(sol)
+    npairs = sum(fr["sizes"])
+    x = torch.tensor(np.random.default_rng(seed).standard_normal((rows, npairs)),
+                     dtype=torch.float64, device=sol.mo_coeff.device)
+    out = {"npairs": npairs, "block": fr["block"]}
+    for kind in kinds:
+        graphed, first_s, runs = _program_counts(lambda: tddft._blockwise(fr, kind, x))
+        again, warm_s = _timed(lambda: tddft._blockwise(fr, kind, x))
+        with eager_programs():
+            eager, eager_s = _timed(lambda: tddft._blockwise(fr, kind, x))
+        dev = float(torch.max(torch.abs(graphed - eager)))
+        _gate(f"{label} {kind} block graph vs eager", [("max |d|", dev, 0.0)], 1e-12)
+        if not torch.equal(graphed, again):
+            raise RuntimeError(f"{label} {kind}: two replays differ")
+        out[kind] = {"dev": dev, "captures": runs.get("captures", 0),
+                     "capture_s": runs.get("capture_s", 0.0), "first_s": first_s,
+                     "warm_s": warm_s, "eager_s": eager_s}
+    return out
+
+
+def run_tddft_graphed(device="cuda"):
+    """The TDA/RPA matvec blocks as CUDA-graph programs on acetonitrile's
+    global B3LYP5 UKS: each block kind graphed against eager (1e-12), and
+    a 6-root Davidson TDA graphed against eager (roots 1e-10) with its
+    ``matvec_s``."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.scf import SCFEngine
+    from nbed_tpu_torch.solvers import run_tddft_tda
+
+    mol = build_molecule(ACETONITRILE, "sto-3g")
+    sol = SCFEngine(mol, xc="b3lyp5", device=device, **TIGHT_SCF).kernel()
+    out = {"blocks": hold_blocks("tddft_graphed", sol, rows=7)}
+    roots = {}
+    for label in ("graph", "eager"):
+        stats = {}
+        if label == "eager":
+            with eager_programs():
+                res, wall = _timed(lambda: run_tddft_tda(sol, nroots=6, method="davidson",
+                                                         stats=stats))
+        else:
+            res, wall = _timed(lambda: run_tddft_tda(sol, nroots=6, method="davidson",
+                                                     stats=stats))
+        roots[label] = res.excitations
+        out[f"davidson_{label}"] = {"wall_s": wall, "matvec_s": stats["matvec_s"],
+                                    "blocks": stats["matvec_blocks"],
+                                    "iterations": stats["iterations"]}
+    _gate("tddft_graphed Davidson graph vs eager",
+          [(f"root {i}", a, b) for i, (a, b) in enumerate(zip(roots["graph"], roots["eager"]))],
+          1e-10)
+    print("tddft_graphed", json.dumps(out), flush=True)
+
+
 def build_all():
     """Build the CUDA kernel library, the cuSOLVER eigh library and the two
     host C++ libraries, each compiler started at once."""
@@ -3053,14 +3277,14 @@ MIXED = ("fused_jk_f64", "fused_jk_f32", "eigh_f64", "eigh_f32")
 LANES = ("fused_jk_f64", "lanes", "eigh_f64")
 # the incremental SCF's float32 J/K of density changes inside graphs
 INCREMENTAL = ("fused_jk_f32", "eigh_f64")
-# the phases of the post-SCF, derivatives, parallel, compiled-program and
-# shared-program slices, summarised at the end
+# the phases of the post-SCF, derivatives, parallel, compiled-program,
+# shared-program and remaining-program slices, summarised at the end
 NEW_PHASES = ("water_global", "acetonitrile_post", "h2_stability", "water_qse", "pfoa_post",
               "water_derivatives", "acetonitrile_derivatives", "water_ccpvdz_gradient",
               "water_fleet", "water_fleet_gradients", "water_embed_fleet", "sharded",
               "pfoa_sharded", "graphed_scf", "hessian_mesh", "shared_programs",
               "incremental_graphed", "water_tpss_kernel", "pfoa_incremental",
-              "pfoa_warmup_graphed")
+              "pfoa_warmup_graphed", "grid_programs", "tddft_graphed", "ccsd_graphed")
 
 
 def main():
@@ -3150,6 +3374,8 @@ def main():
         ("water_ccpvdz_gradient", run_water_ccpvdz_gradient, F64),
         ("shared_programs", run_shared_programs, F64),
         ("incremental_graphed", run_incremental_graphed, INCREMENTAL),
+        ("grid_programs", run_grid_programs, ()),
+        ("tddft_graphed", run_tddft_graphed, F64),
         ("water_tpss_kernel", run_water_tpss_kernel, F64),
         ("water_functionals", run_water_functionals, F64),
         ("methyl_rohf", run_methyl_rohf, F64), ("water_qmmm", run_water_qmmm, F64),
@@ -3216,6 +3442,18 @@ def main():
     phase_s["pfoa_post"] = time.perf_counter() - t0
     count("pfoa_post")
     peak_gb["pfoa_post"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # the CCSD sweep and (T) as graphs against eager, pfoa's mu space among
+    # them: the DIIS eigh launches inside the sweep's graphs
+    torch.cuda.reset_peak_memory_stats()
+    clear()
+    t0 = time.perf_counter()
+    run_ccsd_graphed(driver)
+    phase_s["ccsd_graphed"] = time.perf_counter() - t0
+    count("ccsd_graphed")
+    peak_gb["ccsd_graphed"] = torch.cuda.max_memory_allocated() / 1e9
+    if not per_phase["ccsd_graphed"].get("eigh_f64"):
+        raise RuntimeError("the ccsd_graphed phase ran without launching eigh_f64")
 
     # the split DF-UKS at pfoa's size: DF J/K and XC, no fused J/K launch
     torch.cuda.reset_peak_memory_stats()

@@ -27,7 +27,7 @@ from .._device import DTYPE, resolve_device
 from ..chem.molecule import Molecule, cartesian_components
 from .lebedev import LEBEDEV_PARAMS, lebedev_grid
 
-__all__ = ["MolecularGrid", "build_grid", "eval_aos"]
+__all__ = ["MolecularGrid", "ao_views", "build_grid", "eval_aos", "grid_constants", "grid_points"]
 
 # Bragg-Slater radii (angstrom -> bohr at use site), H..Ar, for Becke size
 # adjustment and NWChem pruning. Values from Bragg (1920) as used by
@@ -260,6 +260,44 @@ def _becke_weights(points, owner, coords, bragg_radii, chunk=32768, adjust="treu
                       for i in range(0, points.shape[0], chunk)])
 
 
+def grid_constants(mol: Molecule, n_rad: int = 80, n_theta: int = 18,
+                   scheme: str = "reference", level: int = 3, device="cuda") -> dict:
+    """The structure's constants of :func:`build_grid` as tensors on
+    ``device``: atom-relative points "rel" (G, 3), owning atoms "owner"
+    (G,), base weights "base" (G,), Bragg radii "bragg" (natm,), and the
+    Becke size adjustment "adjust" of the scheme. Made once per structure,
+    they let :func:`grid_points` copy nothing from the host (a CUDA graph
+    captures it)."""
+    if scheme == "reference":
+        meta = _grid_meta_reference(mol, level)
+        adjust = "treutler"
+    elif scheme == "product":
+        meta = _grid_meta_product(mol, n_rad, n_theta)
+        adjust = "becke"
+    else:
+        raise ValueError(f"Unknown grid scheme '{scheme}'")
+    device = resolve_device(device)
+    return {
+        "rel": torch.as_tensor(meta.rel_points, dtype=DTYPE, device=device),
+        "owner": torch.as_tensor(meta.atom_of_point, device=device),
+        "base": torch.as_tensor(meta.base_weights, dtype=DTYPE, device=device),
+        "bragg": torch.tensor([_bragg_bohr(int(z)) for z in mol.atom_charges],
+                              dtype=DTYPE, device=device),
+        "adjust": adjust,
+    }
+
+
+def grid_points(constants: dict, coords):
+    """(points, weights) of the grid of :func:`grid_constants` for atoms at
+    ``coords`` ((natm, 3) tensor on the constants' device): each point is
+    its atom-relative offset plus its owning atom's coordinates."""
+    owner = constants["owner"]
+    points = constants["rel"] + coords[owner]
+    becke = _becke_weights(points, owner, coords, constants["bragg"],
+                           adjust=constants["adjust"])
+    return points, constants["base"] * becke
+
+
 def build_grid(mol: Molecule, coords=None, n_rad: int = 80, n_theta: int = 18,
                scheme: str = "reference", level: int = 3, device="cuda"):
     """(points (G, 3), weights (G,)) for XC quadrature on ``device``.
@@ -270,24 +308,9 @@ def build_grid(mol: Molecule, coords=None, n_rad: int = 80, n_theta: int = 18,
     ``n_rad``/``n_theta`` and takes the per-element level-``level``
     defaults; ``scheme="product"`` ignores ``level``.
     """
-    if scheme == "reference":
-        meta = _grid_meta_reference(mol, level)
-        adjust = "treutler"
-    elif scheme == "product":
-        meta = _grid_meta_product(mol, n_rad, n_theta)
-        adjust = "becke"
-    else:
-        raise ValueError(f"Unknown grid scheme '{scheme}'")
     c = torch.as_tensor(mol.coords if coords is None else coords, dtype=DTYPE,
                         device=resolve_device(device))
-    device = c.device
-    owner = torch.as_tensor(meta.atom_of_point, device=device)
-    points = torch.as_tensor(meta.rel_points, dtype=DTYPE, device=device) + c[owner]
-    bragg = torch.tensor([_bragg_bohr(int(z)) for z in mol.atom_charges],
-                         dtype=DTYPE, device=device)
-    becke = _becke_weights(points, owner, c, bragg, adjust=adjust)
-    base = torch.as_tensor(meta.base_weights, dtype=DTYPE, device=device)
-    return points, base * becke
+    return grid_points(grid_constants(mol, n_rad, n_theta, scheme, level, c.device), c)
 
 
 def eval_aos(mol: Molecule, points, coords=None, tables=None):
@@ -305,9 +328,19 @@ def eval_aos(mol: Molecule, points, coords=None, tables=None):
                         device=points.device)
     if tables is None:
         tables = shell_tables(mol, points.dtype, points.device)
+    ao, grad = ao_views(mol, points, c, tables)
+    return ao.contiguous(), grad.contiguous()
+
+
+def ao_views(mol: Molecule, points, coords, tables):
+    """:func:`eval_aos` on tensors alone (``coords`` (natm, 3) and the
+    :func:`shell_tables` on the points' device), returning the (G, nao) and
+    (3, G, nao) tables as transposed views of AO-major tensors: a caller
+    that copies them into buffers (a CUDA graph) skips the contiguous
+    copy."""
     vals, grads = [], []  # per shell: (nsph, G) and (3, nsph, G)
     for sh, (exps, coefs, c2s_t) in zip(mol.shells, tables):
-        rel = (points - c[sh.atom][None, :]).T  # (3, G)
+        rel = (points - coords[sh.atom][None, :]).T  # (3, G)
         x, y, z = rel[0], rel[1], rel[2]
         r2 = x * x + y * y + z * z
         gauss = coefs[:, None] * torch.exp(-exps[:, None] * r2[None, :])  # (K, G)
@@ -332,7 +365,7 @@ def eval_aos(mol: Molecule, points, coords=None, tables=None):
         grads.append(torch.einsum("sc,dcg->dsg", c2s_t, cart_grad))
     ao_t = torch.cat(vals, dim=0)  # (nao, G)
     grad_t = torch.cat(grads, dim=1)  # (3, nao, G)
-    return ao_t.T.contiguous(), grad_t.transpose(1, 2).contiguous()
+    return ao_t.T, grad_t.transpose(1, 2)
 
 
 def shell_tables(mol: Molecule, dtype, device) -> list:

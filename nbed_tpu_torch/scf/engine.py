@@ -58,12 +58,10 @@ streaming-crash chunking are not ported, nor is its Pallas switch
 (``pallas_jk``): the port always runs its kernel.
 """
 
-import gc
 import itertools
 import logging
 import time
 import weakref
-from collections import Counter
 from dataclasses import dataclass, field
 from functools import cached_property, lru_cache
 from typing import Optional
@@ -78,10 +76,14 @@ from ..chem.periodic import SYMBOL_TO_Z, Z_TO_SYMBOL
 from ..dft.functionals import resolve_functional
 from ..dft.xc import STREAM_CHUNK, TABLE_CHUNK, make_xc_fn, make_xc_fn_streaming
 from ..grids import build_grid, eval_aos
+from ..grids.grid import ao_views, grid_constants, grid_points, shell_tables
 from ..integrals import (eri_tensor, kinetic, native, nuclear_attraction, overlap,
                          point_charge_attraction)
 from ..ops import eigh as eigh_ops
-from ..ops.jk import LAUNCHES, LaunchRecord, recording, prepare_jk
+from ..ops.jk import LAUNCHES, prepare_jk
+from ..ops.programs import RUNS, cached_program, replay
+from ..ops.programs import Captured as _Captured
+from ..ops.programs import card as _card
 from .hf import (SCFProgram, _first_lane, _one_lane, carries_derivative, lowdin_x, make_rdm1,
                  run_scf)
 
@@ -97,11 +99,6 @@ __all__ = ["SCFEngine", "SCFSolution", "VeffResult", "df_b_factor", "DISPATCH_CY
 # convergence (PERF.md §6, scripts/bench_graphs.py)
 DISPATCH_CYCLES = 1
 
-# how the SCFs of this process ran (SCFEngine.kernel, get_veff and
-# subsystem_decomposition): "graph" and "eager" kernel() calls, "replays",
-# "host_reads", "captures", "capture_s", "cycles"; the counterpart of
-# ops.jk.LAUNCHES for a run to read per phase
-RUNS: Counter = Counter()
 
 
 @dataclass
@@ -235,72 +232,6 @@ def _atomic_density(symbol: str, basis: str, device: str, jit_kernel: str = "aut
                     device=device, jit_kernel=jit_kernel)
     dm = eng.kernel(nelec=(na, z - na)).make_rdm1()
     return 0.5 * (dm[0] + dm[1])
-
-
-# whether a CUDA graph capture is running in this process: programs leave
-# the cache (destroying their graphs) only outside one
-_CAPTURING = [False]
-
-
-class _Captured:
-    """``fn()``, work that reads and writes fixed buffers only, as a CUDA
-    graph: :meth:`capture` runs ``warmup()`` (default ``fn``) once
-    uncaptured on a side stream, so that libraries set up their handles and
-    workspaces outside the capture, then captures ``fn`` (which launches
-    nothing); a call replays it. Off CUDA there is no graph and a call runs
-    ``fn``. The launches captured are added to the launch counters once per
-    replay (:class:`nbed_tpu_torch.ops.jk.LaunchRecord`).
-
-    ``pool`` is a one-item list shared by the graphs of one structure's
-    programs (:class:`_Operands`): the first capture fills it with its
-    memory pool and the later ones capture into the same pool. A graph's
-    allocations are temporaries that die within its replay (results are
-    copied into buffers made outside the capture), and the graphs replay
-    one after another on the stream, so the pool holds the largest graph's
-    memory, not the sum."""
-
-    def __init__(self, fn, device, pool: list, warmup=None):
-        self.fn, self.device, self.pool, self.warmup = fn, device, pool, warmup or fn
-        self.graph = None
-        self.record = LaunchRecord()
-
-    @property
-    def captures(self) -> bool:
-        return self.device.type == "cuda"
-
-    def capture(self):
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self.warmup()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # no garbage collection during the capture: collecting a program
-        # dropped earlier (alive in some reference cycle) would destroy its
-        # CUDA graphs there, which invalidates the capture
-        collecting = gc.isenabled()
-        gc.disable()
-        _CAPTURING[0] = True
-        try:
-            with recording(self.record), torch.cuda.graph(graph, pool=self.pool[0],
-                                                          stream=side):
-                self.fn()
-        finally:
-            _CAPTURING[0] = False
-            if collecting:
-                gc.enable()
-        if self.pool[0] is None:
-            self.pool[0] = graph.pool()
-        self.graph = graph
-
-    def __call__(self):
-        if not self.captures:
-            self.fn()
-            return
-        if self.graph is None:
-            raise RuntimeError("_Captured: capture() first")
-        self.graph.replay()
-        self.record.replayed()
 
 
 class _GraphedSCF:
@@ -474,27 +405,7 @@ def _shared_program(key, build):
     """The cached program of ``key``, promoted to most recently used; else
     ``build()``'s, inserted after evicting the least recently used entries
     beyond :data:`_JIT_PROGRAM_CACHE_MAX` (``_shared_jit``'s rules)."""
-    if _CAPTURING[0]:
-        raise RuntimeError("the program cache is not touched during a CUDA graph capture")
-    prog = _JIT_PROGRAM_CACHE.get(key)
-    if prog is None:
-        while len(_JIT_PROGRAM_CACHE) >= _JIT_PROGRAM_CACHE_MAX:
-            _JIT_PROGRAM_CACHE.pop(next(iter(_JIT_PROGRAM_CACHE)))
-        prog = build()
-    else:
-        del _JIT_PROGRAM_CACHE[key]
-    _JIT_PROGRAM_CACHE[key] = prog
-    return prog
-
-
-def _card(device) -> torch.device:
-    """``device`` with its CUDA index (the current card for "cuda"): the
-    card a program's buffers and graphs live on, a part of its keys (the
-    reference's jit specialises per placement)."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
+    return cached_program(_JIT_PROGRAM_CACHE, _JIT_PROGRAM_CACHE_MAX, key, build)
 
 
 def _operands(key) -> _Operands:
@@ -521,14 +432,18 @@ def _jk_closure(buffers, suffix: str, density_fitting: bool, fold, chunk: int):
     return lambda dm: jk(dm.contiguous())
 
 
-def _xc_closure(buffers, suffix: str, mol, xc: str, streams: bool, dtype):
+def _xc_closure(buffers, suffix: str, mol, xc: str, streams: bool, dtype, chunk=None,
+                differentiable: bool = False):
     """The engine's XC closure (``_build_xc``) over the operator buffers:
-    AO tables, or the grid points and atoms of the streaming quadrature."""
+    AO tables, or the grid points and atoms of the streaming quadrature;
+    ``chunk`` and ``differentiable`` as there."""
     if streams:
         return make_xc_fn_streaming(mol, buffers["points"], buffers["w" + suffix], xc,
-                                    chunk=STREAM_CHUNK, dtype=dtype, coords=buffers["atoms"])
+                                    chunk=chunk or STREAM_CHUNK, dtype=dtype,
+                                    differentiable=differentiable, coords=buffers["atoms"])
     return make_xc_fn(buffers["ao" + suffix], buffers["ao_grad" + suffix],
-                      buffers["w" + suffix], xc, chunk=TABLE_CHUNK)
+                      buffers["w" + suffix], xc, chunk=chunk or TABLE_CHUNK,
+                      differentiable=differentiable)
 
 
 @dataclass(eq=False)
@@ -752,6 +667,11 @@ class SCFEngine:
 
     @cached_property
     def _grid(self):
+        """(points, weights) of the XC grid; one replay of the shared "grid"
+        program where ``jit_kernel`` graphs the engine's calls."""
+        if self._takes_graphs(()):
+            out = self._table_program("grid")
+            return out["points"], out["w"]
         return build_grid(self.mol, self.coords, n_rad=self.grid_size[0],
                           n_theta=self.grid_size[1], scheme=self.grid_scheme,
                           level=self.grid_level, device=self.device)
@@ -770,7 +690,84 @@ class SCFEngine:
 
     @cached_property
     def _ao_tables(self):
+        """(ao (G, nao), ao_grad (3, G, nao)) on the grid; one replay of the
+        shared "aos" program where ``jit_kernel`` graphs the engine's
+        calls."""
+        if self._takes_graphs(()):
+            out = self._table_program("aos")
+            return out["ao"], out["ao_grad"]
         return eval_aos(self.mol, self._grid[0], self.coords)
+
+    def _table_program(self, kind: str) -> dict:
+        """This engine's grid ("grid": "points", "w") or AO tables ("aos":
+        "ao", "ao_grad") from the shared program of ``kind`` (the
+        reference's ``_shared_jit("grid")`` and ``_shared_jit("aos")``,
+        ``engine.py:360-410``). The structure's constants (the grid's
+        atom-relative points, owners, base weights and Bragg radii; the
+        shell tables) are made once, outside the capture, so the captured
+        body reads tensors only; the atoms' coordinates (and the grid
+        points) are its input buffers. The grid program, keyed by (kind,
+        ``_jit_spec``, card), writes buffers of its own; the AO program,
+        a program of ``_shared_jit`` (its key has the grid points too),
+        writes the structure's operator buffers "ao" and "ao_grad" that
+        the SCF programs read, now this engine's. Either way the engine
+        keeps a copy: its tables stay when another engine of its
+        structure replays the program."""
+        mol, device = self.mol, self.device
+
+        def atoms():
+            return torch.zeros((len(mol.atom_charges), 3), dtype=DTYPE, device=device)
+
+        def build_grid_program():
+            coords = atoms()
+            consts = grid_constants(mol, self.grid_size[0], self.grid_size[1],
+                                    self.grid_scheme, self.grid_level, device)
+            n = consts["rel"].shape[0]
+            out = {"points": torch.zeros((n, 3), dtype=DTYPE, device=device),
+                   "w": torch.zeros(n, dtype=DTYPE, device=device)}
+
+            def fn():
+                points, w = grid_points(consts, coords)
+                out["points"].copy_(points)
+                out["w"].copy_(w)
+
+            return self._table_fixed({"coords": coords}, out, _Captured(fn, device, [None]),
+                                     None)
+
+        def build_aos_program(ops):
+            coords, g = atoms(), self._grid[0].shape[0]
+            tables = shell_tables(mol, DTYPE, device)
+            points = torch.zeros((g, 3), dtype=DTYPE, device=device)
+            out = {"ao": ops.buffers.setdefault(
+                       "ao", torch.zeros((g, mol.nao), dtype=DTYPE, device=device)),
+                   "ao_grad": ops.buffers.setdefault(
+                       "ao_grad", torch.zeros((3, g, mol.nao), dtype=DTYPE, device=device))}
+
+            def fn():
+                ao, ao_grad = ao_views(mol, points, coords, tables)
+                out["ao"].copy_(ao)
+                out["ao_grad"].copy_(ao_grad)
+
+            return self._table_fixed({"coords": coords, "points": points}, out,
+                                     _Captured(fn, device, ops.pool), ops)
+
+        if kind == "grid":
+            prog = _shared_program(("grid", self._jit_spec, _card(device)), build_grid_program)
+        else:
+            prog = self._shared_jit("aos", build_aos_program)
+            prog.buffers["points"].copy_(self._grid[0])
+        prog.buffers["coords"].copy_(self._tensor(self.coords))
+        replay(prog.captured, f"{kind}_graph")
+        if prog.operands is not None:  # the operator buffers hold this engine's tables
+            prog.operands.owners.update({name: self._token for name in prog.outputs})
+        return {name: prog.buffers[name].clone() for name in prog.outputs}
+
+    @staticmethod
+    def _table_fixed(inputs: dict, out: dict, captured: _Captured, operands) -> _FixedProgram:
+        """A table program: reads no operator group, writes ``out``."""
+        prog = _FixedProgram({**inputs, **out}, captured, operands)
+        prog.needs, prog.outputs = (), tuple(out)
+        return prog
 
     @property
     def _xc_streams(self) -> bool:
@@ -1176,18 +1173,6 @@ class SCFEngine:
 
         return self._fixed_program("subsys", make)
 
-    @staticmethod
-    def _replay(captured: _Captured, what: str):
-        """Run a captured program, capturing it at its first call."""
-        if captured.captures and captured.graph is None:
-            t0 = time.perf_counter()
-            captured.capture()
-            RUNS["captures"] += 1
-            RUNS["capture_s"] += time.perf_counter() - t0
-        captured()
-        RUNS["replays"] += 1
-        RUNS[what] += 1
-
     def get_veff(self, dm) -> VeffResult:
         """J + Vxc - hyb*K with pyscf-compatible energy components; one
         graph replay where ``jit_kernel`` graphs the call."""
@@ -1195,7 +1180,7 @@ class SCFEngine:
         if self._takes_graphs((dm,)):
             prog = self._veff_graph()
             prog.buffers["dm"].copy_(dm)
-            self._replay(prog.captured, "veff_graph")
+            replay(prog.captured, "veff_graph")
             ecoul, exc = prog.buffers["e"].clone()
             return VeffResult(matrix=prog.buffers["matrix"].clone(), ecoul=ecoul, exc=exc)
         j, k = self.get_jk(dm)
@@ -1211,7 +1196,7 @@ class SCFEngine:
             prog = self._subsystem_graph()
             prog.buffers["dm_act"].copy_(dm_act)
             prog.buffers["dm_env"].copy_(dm_env)
-            self._replay(prog.captured, "subsystem_graph")
+            replay(prog.captured, "subsystem_graph")
             e_act, e_env, cross = prog.buffers["e"].tolist()
             RUNS["host_reads"] += 1
             return e_act, e_env, cross, prog.buffers["v_emb"].clone()

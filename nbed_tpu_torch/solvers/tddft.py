@@ -36,7 +36,8 @@ import torch
 
 from .._device import DTYPE, to_host
 from ..dft.xc import STREAM_CHUNK, TABLE_CHUNK
-from ..scf.engine import _spinify
+from ..ops.programs import replay
+from ..scf.engine import _Captured, _FixedProgram, _spinify, _xc_closure
 from .cis import CISResult, RPAResult
 
 __all__ = ["run_tddft_tda", "run_tddft_rpa"]
@@ -159,6 +160,34 @@ def _df_k_block(b, d, chunk_elems: int):
     return k
 
 
+def _df_block_jk(b, b_lr, chunk_elems: int, fold):
+    """``d (B, 2, n, n) -> (J (B, n, n), K (B, 2, n, n))`` of transition
+    densities on the DF factor ``b`` (and, under range separation, the
+    folded hyb K + beta K_LR with ``b_lr``, ``fold`` = (hyb, beta))."""
+    def jk_fn(d):
+        nb, n = d.shape[0], d.shape[-1]
+        rho = torch.einsum("aPb,nab->nP", b, d[:, 0] + d[:, 1])
+        j = torch.einsum("aPb,nP->nab", b, rho)
+        k = _df_k_block(b, d.reshape(2 * nb, n, n), chunk_elems)
+        if b_lr is not None:  # fold hyb K + beta K_LR as the engine does
+            k_lr = _df_k_block(b_lr, d.reshape(2 * nb, n, n), chunk_elems)
+            k = fold[0] * k + fold[1] * k_lr
+        return j, k.reshape(nb, 2, n, n)
+
+    return jk_fn
+
+
+def _exact_block_jk(eri_j, eri_k):
+    """The J/K of :func:`_df_block_jk` on the ERI supermatrices."""
+    def jk_fn(d):
+        nb, n = d.shape[0], d.shape[-1]
+        j = (eri_j @ (d[:, 0] + d[:, 1]).reshape(nb, -1).T).T.reshape(nb, n, n)
+        k = (eri_k @ d.reshape(2 * nb, -1).T).T.reshape(nb, 2, n, n)
+        return j, k
+
+    return jk_fn
+
+
 def _response_frame(scf_sol):
     """Response scaffolding of one SCF solution on its engine's device:
     occupied/virtual coefficients per spin, pair bookkeeping, the ground
@@ -185,29 +214,13 @@ def _response_frame(scf_sol):
     budget = eng.max_memory_mb * 1e6 / 8  # float64 elements
     per_vector = 2 * n * n
     if eng.density_fitting:
-        chunk_elems = eng._df_chunk_elems
         b = eng.df_factor()
-        b_lr = eng.df_factor_lr() if eng._rsh is not None else None
         per_vector = max(per_vector, _DF_K_CHUNKS_PER_VECTOR
-                         * min(chunk_elems, b.shape[1] * n * n))
-
-        def jk_fn(d):  # d (B, 2, n, n)
-            nb = d.shape[0]
-            rho = torch.einsum("aPb,nab->nP", b, d[:, 0] + d[:, 1])
-            j = torch.einsum("aPb,nP->nab", b, rho)
-            k = _df_k_block(b, d.reshape(2 * nb, n, n), chunk_elems)
-            if b_lr is not None:  # fold hyb K + beta K_LR as the engine does
-                k_lr = _df_k_block(b_lr, d.reshape(2 * nb, n, n), chunk_elems)
-                k = eng._xc_meta[1] * k + eng._rsh[0] * k_lr
-            return j, k.reshape(nb, 2, n, n)
+                         * min(eng._df_chunk_elems, b.shape[1] * n * n))
+        jk_fn = _df_block_jk(b, eng.df_factor_lr() if eng._rsh is not None else None,
+                             eng._df_chunk_elems, eng._k_fold)
     else:
-        eri_j, eri_k = eng.eri_j, eng.eri_k
-
-        def jk_fn(d):
-            nb = d.shape[0]
-            j = (eri_j @ (d[:, 0] + d[:, 1]).reshape(nb, -1).T).T.reshape(nb, n, n)
-            k = (eri_k @ d.reshape(2 * nb, -1).T).T.reshape(nb, 2, n, n)
-            return j, k
+        jk_fn = _exact_block_jk(eng.eri_j, eng.eri_k)
 
     xc_fn, chunk = None, 0
     if eng._xc[0] is not None:
@@ -235,7 +248,7 @@ def _response_frame(scf_sol):
         "e_ref_elec": float(scf_sol.e_tot - eng.energy_nuc()),
         # one vector's worth of the budget is left to the block's fixed
         # intermediates (the kernel's primal pass, the DF factor's copies)
-        "block": max(1, int(budget // per_vector) - 1), "device": dm0.device,
+        "block": max(1, int(budget // per_vector) - 1), "device": dm0.device, "engine": eng,
         "vector_elems": per_vector, "xc_chunk": chunk,
     }
 
@@ -272,24 +285,120 @@ def _kernel_block(fr, d_sym):
     return torch.func.vmap(one)(d_sym)
 
 
-def _blockwise(fr, matvec, x):
-    """``matvec`` over row blocks of ``x`` (B, npairs) of at most the
-    frame's block size."""
-    return torch.cat([matvec(x[r0:r0 + fr["block"]])
-                      for r0 in range(0, x.shape[0], fr["block"])], dim=0)
+def _tda_block(fr, x):
+    """A (B, npairs) block of TDA products A x."""
+    xs = _split(fr, x)
+    d = _densities(fr, xs)
+    j, k = fr["jk_fn"](d)
+    v = j[:, None] - fr["hyb"] * k
+    if fr["xc_fn"] is not None:
+        v = v + _kernel_block(fr, 0.5 * (d + d.transpose(-1, -2)))
+    return _project(fr, v, xs)
 
 
-def _tda_matvec(fr):
-    def matvec(x):
-        xs = _split(fr, x)
-        d = _densities(fr, xs)
-        j, k = fr["jk_fn"](d)
-        v = j[:, None] - fr["hyb"] * k
-        if fr["xc_fn"] is not None:
-            v = v + _kernel_block(fr, 0.5 * (d + d.transpose(-1, -2)))
-        return _project(fr, v, xs)
+def _apb_block(fr, x):
+    """(A+B) x: J(ds) + f_xc ds - hyb K(ds), ds = d + d^T."""
+    xs = _split(fr, x)
+    d = _densities(fr, xs)
+    ds = d + d.transpose(-1, -2)
+    j, k = fr["jk_fn"](ds)
+    v = j[:, None] - fr["hyb"] * k
+    if fr["xc_fn"] is not None:
+        v = v + _kernel_block(fr, ds)
+    return _project(fr, v, xs)
 
-    return lambda x: _blockwise(fr, matvec, x)
+
+def _amb_block(fr, x):
+    """(A-B) x: -hyb K(da), da = d - d^T (J and the kernel vanish)."""
+    xs = _split(fr, x)
+    d = _densities(fr, xs)
+    _, k = fr["jk_fn"](d - d.transpose(-1, -2))
+    return _project(fr, -fr["hyb"] * k, xs)
+
+
+_BLOCKS = {"tda": _tda_block, "apb": _apb_block, "amb": _amb_block}
+
+# the private switch of the matvec block programs: "auto" runs them on a
+# CUDA device (as CUDA graphs) and the eager blocks elsewhere, True runs
+# them everywhere (uncaptured off CUDA), False never (chip_smoke's
+# graph-against-eager holds)
+_GRAPHED = "auto"
+
+
+def _programs_on(device) -> bool:
+    return _GRAPHED is True or (_GRAPHED == "auto" and device.type == "cuda")
+
+
+def _block_program(fr, kind: str):
+    """The shared program of ``kind``'s matvec block for ``fr``'s engine
+    (the reference's ``jax.jit(jax.vmap(matvec))``, ``tddft.py:139,
+    343-344``): a fixed width of min(block, npairs) trial vectors in the
+    input buffer "x", the products in "out"; the solution's orbitals, Fock
+    blocks and ground density in buffers of their own ("co0", "cv0",
+    "f_oo0", "f_vv0" and the second spin's, "dm0"); J/K and the
+    differentiable XC closure over the structure's operator buffers
+    (``SCFEngine._shared_jit``, which copies this engine's operators in
+    where another engine's are there). One program, and one CUDA graph,
+    per (kind, width, orbital shapes, XC grid chunk) and structure; the
+    frame's buffers are loaded here, outside any capture."""
+    eng = fr["engine"]
+    npairs = sum(fr["sizes"])
+    width = min(fr["block"], npairs)
+    shapes, xc_chunk = tuple(fr["shapes"]), fr["xc_chunk"]
+    mol, device, n = eng.mol, eng.device, eng.mol.nao
+    streams = bool(eng._xc_meta[0]) and eng._xc_streams
+    density_fitting, fold, chunk = eng.density_fitting, eng._k_fold, eng._df_chunk_elems
+    xc, hyb = eng.xc, fr["hyb"]
+
+    def build(ops):
+        ops.fill(eng._token, eng._operand_sources(("f64",)))
+        b = ops.buffers
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=DTYPE, device=device)
+
+        pf = {"shapes": list(shapes), "sizes": [no * nv for no, nv in shapes], "hyb": hyb,
+              "co": [zeros(n, no) for no, _ in shapes], "cv": [zeros(n, nv) for _, nv in shapes],
+              "f_oo": [zeros(no, no) for no, _ in shapes],
+              "f_vv": [zeros(nv, nv) for _, nv in shapes], "dm0": zeros(2, n, n),
+              "jk_fn": (_df_block_jk(b["b"], b.get("b_lr"), chunk, fold) if density_fitting
+                        else _exact_block_jk(b["g_j"], b["g_k"])),
+              "xc_fn": None if not eng._xc_meta[0] else
+              _xc_closure(b, "", mol, xc, streams, DTYPE, chunk=xc_chunk, differentiable=True)}
+        x, out = zeros(width, npairs), zeros(width, npairs)
+        buffers = {"x": x, "out": out, "dm0": pf["dm0"]}
+        for name in ("co", "cv", "f_oo", "f_vv"):
+            buffers.update({f"{name}{s}": pf[name][s] for s in range(2)})
+        return _FixedProgram(buffers, _Captured(lambda: out.copy_(_BLOCKS[kind](pf, x)),
+                                                device, ops.pool), ops)
+
+    prog = eng._shared_jit(f"tddft_{kind}", build, (width, shapes, xc_chunk))
+    prog.buffers["dm0"].copy_(fr["dm0"])
+    for name in ("co", "cv", "f_oo", "f_vv"):
+        for s in range(2):
+            prog.buffers[f"{name}{s}"].copy_(fr[name][s])
+    return prog
+
+
+def _blockwise(fr, kind: str, x):
+    """``kind``'s matvec over row blocks of ``x`` (B, npairs): on the card
+    (see :data:`_GRAPHED`) replays of the block program, each block copied
+    into its fixed-width input with the last one padded by zero rows,
+    which are dropped after; otherwise eager blocks of at most the frame's
+    block size."""
+    if not _programs_on(fr["device"]):
+        return torch.cat([_BLOCKS[kind](fr, x[r0:r0 + fr["block"]])
+                          for r0 in range(0, x.shape[0], fr["block"])], dim=0)
+    prog = _block_program(fr, kind)
+    x_buf, out = prog.buffers["x"], prog.buffers["out"]
+    width, parts = x_buf.shape[0], []
+    for r0 in range(0, x.shape[0], width):
+        part = x[r0:r0 + width]
+        x_buf[:part.shape[0]].copy_(part)
+        x_buf[part.shape[0]:].zero_()
+        replay(prog.captured, f"tddft_{kind}_graph")
+        parts.append(out[:part.shape[0]].clone())
+    return torch.cat(parts, dim=0)
 
 
 def _dense(fr, matvec):
@@ -317,7 +426,10 @@ def run_tddft_tda(scf_sol, nroots: int | None = None, method: str = "auto",
     alpha), so :func:`oscillator_strengths` and :func:`spin_labels` apply.
     """
     fr = _response_frame(scf_sol)
-    matvec = _tda_matvec(fr)
+
+    def matvec(x):
+        return _blockwise(fr, "tda", x)
+
     npairs = sum(fr["sizes"])
     if method == "auto":
         method = "davidson" if nroots is not None and npairs > max_subspace else "dense"
@@ -359,25 +471,8 @@ def run_tddft_rpa(scf_sol, nroots: int | None = None) -> RPAResult:
     engine this equals :func:`run_rpa` on the builder integrals.
     """
     fr = _response_frame(scf_sol)
-
-    def apb(x):
-        xs = _split(fr, x)
-        d = _densities(fr, xs)
-        ds = d + d.transpose(-1, -2)
-        j, k = fr["jk_fn"](ds)
-        v = j[:, None] - fr["hyb"] * k
-        if fr["xc_fn"] is not None:
-            v = v + _kernel_block(fr, ds)
-        return _project(fr, v, xs)
-
-    def amb(x):
-        xs = _split(fr, x)
-        d = _densities(fr, xs)
-        _, k = fr["jk_fn"](d - d.transpose(-1, -2))
-        return _project(fr, -fr["hyb"] * k, xs)
-
-    apb_mat = _dense(fr, lambda x: _blockwise(fr, apb, x))
-    amb_mat = _dense(fr, lambda x: _blockwise(fr, amb, x))
+    apb_mat = _dense(fr, lambda x: _blockwise(fr, "apb", x))
+    amb_mat = _dense(fr, lambda x: _blockwise(fr, "amb", x))
 
     amb_vals, amb_vecs = torch.linalg.eigh(amb_mat)
     n_imag_amb = int(torch.sum(amb_vals < -1e-10))
