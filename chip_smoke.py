@@ -98,6 +98,20 @@ spaces, acetonitrile's 28-qubit space and pfoa's mu space, and
 water_global's (T) (1e-12). ``shared_programs`` asserts that a second
 ``nbed()`` captures no program of any kind.
 
+The quantum end's programs: the VQE value and gradient (a sweep chunk of
+rotations read at a device counter, the energy and the adjoint's chunk,
+one host read per evaluation), ADAPT's pool gradients and per-step
+objective (one program for all steps) and MP2's contraction run as CUDA
+graphs. ``vqe_graphed`` holds ``run_vqe`` on water's mu and Huzinaga
+registers graphed against the eager route (e_vqe to the bit in as many
+L-BFGS-B iterations), one value and gradient of the 20-qubit register
+(1e-12 relative) and a 30-iteration 20-qubit L-BFGS-B run;
+``adapt_graphed`` holds ADAPT on water's mu register graphed against
+eager (1e-10, the same operators, no capture after the first step) and
+nbed_tpu (1e-6), and a 20-qubit pool gradient (1e-12 relative); after
+pfoa, ``mp2_graphed`` holds MP2 on water_global and pfoa's mu space
+(1e-12).
+
     python3 chip_smoke.py
 
 The kernel phases hold the fused J/K kernel (``ops.jk.FusedJK``, as the
@@ -246,6 +260,14 @@ IDENTITY_PRA = -93.25715345113377
 # ["e_dft_in_dft"]
 E_VQE_WATER = {"mu": -75.1285919012455, "huzinaga": -75.12859115945318}
 E_DFT_IN_DFT_WATER = {"mu": -75.30914551752402, "huzinaga": -75.3091448156704}
+# nbed_tpu's run_adapt_vqe (defaults: grad_tol 1e-3, max_ops 60) on the mu
+# register of CONFIGS["water_vqe"] (10 qubits, 12 operators), from
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python -c "import numpy as np, chip_smoke
+#   as c; from nbed_tpu import nbed; from nbed_tpu.solvers import
+#   run_adapt_vqe; r = nbed(**c.CONFIGS['water_vqe']).mu; o = np.asarray(
+#   r['scf'].mo_occ); print(run_adapt_vqe(*r['second_quantised'], (int((o[0]
+#   > 0).sum()), int((o[1] > 0).sum()))).e_vqe)"
+E_ADAPT_WATER_MU = -75.12859189492936
 
 # nbed_tpu's NbedDriver on CONFIGS["water631g_L"] for L in pm, boys, ibo,
 # from
@@ -1299,22 +1321,28 @@ def run_water_vqe():
     return driver
 
 
+def pra_register(pra_scf, n_mo: int = 10):
+    """The PRA Huzinaga SCF cut to ``n_mo`` MOs (10: the 20-qubit
+    register): (constant, h1, h2) and its (n_alpha, n_beta)."""
+    from nbed_tpu_torch.ham import HamiltonianBuilder, reduce_virtuals
+
+    occ = pra_scf.mo_occ.cpu().numpy()
+    scf = reduce_virtuals(pra_scf, occ.shape[-1] - n_mo)
+    return HamiltonianBuilder(scf, 0.0).build(), (int(occ[0].sum()), int(occ[1].sum()))
+
+
 def run_vqe_20q(pra_scf, water_sq, water_nelec):
     """One value-and-gradient of the VQE objective on the PRA Huzinaga SCF
     cut to 10 MOs (20 qubits) at seeded amplitudes: at theta = 0 the energy
     is <HF|H|HF> of the mapped sum; four gradient entries against central
     differences; the adjoint sweep against plain autograd at water's
     register."""
-    from nbed_tpu_torch.ham import HamiltonianBuilder, pauli_sum_to_sparse, reduce_virtuals
+    from nbed_tpu_torch.ham import pauli_sum_to_sparse
     from nbed_tpu_torch.ham.qubit import _popcount
     from nbed_tpu_torch.solvers import vqe
 
     cuda = torch.device("cuda")
-    occ = pra_scf.mo_occ.cpu().numpy()
-    n_virt = occ.shape[-1] - 10
-    scf = reduce_virtuals(pra_scf, n_virt)
-    nelec = (int(occ[0].sum()), int(occ[1].sum()))
-    sq = HamiltonianBuilder(scf, 0.0).build()
+    sq, nelec = pra_register(pra_scf)
     t0 = time.perf_counter()
     psum, prog, psi0, n_params = vqe._ansatz_setup(*sq, nelec, "jw", None, cuda)
     setup_s = time.perf_counter() - t0
@@ -3066,16 +3094,16 @@ def run_water_tpss_kernel(device="cuda"):
 @contextmanager
 def eager_programs():
     """Inside the block the CCSD sweep, (T) and the TDA/RPA matvec blocks
-    run their programs' functions uncaptured (their private switches: the
-    solvers have no public one, as the reference's jitted programs have
-    none)."""
-    from nbed_tpu_torch.solvers import ccsd, tddft
+    run their programs' functions uncaptured, and the VQE, ADAPT and MP2
+    solvers their eager routes (their private switches: the solvers have
+    no public one, as the reference's jitted programs have none)."""
+    from nbed_tpu_torch.solvers import ccsd, mp2, tddft, vqe
 
-    ccsd._GRAPHED, tddft._GRAPHED = False, False
+    ccsd._GRAPHED, tddft._GRAPHED, vqe._GRAPHED, mp2._GRAPHED = False, False, False, False
     try:
         yield
     finally:
-        ccsd._GRAPHED, tddft._GRAPHED = True, "auto"
+        ccsd._GRAPHED, tddft._GRAPHED, vqe._GRAPHED, mp2._GRAPHED = True, "auto", True, True
 
 
 def _program_counts(fn):
@@ -3251,6 +3279,222 @@ def run_tddft_graphed(device="cuda"):
     print("tddft_graphed", json.dumps(out), flush=True)
 
 
+# --------------------------------------------------------------------------
+# the quantum end's programs: the VQE value and gradient, ADAPT's pool
+# gradients and objective, MP2's contraction
+# --------------------------------------------------------------------------
+
+def _reserved_gb() -> float:
+    """The caching allocator's reserved device memory, graph pools included
+    (max_memory_allocated does not see them)."""
+    return torch.cuda.memory_reserved() / 1e9
+
+
+def _per_evaluation(runs: dict) -> dict:
+    """Replays by program kind, captures and host reads per value-and-
+    gradient of a run's RUNS counts."""
+    n = runs.get("vqe_evaluations", 0)
+    kinds = ("vqe_prep", "vqe_fwd", "vqe_energy", "vqe_bwd", "vqe_grad")
+    return {"evaluations": n, "captures": runs.get("captures", 0),
+            "capture_s": runs.get("capture_s", 0.0), "host_reads": runs.get("vqe_host_reads", 0),
+            **{f"{k}_per_evaluation": runs.get(k, 0) / max(n, 1) for k in kinds}}
+
+
+def run_vqe_graphed(water_registers: dict, pra_scf, device="cuda", n_mo: int = 10):
+    """The VQE value and gradient as CUDA-graph programs (``solvers.vqe``)
+    against the eager route (autograd through the adjoint sweep), from an
+    empty program cache: ``run_vqe`` on water's mu and Huzinaga registers
+    graphed (first call, then warm) and eager, with e_vqe equal to the bit
+    in as many L-BFGS-B iterations and within 1e-6 of nbed_tpu's; on the
+    20-qubit PRA register one value and gradient graphed against eager
+    (1e-12 relative, one host read), and an L-BFGS-B run of at most 30
+    iterations from the reference determinant that must go below it."""
+    from nbed_tpu_torch.ham.qubit import _popcount
+    from nbed_tpu_torch.solvers import run_vqe, vqe
+
+    vqe._PROGRAMS.clear()
+    out = {"sweep_chunk": vqe.SWEEP_CHUNK}
+    for name, (sq, nelec) in water_registers.items():
+        first, first_s, first_runs = _program_counts(lambda: run_vqe(*sq, nelec=nelec, device=device))
+        graphed, graph_s, graph_runs = _program_counts(lambda: run_vqe(*sq, nelec=nelec, device=device))
+        with eager_programs():
+            eager, eager_s, _ = _program_counts(lambda: run_vqe(*sq, nelec=nelec, device=device))
+        for label, res in (("first", first), ("warm", graphed)):
+            if res.e_vqe != eager.e_vqe or res.n_iterations != eager.n_iterations:
+                raise RuntimeError(f"vqe_graphed water {name} {label}: e_vqe {res.e_vqe} in "
+                                   f"{res.n_iterations} iterations, eager {eager.e_vqe} in "
+                                   f"{eager.n_iterations}")
+        _gate(f"vqe_graphed water {name}", [("e_vqe", graphed.e_vqe, E_VQE_WATER[name])], 1e-6)
+        if graph_runs.get("captures", 0) or graph_runs.get("vqe_host_reads") != \
+                graph_runs.get("vqe_evaluations") + 1:
+            raise RuntimeError(f"vqe_graphed water {name}: a warm run captured "
+                               f"{graph_runs.get('captures', 0)}, host reads {graph_runs}")
+        out[f"water_{name}"] = {
+            "n_qubits": graphed.n_qubits, "n_strings": graphed.n_strings,
+            "lbfgs_iterations": graphed.n_iterations, "e_vqe": graphed.e_vqe,
+            "first_s": first_s, "warm_graph_s": graph_s, "warm_eager_s": eager_s,
+            "first": _per_evaluation(first_runs), "warm": _per_evaluation(graph_runs)}
+
+    cuda = torch.device(device)
+    sq, nelec = pra_register(pra_scf, n_mo)
+    psum, prog, psi0, n_params = vqe._ansatz_setup(*sq, nelec, "jw", None, cuda)
+    thetas = 0.05 * np.random.default_rng(20).standard_normal(n_params)
+    (e_eager, g_eager), eager_s = _timed(lambda: vqe._value_and_grad(thetas, psi0, prog))
+    reserved_before = _reserved_gb()
+    ap = vqe._vqe_program(prog, psi0)
+    (e_first, g_first), first_s, first_runs = _program_counts(lambda: ap.value_and_grad(thetas))
+    walls = []
+    for _ in range(3):
+        (e, g), wall, runs = _program_counts(lambda: ap.value_and_grad(thetas))
+        walls.append(wall)
+    rel_e = abs(e - e_eager) / abs(e_eager)
+    rel_g = float(np.max(np.abs(g - g_eager)) / np.max(np.abs(g_eager)))
+    if not (rel_e <= 1e-12 and rel_g <= 1e-12 and e_first == e
+            and np.array_equal(g_first, g)):
+        raise RuntimeError(f"vqe_graphed 20q: E {e} vs eager {e_eager} ({rel_e} relative), "
+                           f"gradient {rel_g} relative; first call E {e_first}")
+    if runs.get("captures", 0) or runs.get("vqe_host_reads") != 1:
+        raise RuntimeError(f"vqe_graphed 20q: a warm value and gradient made {runs}")
+    reserved_after = _reserved_gb()
+
+    hf = int(torch.argmax(psi0))
+    e_hf = sum(c.real * (1 - 2 * (_popcount(hf & z) & 1))
+               for (x, z), c in psum.terms.items() if x == 0)
+    res, lbfgs_s, lbfgs_runs = _program_counts(lambda: run_vqe(*sq, nelec=nelec, maxiter=30,
+                                                             device=device))
+    _gate("vqe_graphed 20q", [("e_reference vs <HF|H|HF>", res.e_reference, e_hf)], 1e-9)
+    if not (np.isfinite(res.e_vqe) and res.e_vqe < e_hf - 1e-4):
+        raise RuntimeError(f"vqe_graphed 20q: L-BFGS-B e_vqe {res.e_vqe} not below "
+                           f"<HF|H|HF> {e_hf}")
+    n_eval = lbfgs_runs.get("vqe_evaluations", 0)
+    out["vqe_20q"] = {
+        "n_qubits": psum.n_qubits, "n_params": n_params, "n_strings": len(prog.strings),
+        "n_hamiltonian_blocks": len(prog.blocks), "sweep_chunk": ap.k,
+        "chunks_each_way": ap.n_chunks, "value_and_grad_eager_s": eager_s,
+        "value_and_grad_first_s": first_s, "value_and_grad_graph_s": walls,
+        "first": _per_evaluation(first_runs), "warm": _per_evaluation(runs),
+        "de_rel": rel_e, "dg_rel": rel_g, "bitwise": bool(e == e_eager and
+                                                          np.array_equal(g, g_eager)),
+        "reserved_gb_before": reserved_before, "reserved_gb_after": reserved_after,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "lbfgs": {"maxiter": 30, "iterations": res.n_iterations, "evaluations": n_eval,
+                  "wall_s": lbfgs_s, "s_per_evaluation": lbfgs_s / max(n_eval, 1),
+                  "e_vqe": res.e_vqe, "e_hf": e_hf, "captures": lbfgs_runs.get("captures", 0)}}
+    print("vqe_graphed", json.dumps(out), flush=True)
+
+
+def run_adapt_graphed(water_sq, water_nelec, pra_scf, device="cuda", n_mo: int = 10):
+    """ADAPT-VQE's pool gradients and per-step objective as programs:
+    water's mu register (10 qubits) graphed against eager (energies within
+    1e-10, the same operators), with as many captures as a run stopped
+    after its first step (none after it) and the energy within 1e-6 of
+    nbed_tpu's; one pool gradient of the 20-qubit PRA register's pool at a
+    grown ansatz graphed against eager (1e-12 relative)."""
+    from nbed_tpu_torch.solvers import run_adapt_vqe, vqe
+
+    vqe._PROGRAMS.clear()
+    _, one_s, one_runs = _program_counts(
+        lambda: run_adapt_vqe(*water_sq, nelec=water_nelec, max_ops=1, device=device))
+    vqe._PROGRAMS.clear()
+    graphed, graph_s, graph_runs = _program_counts(
+        lambda: run_adapt_vqe(*water_sq, nelec=water_nelec, device=device))
+    warm, warm_s, warm_runs = _program_counts(
+        lambda: run_adapt_vqe(*water_sq, nelec=water_nelec, device=device))
+    with eager_programs():
+        eager, eager_s, _ = _program_counts(lambda: run_adapt_vqe(*water_sq, nelec=water_nelec, device=device))
+    late = graph_runs.get("captures", 0) - one_runs.get("captures", 0)
+    if late or warm_runs.get("captures", 0):
+        raise RuntimeError(f"adapt_graphed: {late} captures after the first step, "
+                           f"{warm_runs.get('captures', 0)} in a warm run")
+    if graphed.op_indices != eager.op_indices or warm.op_indices != eager.op_indices:
+        raise RuntimeError(f"adapt_graphed: operators {graphed.op_indices} graphed, "
+                           f"{eager.op_indices} eager")
+    _gate("adapt_graphed water mu graph vs eager", [
+        ("e_vqe", graphed.e_vqe, eager.e_vqe), ("warm e_vqe", warm.e_vqe, eager.e_vqe)]
+        + [(f"step {i} e", a[2], b[2]) for i, (a, b) in
+           enumerate(zip(graphed.history, eager.history))], 1e-10)
+    _gate("adapt_graphed water mu", [("e_vqe", graphed.e_vqe, E_ADAPT_WATER_MU)], 1e-6)
+    if not graphed.converged:
+        raise RuntimeError(f"adapt_graphed: not converged, max gradient {graphed.max_gradient}")
+    out = {"water_mu": {
+        "n_qubits": graphed.n_qubits, "n_ops": len(graphed.op_indices),
+        "op_indices": graphed.op_indices, "e_vqe": graphed.e_vqe,
+        "captures_first_step_only": one_runs.get("captures", 0),
+        "captures": graph_runs.get("captures", 0), "captures_after_first_step": late,
+        "first_step_only_s": one_s, "graph_s": graph_s, "warm_graph_s": warm_s,
+        "eager_s": eager_s, "evaluations": graph_runs.get("vqe_evaluations", 0),
+        "pool_gradients": graph_runs.get("adapt_grads", 0),
+        "host_reads": graph_runs.get("vqe_host_reads", 0)}}
+
+    cuda = torch.device(device)
+    sq, nelec = pra_register(pra_scf, n_mo)
+    _, pool_prog, psi0, n_pool = vqe._ansatz_setup(*sq, nelec, "jw", None, cuda)
+    vqe._PROGRAMS.clear()
+    ap = vqe._adapt_program(pool_prog, psi0, max_ops=60)
+    g0, first_s, first_runs = _program_counts(lambda: ap.pool_gradients(np.zeros(0)))
+    ops = [int(k) for k in np.argsort(-np.abs(g0))[:4]]
+    n_qubits = pool_prog.cols.shape[0].bit_length() - 1
+    ladder = vqe._ladder_factory("jw", n_qubits)
+    pool = vqe.uccsd_excitations(n_qubits, nelec)[1]
+    ansatz = vqe._derived(pool_prog, [vqe._generator_strings(pool[k], ladder) for k in ops])
+    ap.load_ansatz(ansatz)
+    thetas = 0.05 * np.random.default_rng(21).standard_normal(len(ops))
+    ap.pool_gradients(thetas)
+    grads, graph_s, runs = _program_counts(lambda: ap.pool_gradients(thetas))
+
+    def eager_pool():
+        with torch.no_grad():
+            psi = vqe._Sweep.apply(torch.as_tensor(thetas, device=cuda), psi0, ansatz)
+            return vqe._pool_gradients(pool_prog, psi).cpu().numpy()
+
+    eager_pool()
+    want, eager_s = _timed(eager_pool)
+    rel = float(np.max(np.abs(grads - want)) / np.max(np.abs(want)))
+    if not rel <= 1e-12 or runs.get("captures", 0) or runs.get("vqe_host_reads") != 1:
+        raise RuntimeError(f"adapt_graphed 20q pool gradient: {rel} relative to eager, "
+                           f"runs {runs}")
+    out["pool_20q"] = {
+        "n_qubits": n_qubits, "n_pool": n_pool,
+        "n_pool_strings": len(pool_prog.strings), "pool_chunk": ap.pool_chunk,
+        "pool_chunks": ap.pool_chunks, "ops": ops, "first_s": first_s,
+        "first_captures": first_runs.get("captures", 0), "graph_s": graph_s,
+        "eager_s": eager_s, "dg_rel": rel, "bitwise": bool(np.array_equal(grads, want)),
+        "replays": runs.get("replays", 0), "reserved_gb": _reserved_gb()}
+    print("adapt_graphed", json.dumps(out), flush=True)
+
+
+def run_mp2_graphed(pfoa_driver, device="cuda"):
+    """MP2's contraction as a CUDA-graph program (``solvers.mp2``) against
+    the eager contraction (1e-12), from an empty cache: water_global's HF
+    (14 spin orbitals) and pfoa's mu-embedded space (78); a second call
+    captures nothing."""
+    from nbed_tpu_torch.config import NbedConfig
+    from nbed_tpu_torch.driver import NbedDriver
+    from nbed_tpu_torch.ham import HamiltonianBuilder
+    from nbed_tpu_torch.solvers import mp2, run_mp2
+
+    glob = NbedDriver(NbedConfig(**CONFIGS["water_global"]), device=device)
+    mp2._PROGRAMS.clear()
+    out = {}
+    for label, sol in (("water_global", glob._global_hf), ("pfoa_mu", pfoa_driver.mu["scf"])):
+        _, h1, h2 = HamiltonianBuilder(sol, 0.0).build()
+        occ = _interleaved(sol)
+        (e_first, _), first_s, first_runs = _program_counts(lambda: run_mp2(h1, h2, occ))
+        (e2, e_hf), graph_s, runs = _program_counts(lambda: run_mp2(h1, h2, occ))
+        with eager_programs():
+            run_mp2(h1, h2, occ)
+            (e_eager, _), eager_s, _ = _program_counts(lambda: run_mp2(h1, h2, occ))
+        _gate(f"mp2_graphed {label} graph vs eager", [("e_mp2", e2, e_eager),
+                                                      ("first e_mp2", e_first, e_eager)], 1e-12)
+        if runs.get("captures", 0) or runs.get("mp2") != 1 or not e2 < 0:
+            raise RuntimeError(f"mp2_graphed {label}: E(2) {e2}, a second call made {runs}")
+        out[label] = {"n_spin_orbitals": int(h1.shape[0]), "n_occ": int(occ.sum()),
+                      "e_mp2": e2, "e_hf_elec": e_hf, "de": e2 - e_eager,
+                      "captures": first_runs.get("captures", 0), "first_s": first_s,
+                      "warm_graph_s": graph_s, "warm_eager_s": eager_s}
+    print("mp2_graphed", json.dumps(out), flush=True)
+
+
 def build_all():
     """Build the CUDA kernel library, the cuSOLVER eigh library and the two
     host C++ libraries, each compiler started at once."""
@@ -3267,8 +3511,9 @@ def build_all():
 
 
 # kernels each phase's path must launch (counted from 0 for each phase);
-# the DF and statevector phases have none: DF J/K and the VQE sweep are
-# plain torch, as they are XLA in the reference. Since the engines graph
+# the DF and statevector phases have none: DF J/K, the VQE sweep and
+# ADAPT's pool gradients are torch ops (graphed), as they are XLA in the
+# reference. Since the engines graph
 # their SCFs on the card, every phase of engine SCFs launches the cuSOLVER
 # eigh from inside its graphs
 F64 = ("fused_jk_f64", "eigh_f64")
@@ -3278,13 +3523,15 @@ LANES = ("fused_jk_f64", "lanes", "eigh_f64")
 # the incremental SCF's float32 J/K of density changes inside graphs
 INCREMENTAL = ("fused_jk_f32", "eigh_f64")
 # the phases of the post-SCF, derivatives, parallel, compiled-program,
-# shared-program and remaining-program slices, summarised at the end
+# shared-program, remaining-program and quantum-end slices, summarised at
+# the end
 NEW_PHASES = ("water_global", "acetonitrile_post", "h2_stability", "water_qse", "pfoa_post",
               "water_derivatives", "acetonitrile_derivatives", "water_ccpvdz_gradient",
               "water_fleet", "water_fleet_gradients", "water_embed_fleet", "sharded",
               "pfoa_sharded", "graphed_scf", "hessian_mesh", "shared_programs",
               "incremental_graphed", "water_tpss_kernel", "pfoa_incremental",
-              "pfoa_warmup_graphed", "grid_programs", "tddft_graphed", "ccsd_graphed")
+              "pfoa_warmup_graphed", "grid_programs", "tddft_graphed", "ccsd_graphed",
+              "vqe_graphed", "adapt_graphed", "mp2_graphed")
 
 
 def main():
@@ -3346,6 +3593,11 @@ def main():
             occ = driver.mu["scf"].mo_occ.cpu().numpy()
             nelec = (int(occ[0].sum()), int(occ[1].sum()))
             keep["water"] = (driver.mu["second_quantised"], nelec)
+            hocc = driver.huzinaga["scf"].mo_occ.cpu().numpy()
+            keep["water_registers"] = {
+                "mu": (driver.mu["second_quantised"], nelec),
+                "huzinaga": (driver.huzinaga["second_quantised"],
+                             (int(hocc[0].sum()), int(hocc[1].sum())))}
             keep["water_qse"] = (driver.mu["second_quantised"], nelec,
                                  driver.mu["vqe"].params, driver.mu["e_vqe"])
 
@@ -3361,7 +3613,11 @@ def main():
          MIXED),
         ("acetonitrile_taper", run_acetonitrile_taper, F64),
         ("water_vqe", run_water_vqe, F64),
-        ("vqe_20q", lambda: run_vqe_20q(keep.pop("pra_scf"), *keep.pop("water")), ()),
+        ("vqe_20q", lambda: run_vqe_20q(keep["pra_scf"], *keep["water"]), ()),
+        ("vqe_graphed", lambda: run_vqe_graphed(keep.pop("water_registers"),
+                                                keep["pra_scf"]), ()),
+        ("adapt_graphed", lambda: run_adapt_graphed(*keep.pop("water"), keep.pop("pra_scf")),
+         ()),
         ("water_qse", lambda: run_water_qse(*keep.pop("water_qse")), ()),
         ("water631g_localizers", run_water631g_localizers, F64),
         ("acetonitrile_pao", run_acetonitrile_pao, F64),
@@ -3454,6 +3710,15 @@ def main():
     peak_gb["ccsd_graphed"] = torch.cuda.max_memory_allocated() / 1e9
     if not per_phase["ccsd_graphed"].get("eigh_f64"):
         raise RuntimeError("the ccsd_graphed phase ran without launching eigh_f64")
+
+    # MP2's contraction as a graph against eager, pfoa's mu space among them
+    torch.cuda.reset_peak_memory_stats()
+    clear()
+    t0 = time.perf_counter()
+    run_mp2_graphed(driver)
+    phase_s["mp2_graphed"] = time.perf_counter() - t0
+    count("mp2_graphed")
+    peak_gb["mp2_graphed"] = torch.cuda.max_memory_allocated() / 1e9
 
     # the split DF-UKS at pfoa's size: DF J/K and XC, no fused J/K launch
     torch.cuda.reset_peak_memory_stats()

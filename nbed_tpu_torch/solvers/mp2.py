@@ -3,15 +3,27 @@
 
 E(2) = 1/4 sum_{ijab} |<ij||ab>|^2 / (e_i + e_j - e_a - e_b) over the same
 antisymmetrized spin-orbital integrals the CCSD solver reads, as torch ops
-on the integrals' device.
+on the integrals' device. The contraction is a program, the counterpart of
+the reference's ``@jax.jit _mp2_energy`` (``mp2.py:19-22``): <ij||ab> and
+the orbital energies in buffers keyed by (no, nv, dtype, card), replayed as
+a CUDA graph on the card (run uncaptured elsewhere), one host read.
 """
 
 import numpy as np
 import torch
 
+from ..ops.programs import RUNS, Captured, cached_program, card, replay
 from .ccsd import _antisymmetrized
 
 __all__ = ["run_mp2", "run_pt2", "run_double_hybrid"]
+
+# the programs of this process, keyed by (no, nv, dtype, card)
+_PROGRAMS: dict = {}
+_PROGRAMS_MAX = 8
+# the private switch of the graph-against-eager holds: True runs the
+# program (a CUDA graph on the card, uncaptured elsewhere), False the same
+# contraction eager
+_GRAPHED = True
 
 
 def _ordered(so_h2, occ_mask):
@@ -23,12 +35,39 @@ def _ordered(so_h2, occ_mask):
     return w, int(occ_mask.sum()), idx
 
 
+def _pt2_sum(w_oovv, eps, no: int):
+    """E(2) as a device scalar from <ij||ab> and the orbital energies."""
+    e_o, e_v = eps[:no], eps[no:]
+    d2 = (e_o[:, None, None, None] + e_o[None, :, None, None]
+          - e_v[None, None, :, None] - e_v[None, None, None, :])
+    return 0.25 * torch.sum(w_oovv * w_oovv / d2)
+
+
+class _PT2Program:
+    """The E(2) contraction of one (no, nv, dtype, card): <ij||ab> and the
+    orbital energies in buffers, one scalar output."""
+
+    def __init__(self, no: int, nv: int, dtype, device):
+        self.w = torch.zeros((no, no, nv, nv), dtype=dtype, device=device)
+        self.eps = torch.zeros(no + nv, dtype=dtype, device=device)
+        self.out = torch.zeros((), dtype=dtype, device=device)
+        self.captured = Captured(lambda: self.out.copy_(_pt2_sum(self.w, self.eps, no)),
+                                 device, [None])
+
+
 def _pt2_energy(w, eps, no: int) -> float:
-    o, v = slice(0, no), slice(no, None)
-    d2 = (eps[o, None, None, None] + eps[None, o, None, None]
-          - eps[None, None, v, None] - eps[None, None, None, v])
-    w_oovv = w[o, o, v, v]
-    return float(0.25 * torch.sum(w_oovv * w_oovv / d2))
+    w_oovv = w[:no, :no, no:, no:]
+    if not _GRAPHED:
+        return float(_pt2_sum(w_oovv.contiguous(), eps, no))
+    nv = w_oovv.shape[-1]
+    prog = cached_program(_PROGRAMS, _PROGRAMS_MAX, (no, nv, w.dtype, card(w.device)),
+                          lambda: _PT2Program(no, nv, w.dtype, w.device))
+    prog.w.copy_(w_oovv)
+    prog.eps.copy_(eps)
+    replay(prog.captured, "mp2")
+    RUNS["host_reads"] += 1
+    RUNS["mp2_host_reads"] += 1
+    return float(prog.out)
 
 
 def run_mp2(so_h1, so_h2, occ_mask):
