@@ -1788,6 +1788,169 @@ def run_acetonitrile_derivatives(device="cuda"):
     return hess
 
 
+DERIVATIVE_KINDS = ("eri", "hf_grad", "ks_grad")
+
+
+def _derivative_runs(before: dict) -> dict:
+    """The derivative programs' replays, captures, capture seconds and
+    graph pool GB since ``before`` (a copy of RUNS)."""
+    from nbed_tpu_torch.ops.programs import RUNS
+
+    keys = [f"{k}{suffix}" for k in DERIVATIVE_KINDS
+            for suffix in ("", "_captures", "_capture_s", "_pool_gb")]
+    return {k: RUNS.get(k, 0) - before.get(k, 0) for k in keys
+            if RUNS.get(k, 0) != before.get(k, 0)}
+
+
+def _two_routes(label: str, run, x_first, x_second, tol: float, device="cuda",
+                on_graphed_scf=None) -> tuple:
+    """``run(coords, jit_kernel)`` graphed at ``x_first`` (its structure's
+    programs captured here or in an earlier phase), graphed at
+    ``x_second``, which must capture nothing, and eager there: returns
+    (the graphed result at ``x_first``, a row of walls, captures, graph
+    pools and the graph-vs-eager deviation, held to ``tol``). With
+    ``on_graphed_scf(graphed)``, the eager gradient on the graphed SCF's
+    solution is what is held (the two routes' own SCFs differ at their
+    convergence tolerance); the two whole jobs' deviation is printed."""
+    from nbed_tpu_torch.ops.programs import RUNS
+
+    def result(out):
+        if isinstance(out, tuple):
+            out = out[1] if len(out) == 3 else out[0]
+        return out.detach().cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+
+    before = dict(RUNS)
+    t0 = time.perf_counter()
+    first = run(x_first, "auto")
+    row = {"first_s": _sync_s(t0, device),
+           "first_captures": RUNS["captures"] - before.get("captures", 0)}
+    mid = dict(RUNS)
+    t0 = time.perf_counter()
+    graphed = run(x_second, "auto")
+    row["graphed_s"] = _sync_s(t0, device)
+    row["second_captures"] = RUNS["captures"] - mid.get("captures", 0)
+    if row["second_captures"]:
+        raise RuntimeError(f"{label}: {row['second_captures']} captures at a second geometry")
+    row["programs"] = _derivative_runs(before)
+    t0 = time.perf_counter()
+    eager = run(x_second, "off")
+    row["eager_s"] = _sync_s(t0, device)
+    if on_graphed_scf is None:
+        row["graph_vs_eager"] = _gate_array(f"{label} graphed vs eager", result(graphed),
+                                            result(eager), tol)
+    else:
+        row["job_dev"] = float(np.max(np.abs(result(graphed) - result(eager))))
+        row["graph_vs_eager"] = _gate_array(f"{label} graphed vs eager", result(graphed),
+                                            result(on_graphed_scf(graphed)), tol)
+    return first, row
+
+
+def run_derivatives_graphed(device="cuda"):
+    """The derivative programs (the "eri" program, "hf_grad" single and
+    lanes, "ks_grad") graphed against the eager route (``jit_kernel="off"``)
+    at a second geometry of each structure (atom 0 moved 0.01 bohr), where
+    no program may capture: gradients within 1e-11 Ha/bohr (water HF,
+    B3LYP and CAM-B3LYP, acetonitrile HF and B3LYP5, water/cc-pVDZ HF),
+    Hessians within 1e-9 Ha/bohr^2 (acetonitrile's 36-lane HF, water's
+    B3LYP from 18 ks_gradient calls), water/cc-pVDZ ERIs within 1e-12
+    (full and omega = 0.33), the water BFGS (gtol 1e-6) both ways within
+    1e-10 Ha; at the first geometry the graphed results against
+    nbed_tpu's pinned values at the earlier phases' gates. Prints walls,
+    captures, replays and the derivative programs' graph pools
+    (memory_reserved growth over their captures) per case."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.integrals import eri_tensor
+    from nbed_tpu_torch.integrals.eri import eri_program
+    from nbed_tpu_torch.solvers import hessian_fd, hf_gradient, ks_gradient, optimize_geometry
+
+    water = build_molecule(WATER.read_text(), "sto-3g")
+    pra = build_molecule(ACETONITRILE, "sto-3g")
+    dz = build_molecule(WATER.read_text(), "cc-pvdz")
+    tight = dict(conv_tol=1e-12, dm_conv_tol=1e-10, max_cycle=200)
+
+    def moved(x):
+        x = np.array(x, dtype=np.float64)
+        x[0] += 0.01
+        return x
+
+    out = {"reserved_gb_before": _reserved_gb()}
+    cases = (
+        ("water_hf", water, None, GRAD_HF_WATER, 1e-8),
+        ("water_b3lyp", water, "b3lyp", GRAD_B3LYP_WATER, 1e-7),
+        ("water_camb3lyp", water, "cam-b3lyp", GRAD_CAMB3LYP_WATER, 1e-7),
+        ("acetonitrile_hf", pra, None, GRAD_HF_PRA, 1e-7),
+        ("acetonitrile_b3lyp5", pra, "b3lyp5", GRAD_B3LYP5_PRA, 1e-7),
+        ("water_ccpvdz_hf", dz, None, GRAD_FD_WATER_DZ, 1e-8),
+    )
+    for name, mol, xc, pinned, pinned_tol in cases:
+        x2 = moved(mol.coords)
+        if xc is None:
+            def run(x, m, mol=mol):
+                return hf_gradient(mol, coords=x, device=device, jit_kernel=m, **tight)
+
+            def same_scf(out, mol=mol, x2=x2):
+                return hf_gradient(mol, coords=x2, scf_result=out[2], device=device,
+                                   jit_kernel="off")
+        else:
+            def run(x, m, mol=mol, xc=xc):
+                return ks_gradient(mol, xc, coords=x, device=device, jit_kernel=m, **tight)
+
+            def same_scf(out, mol=mol, xc=xc, x2=x2):
+                return ks_gradient(mol, xc, coords=x2, solution=out[2], device=device,
+                                   jit_kernel="off")
+        first, row = _two_routes(f"{name} gradient", run, mol.coords, x2, 1e-11, device,
+                                 same_scf)
+        row["pinned_dev"] = _gate_array(f"{name} gradient (graphed)",
+                                        first[1].cpu().numpy(), pinned, pinned_tol)
+        out[name] = row
+
+    ref = np.zeros((18, 18))
+    ref[np.triu_indices(18)] = HESS_PRA_UPPER
+    ref = ref + np.triu(ref, 1).T
+    # the Hessians at the SCF tolerances of the pinned Hessian (1e-10, 1e-8)
+    first, row = _two_routes("acetonitrile 36-lane Hessian",
+                             lambda x, m: hessian_fd(pra, coords=x, device=device, jit_kernel=m),
+                             pra.coords, moved(pra.coords), 1e-9, device)
+    row["pinned_dev"] = _gate_array("acetonitrile Hessian (graphed)", first, ref, 1e-6)
+    out["acetonitrile_hessian"] = row
+    first, row = _two_routes("water B3LYP Hessian",
+                             lambda x, m: hessian_fd(water, coords=x, xc="b3lyp", device=device,
+                                                     jit_kernel=m),
+                             np.asarray(X_OPT_WATER), moved(X_OPT_WATER), 1e-9, device)
+    row["asym"] = _gate_array("water B3LYP Hessian symmetry", first, first.T, 1e-12)
+    out["water_ks_hessian"] = row
+
+    def eris(x, mode):
+        xt = torch.tensor(x, dtype=torch.float64, device=device)
+        if mode == "off":
+            return torch.stack([eri_tensor(dz, xt, device=device),
+                                eri_tensor(dz, xt, omega=0.33, device=device)])
+        return torch.stack([eri_program(dz, xt, jit_kernel=mode),
+                            eri_program(dz, xt, omega=0.33, jit_kernel=mode)])
+
+    _, out["eri_ccpvdz"] = _two_routes("water cc-pVDZ eri program", eris, dz.coords,
+                                       moved(dz.coords), 1e-12, device)
+
+    walls, opt = {}, {}
+    for mode in ("auto", "off"):
+        t0 = time.perf_counter()
+        x_opt, e_opt, steps, ok = optimize_geometry(water, gtol=1e-6, device=device,
+                                                    jit_kernel=mode)
+        walls[mode] = _sync_s(t0, device)
+        if not ok:
+            raise RuntimeError(f"water optimize_geometry ({mode}) did not converge")
+        _gate(f"water optimize_geometry ({mode})", [("e_min", e_opt, E_OPT_WATER)], 1e-8)
+        opt[mode] = (x_opt, e_opt, steps)
+    out["water_optimize"] = {
+        "graphed_s": walls["auto"], "eager_s": walls["off"],
+        "steps": [opt["auto"][2], opt["off"][2]],
+        "graph_vs_eager_e": _gate_array("water optimize_geometry graphed vs eager",
+                                        opt["auto"][1], opt["off"][1], 1e-10),
+        "graph_vs_eager_x": float(np.max(np.abs(opt["auto"][0] - opt["off"][0])))}
+    out["reserved_gb_after"] = _reserved_gb()
+    print("derivatives_graphed", json.dumps(out), flush=True)
+
+
 def run_hessian_mesh(hess, device="cuda"):
     """The acetonitrile Hessian's 36 displaced lanes in two groups of a
     mesh's 'batch' axis. The mesh changes only how the lanes' gradients are
@@ -3523,15 +3686,15 @@ LANES = ("fused_jk_f64", "lanes", "eigh_f64")
 # the incremental SCF's float32 J/K of density changes inside graphs
 INCREMENTAL = ("fused_jk_f32", "eigh_f64")
 # the phases of the post-SCF, derivatives, parallel, compiled-program,
-# shared-program, remaining-program and quantum-end slices, summarised at
-# the end
+# shared-program, remaining-program, quantum-end and derivative-program
+# slices, summarised at the end
 NEW_PHASES = ("water_global", "acetonitrile_post", "h2_stability", "water_qse", "pfoa_post",
               "water_derivatives", "acetonitrile_derivatives", "water_ccpvdz_gradient",
               "water_fleet", "water_fleet_gradients", "water_embed_fleet", "sharded",
               "pfoa_sharded", "graphed_scf", "hessian_mesh", "shared_programs",
               "incremental_graphed", "water_tpss_kernel", "pfoa_incremental",
               "pfoa_warmup_graphed", "grid_programs", "tddft_graphed", "ccsd_graphed",
-              "vqe_graphed", "adapt_graphed", "mp2_graphed")
+              "vqe_graphed", "adapt_graphed", "mp2_graphed", "derivatives_graphed")
 
 
 def main():
@@ -3627,6 +3790,7 @@ def main():
         ("h2_stability", run_h2_stability, F64),
         ("water_derivatives", run_water_derivatives, LANES),
         ("acetonitrile_derivatives", run_acetonitrile_derivatives, LANES),
+        ("derivatives_graphed", run_derivatives_graphed, LANES),
         ("water_ccpvdz_gradient", run_water_ccpvdz_gradient, F64),
         ("shared_programs", run_shared_programs, F64),
         ("incremental_graphed", run_incremental_graphed, INCREMENTAL),

@@ -241,22 +241,31 @@ class Molecule:
     def energy_nuc_tensor(self, coords=None) -> torch.Tensor:
         """:meth:`energy_nuc` as a 0-d tensor on the device of ``coords``
         (a tensor that autograd follows, or an array for the CPU); (B,
-        natm, 3) coordinates give a (B,) tensor, one energy per lane."""
-        r = torch.as_tensor(self.coords if coords is None else coords, dtype=DTYPE)
-        dev = r.device
-        z = torch.tensor(self.atom_charges, dtype=DTYPE, device=dev)
-        eye = torch.eye(self.natm, dtype=DTYPE, device=dev)
+        natm, 3) coordinates give a (B,) tensor, one energy per lane. The
+        charges are on the device once per molecule and device, so a call
+        on a tensor copies nothing from the host."""
+        r = coords if isinstance(coords, torch.Tensor) and coords.dtype == DTYPE else \
+            torch.as_tensor(self.coords if coords is None else coords, dtype=DTYPE)
+        z, eye, mm_coords, mm_charges = _nuclear_tables(self, r.device)
         diff = r[..., :, None, :] - r[..., None, :, :]
         dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + eye)
         pair = z[:, None] * z[None, :] / dist
         e = 0.5 * torch.sum(pair * (1.0 - eye), dim=(-2, -1))
-        if self.mm_coords is not None:
-            d_mm = torch.linalg.norm(
-                r[..., :, None, :]
-                - torch.as_tensor(self.mm_coords, dtype=DTYPE, device=dev)[None], dim=-1)
-            e = e + torch.sum(z[:, None] * torch.as_tensor(
-                self.mm_charges, dtype=DTYPE, device=dev)[None] / d_mm, dim=(-2, -1))
+        if mm_coords is not None:
+            d_mm = torch.linalg.norm(r[..., :, None, :] - mm_coords[None], dim=-1)
+            e = e + torch.sum(z[:, None] * mm_charges[None] / d_mm, dim=(-2, -1))
         return e
+
+
+@lru_cache(maxsize=64)
+def _nuclear_tables(mol: Molecule, device: torch.device):
+    """(charges Z, the natm identity, MM coordinates, MM charges) of
+    :meth:`Molecule.energy_nuc_tensor` on ``device``."""
+    def t(a):
+        return None if a is None else torch.as_tensor(np.asarray(a), dtype=DTYPE, device=device)
+
+    return (t(mol.atom_charges), torch.eye(mol.natm, dtype=DTYPE, device=device),
+            t(mol.mm_coords), t(mol.mm_charges))
 
 
 def parse_xyz(text: str, unit: str = "angstrom"):

@@ -252,9 +252,15 @@ def _becke_weights(points, owner, coords, bragg_radii, chunk=32768, adjust="treu
             f = 0.5 * f * (3.0 - f * f)
         s = 0.5 * (1.0 - f)
         s = torch.where(diag, torch.ones_like(s), s)
-        p = torch.prod(s, dim=2)  # (g, natm)
-        idx = torch.arange(pts.shape[0], device=pts.device)
-        return p[idx, own] / torch.sum(p, dim=1)
+        if s.requires_grad:
+            # torch.prod's backward reads whether a factor is zero on the
+            # host, which a CUDA graph cannot capture: multiply out instead
+            p = s[:, :, 0]
+            for k in range(1, natm):
+                p = p * s[:, :, k]
+        else:
+            p = torch.prod(s, dim=2)  # (g, natm)
+        return torch.gather(p, 1, own[:, None])[:, 0] / torch.sum(p, dim=1)
 
     return torch.cat([wpart(points[i:i + chunk], owner[i:i + chunk])
                       for i in range(0, points.shape[0], chunk)])
@@ -292,7 +298,7 @@ def grid_points(constants: dict, coords):
     ``coords`` ((natm, 3) tensor on the constants' device): each point is
     its atom-relative offset plus its owning atom's coordinates."""
     owner = constants["owner"]
-    points = constants["rel"] + coords[owner]
+    points = constants["rel"] + coords.index_select(0, owner)
     becke = _becke_weights(points, owner, coords, constants["bragg"],
                            adjust=constants["adjust"])
     return points, constants["base"] * becke

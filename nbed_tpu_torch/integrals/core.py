@@ -82,6 +82,58 @@ def _pair_tables(mol_a: Molecule, mol_b: Molecule, symmetric: bool):
             for key, pairs in sorted(groups.items())]
 
 
+@lru_cache(maxsize=64)
+def _device_pair_tables(mol_a: Molecule, mol_b: Molecule, symmetric: bool,
+                        device: torch.device):
+    """The class tables of :func:`_pair_tables` as tensors on ``device``,
+    made once per (molecule pair, symmetric, device) as
+    :func:`nbed_tpu_torch.integrals.eri._device_tables` does for the ERIs:
+    repeated calls (the displaced gradients of a Hessian, the steps of an
+    optimization, a CUDA graph's body) copy nothing from the host."""
+    def f64(a):
+        return torch.as_tensor(a, dtype=DTYPE, device=device)
+
+    def idx(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=device)
+
+    return [dict(la=t.la, lb=t.lb, atom_a=idx(t.atom_a), atom_b=idx(t.atom_b),
+                 exps_a=f64(t.exps_a), exps_b=f64(t.exps_b), coefs_a=f64(t.coefs_a),
+                 coefs_b=f64(t.coefs_b), c2s_a=f64(t.c2s_a), c2s_b=f64(t.c2s_b),
+                 flat=idx(t.flat), flat_mirror=idx(t.flat_mirror),
+                 mirror_mask=f64(t.mirror_mask))
+            for t in _pair_tables(mol_a, mol_b, symmetric)]
+
+
+@lru_cache(maxsize=None)
+def _powers(l: int, device: torch.device):
+    """The x, y, z powers of the cartesian components of ``l`` as index
+    tensors on ``device``; unbounded, as ``md._cross_tables`` (a graph
+    reads them by address). The bounded caches of this module are per
+    molecule: a derivative program holds the entries its graph reads."""
+    return tuple(torch.as_tensor(p, device=device) for p in _comp_powers(l))
+
+
+@lru_cache(maxsize=64)
+def _nuclear_charges(mol: Molecule, device: torch.device):
+    return torch.as_tensor(mol.atom_charges, dtype=DTYPE, device=device)
+
+
+@lru_cache(maxsize=64)
+def _mm_tensors(mol: Molecule, device: torch.device):
+    """``mol``'s MM charges (centers, charges, radii or None) on
+    ``device``, the constants of its point-charge attraction."""
+    return (_on(mol.mm_coords, device), _on(mol.mm_charges, device),
+            None if mol.mm_radii is None else _on(mol.mm_radii, device))
+
+
+def _on(a, device):
+    """``a`` as a float64 tensor on ``device``; a tensor that already is
+    one passes as it is (no host copy, and autograd follows it)."""
+    if isinstance(a, torch.Tensor) and a.dtype == DTYPE and a.device == device:
+        return a
+    return torch.as_tensor(a, dtype=DTYPE, device=device)
+
+
 # --------------------------------------------------------------------------
 # per-class primitive integrals: ra, rb (P, 1, 1, 3); a (P, Ka, 1),
 # b (P, 1, Kb) -> (P, Ka, Kb, [3,] nca, ncb)
@@ -98,14 +150,14 @@ def _e_tables(la, lb, a, b, ab_vec, extra_b=0):
 
 
 def _sel(table, ia, jb):
-    """table[..., ia, jb] over every component pair -> (..., nca, ncb)."""
-    return table[..., ia[:, None], jb[None, :]]
+    """table[..., ia, jb] over every component pair -> (..., nca, ncb),
+    by two ``index_select`` (whose backward adds, with no sort)."""
+    return table.index_select(-2, ia).index_select(-1, jb)
 
 
 def _overlap_prim(la, lb):
-    pa, pb = _comp_powers(la), _comp_powers(lb)
-
     def f(ra, rb, a, b):
+        pa, pb = _powers(la, a.device), _powers(lb, a.device)
         p = a + b
         ex, ey, ez = _e_tables(la, lb, a, b, ra - rb)
         pref = ((np.pi / p) ** 1.5)[..., None, None]
@@ -116,9 +168,8 @@ def _overlap_prim(la, lb):
 
 
 def _kinetic_prim(la, lb):
-    pa, pb = _comp_powers(la), _comp_powers(lb)
-
     def f(ra, rb, a, b):
+        pa, pb = _powers(la, a.device), _powers(lb, a.device)
         p = a + b
         sq = torch.sqrt(np.pi / p)[..., None, None]
         s1 = [e[..., 0] * sq for e in _e_tables(la, lb, a, b, ra - rb, extra_b=2)]
@@ -141,8 +192,8 @@ def _kinetic_prim(la, lb):
 
 def _e3_tensor(la, lb, a, b, ab_vec):
     """Combined Hermite expansion E3[..., ca, cb, t, u, v]."""
-    pa, pb = _comp_powers(la), _comp_powers(lb)
-    ex, ey, ez = (e[..., pa[d][:, None], pb[d][None, :], :]
+    pa, pb = _powers(la, a.device), _powers(lb, a.device)
+    ex, ey, ez = (e.index_select(-3, pa[d]).index_select(-2, pb[d])
                   for d, e in enumerate(_e_tables(la, lb, a, b, ab_vec)))
     return torch.einsum("...abt,...abu,...abv->...abtuv", ex, ey, ez)
 
@@ -180,10 +231,9 @@ def _smeared_prim(la, lb):
 
 
 def _dipole_prim(la, lb):
-    pa, pb = _comp_powers(la), _comp_powers(lb)
-
     def f(ra, rb, a, b):
         """-> (..., 3, nca, ncb): x, y, z dipole blocks about the origin."""
+        pa, pb = _powers(la, a.device), _powers(lb, a.device)
         p = a + b
         sq = torch.sqrt(np.pi / p)[..., None, None]
         s1 = [e[..., 0] * sq for e in _e_tables(la, lb, a, b, ra - rb, extra_b=1)]
@@ -203,25 +253,20 @@ def _dipole_prim(la, lb):
 # assembly
 # --------------------------------------------------------------------------
 
-def _contract_pairs(table: _PairTable, coords_a, coords_b, prim_factory, extra=()):
-    """One class: primitive integrals over the whole pair list, contracted
-    and made spherical -> ([B,] P, [3,] nsa, nsb), B the lanes of (B, natm,
-    3) coordinates. ``extra`` tensors (point charges) follow the primitive
-    arguments."""
-    dev = coords_a.device
+def _contract_pairs(table: dict, coords_a, coords_b, prim_factory, extra=()):
+    """One class (its :func:`_device_pair_tables` entry): primitive
+    integrals over the whole pair list, contracted and made spherical ->
+    ([B,] P, [3,] nsa, nsb), B the lanes of (B, natm, 3) coordinates.
+    ``extra`` tensors (point charges) follow the primitive arguments."""
     lanes = coords_a.ndim == 3
-
-    def t(a):
-        return torch.as_tensor(a, dtype=DTYPE, device=dev)
-
-    ra = coords_a[..., torch.as_tensor(table.atom_a, device=dev), :][..., :, None, None, :]
-    rb = coords_b[..., torch.as_tensor(table.atom_b, device=dev), :][..., :, None, None, :]
-    fij = prim_factory(table.la, table.lb)(
-        ra, rb, t(table.exps_a)[:, :, None], t(table.exps_b)[:, None, :], *extra)
+    ra = coords_a.index_select(-2, table["atom_a"])[..., :, None, None, :]
+    rb = coords_b.index_select(-2, table["atom_b"])[..., :, None, None, :]
+    fij = prim_factory(table["la"], table["lb"])(
+        ra, rb, table["exps_a"][:, :, None], table["exps_b"][:, None, :], *extra)
     if lanes:  # (B, P, Ka, Kb, ...) -> (P, Ka, Kb, B, ...): the lane rides in "..."
         fij = fij.movedim(0, 3)
-    block = torch.einsum("pi,pj,pij...->p...", t(table.coefs_a), t(table.coefs_b), fij)
-    out = torch.einsum("p...ab,pax,pby->p...xy", block, t(table.c2s_a), t(table.c2s_b))
+    block = torch.einsum("pi,pj,pij...->p...", table["coefs_a"], table["coefs_b"], fij)
+    out = torch.einsum("p...ab,pax,pby->p...xy", block, table["c2s_a"], table["c2s_b"])
     return out.movedim(1, 0) if lanes else out
 
 
@@ -237,23 +282,20 @@ def _assemble(mol_a, mol_b, coords_a, coords_b, prim_factory, symmetric, n_ops=N
     shape = lead + ((mol_a.nao * mol_b.nao,) if n_ops is None
                     else (n_ops, mol_a.nao * mol_b.nao))
     out = torch.zeros(shape, dtype=DTYPE, device=dev)
-    for table in _pair_tables(mol_a, mol_b, symmetric):
+    for table in _device_pair_tables(mol_a, mol_b, symmetric, dev):
         blocks = _contract_pairs(table, coords_a, coords_b, prim_factory, extra)
         if n_ops is None:
             vals = blocks.reshape(*lead, -1)
         else:
             vals = blocks.movedim(len(lead) + 1, len(lead)).reshape(*lead, n_ops, -1)
-        out = out.index_add(-1, torch.as_tensor(table.flat, device=dev), vals)
+        out = out.index_add(-1, table["flat"], vals)
         if symmetric:
-            mask = torch.as_tensor(table.mirror_mask, dtype=DTYPE, device=dev)
-            out = out.index_add(-1, torch.as_tensor(table.flat_mirror, device=dev),
-                                vals * mask)
+            out = out.index_add(-1, table["flat_mirror"], vals * table["mirror_mask"])
     return out.reshape(shape[:-1] + (mol_a.nao, mol_b.nao))
 
 
 def _coords(mol, coords, device):
-    return torch.as_tensor(mol.coords if coords is None else coords, dtype=DTYPE,
-                           device=device)
+    return _on(mol.coords if coords is None else coords, device)
 
 
 def overlap(mol: Molecule, coords=None, device="cuda"):
@@ -284,7 +326,7 @@ def nuclear_attraction(mol: Molecule, coords=None, device="cuda"):
     ``coords`` (the MM charges of a QM/MM molecule are not in it: see
     :func:`point_charge_attraction`)."""
     c = _coords(mol, coords, resolve_device(device))
-    z = torch.as_tensor(mol.atom_charges, dtype=DTYPE, device=c.device)
+    z = _nuclear_charges(mol, c.device)
     # the nuclei of a lane align with its (P, Ka, Kb) primitives
     centers = c[:, None, None, None] if c.ndim == 3 else c
     return _assemble(mol, mol, c, c, _nuclear_prim, symmetric=True, extra=(centers, z))
@@ -297,15 +339,11 @@ def point_charge_attraction(mol: Molecule, centers, charges, radii=None, coords=
     reference's convention). ``centers`` (N, 3) in Bohr; any argument may be
     a tensor that autograd follows."""
     c = _coords(mol, coords, resolve_device(device))
-
-    def t(a):
-        return torch.as_tensor(a, dtype=DTYPE, device=c.device)
-
-    extra = (t(centers), t(charges))
+    extra = (_on(centers, c.device), _on(charges, c.device))
     if radii is None:
         return _assemble(mol, mol, c, c, _nuclear_prim, symmetric=True, extra=extra)
     return _assemble(mol, mol, c, c, _smeared_prim, symmetric=True,
-                     extra=extra + (1.0 / t(radii) ** 2,))
+                     extra=extra + (1.0 / _on(radii, c.device) ** 2,))
 
 
 def dipole_integrals(mol: Molecule, coords=None, device="cuda"):

@@ -121,12 +121,13 @@ def _device_tables(mol: Molecule, device: torch.device):
     """The tables of :func:`_angular_classes` copied to ``device`` once per
     (molecule, device), so that repeated calls (the displaced gradients of a
     Hessian, the steps of an optimization) do only arithmetic: for each class
-    its (exps, coef, qid, atoms, c2s) tensors, then the gather index."""
+    its (exps, coef, qid, atoms (4, P), c2s) tensors, then the gather
+    index."""
     classes, source = _angular_classes(mol)
     tables = [(torch.as_tensor(cls.prim_exps, dtype=DTYPE, device=device),
                torch.as_tensor(cls.prim_coef, dtype=DTYPE, device=device),
                torch.as_tensor(cls.prim_qid, device=device),
-               torch.as_tensor(cls.prim_atoms, device=device),
+               torch.as_tensor(np.ascontiguousarray(cls.prim_atoms.T), device=device),
                [torch.as_tensor(m, dtype=DTYPE, device=device) for m in cls.c2s])
               for cls in classes]
     return classes, tables, torch.as_tensor(source, device=device)
@@ -135,10 +136,10 @@ def _device_tables(mol: Molecule, device: torch.device):
 def _class_rows(ls, coords, exps, coef, atoms, omega):
     """Cartesian blocks ([B,] rows, nca, ncb, ncc, ncd) of a chunk of
     primitive quartet rows, each scaled by its contraction coefficient; B
-    the lanes of (B, natm, 3) coordinates."""
+    the lanes of (B, natm, 3) coordinates; ``atoms`` (4, rows)."""
     la, lb, lc, ld = ls
     lead = tuple(coords.shape[:-2])
-    ra, rb, rc, rd = (coords[..., atoms[:, k], :] for k in range(4))
+    ra, rb, rc, rd = (coords.index_select(-2, atoms[k]) for k in range(4))
     a, b, c, d = (exps[:, k] for k in range(4))
     p, q = a + b, c + d
     big_p = (a[:, None] * ra + b[:, None] * rb) / p[:, None]
@@ -178,20 +179,26 @@ def eri_tensor(mol: Molecule, coords=None, chunk_elems: int = 2**22, omega=None,
     geometry's.
     """
     c = _coords(mol, coords, resolve_device(device))
-    dev = c.device
+    return _eri_of(mol, c, _device_tables(mol, c.device), chunk_elems,
+                   None if omega is None else float(omega))
+
+
+def _eri_of(mol: Molecule, c, device_tables, chunk_elems: int, omega):
+    """:func:`eri_tensor` at coordinates ``c`` (a tensor) over the
+    :func:`_device_tables` of ``mol``: tensors only, so a CUDA graph
+    captures it."""
     lead = tuple(c.shape[:-2])
     lanes = int(np.prod(lead))
-    omega = None if omega is None else float(omega)
-    classes, tables, source = _device_tables(mol, dev)
+    classes, tables, source = device_tables
     vals = []
     for cls, (exps, coef, qid, atoms, c2s) in zip(classes, tables):
         la, lb, lc, ld = cls.ls
         per_row = max(int(np.prod(cls.ncart)), (la + lb + 1) ** 3 * (lc + ld + 1) ** 3)
         chunk = max(16, min(cls.n_prim, chunk_elems // (per_row * lanes)))
-        acc = torch.zeros((*lead, cls.m, *cls.ncart), dtype=DTYPE, device=dev)
+        acc = torch.zeros((*lead, cls.m, *cls.ncart), dtype=DTYPE, device=c.device)
         for s in range(0, cls.n_prim, chunk):
             sl = slice(s, s + chunk)
-            blocks = _class_rows(cls.ls, c, exps[sl], coef[sl], atoms[sl], omega)
+            blocks = _class_rows(cls.ls, c, exps[sl], coef[sl], atoms[:, sl], omega)
             acc = acc.index_add(len(lead), qid[sl], blocks)
         sph = torch.einsum("...mabcd,map->...mpbcd", acc, c2s[0])
         sph = torch.einsum("...mpbcd,mbq->...mpqcd", sph, c2s[1])
@@ -199,4 +206,43 @@ def eri_tensor(mol: Molecule, coords=None, chunk_elems: int = 2**22, omega=None,
         sph = torch.einsum("...mpqrd,mds->...mpqrs", sph, c2s[3])
         vals.append(sph.reshape(*lead, -1))
     n = mol.nao
-    return torch.cat(vals, dim=-1)[..., source].reshape(*lead, n, n, n, n)
+    # a gather whose backward is an index addition over ``source``
+    # (atomics on the card), not the sort of an accumulating index_put
+    return torch.cat(vals, dim=-1).index_select(-1, source).reshape(*lead, n, n, n, n)
+
+
+def eri_program(mol: Molecule, coords, omega=None, chunk_elems: int = 2**22,
+                jit_kernel: str = "auto"):
+    """:func:`eri_tensor` at ``coords`` ((natm, 3) or (B, natm, 3) tensor)
+    as the derivative program of kind "eri": one CUDA graph per
+    (structure, lanes, omega, ``chunk_elems``, card) in
+    :data:`nbed_tpu_torch.ops.programs.DERIVATIVE_PROGRAMS`, the
+    coordinates copied into its input buffer and the tensor read from its
+    output (a copy the caller owns). ``jit_kernel`` as the SCF engine's:
+    "auto" runs the program on a card and :func:`eri_tensor` elsewhere,
+    "on" the program everywhere (uncaptured off CUDA), "off"
+    :func:`eri_tensor`; coordinates that carry a derivative run
+    :func:`eri_tensor` under "auto" and raise under "on"."""
+    from ..ops.programs import BufferProgram, derivative_program, structure_key, takes_program
+
+    if not takes_program(jit_kernel, (coords,)):
+        return eri_tensor(mol, coords, chunk_elems=chunk_elems, omega=omega,
+                          device=coords.device)
+    omega = None if omega is None else float(omega)
+    shape = tuple(coords.shape)
+    n = mol.nao
+
+    def build(device, pool):
+        x = torch.zeros(shape, dtype=DTYPE, device=device)
+        out = torch.zeros(shape[:-2] + (n, n, n, n), dtype=DTYPE, device=device)
+        tables = _device_tables(mol, device)
+
+        def body():
+            with torch.no_grad():
+                out.copy_(_eri_of(mol, x, tables, chunk_elems, omega))
+
+        return BufferProgram("eri", {"x": x}, {"eri": out}, body, device, pool, holds=(tables,))
+
+    prog = derivative_program(("eri", structure_key(mol), shape, omega, int(chunk_elems)),
+                              coords.device, build)
+    return prog(x=coords)["eri"].clone()

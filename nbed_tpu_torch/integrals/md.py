@@ -10,6 +10,7 @@ through every function, which is what the analytic nuclear gradients
 """
 
 import math
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -62,7 +63,8 @@ def boys(mmax: int, t):
     unselected branch 0 x that gradient, a NaN. The selected values equal
     the reference's, whose ``t >= 1e-30`` clamp is kept.
     """
-    t = torch.as_tensor(t)
+    if not isinstance(t, torch.Tensor):
+        t = torch.as_tensor(t)
     a = mmax + 0.5
     small = t < _SERIES_BELOW
     t_big = torch.clamp_min(torch.where(small, torch.ones_like(t), t), 1e-30)
@@ -155,7 +157,9 @@ def hermite_r(lmax: int, p, pq, omega=None):
     Returns:
         (..., lmax+1, lmax+1, lmax+1) tensor R[..., t, u, v].
     """
-    p, pq = torch.broadcast_tensors(torch.as_tensor(p)[..., None], pq)
+    if not isinstance(p, torch.Tensor):
+        p = torch.as_tensor(p, dtype=pq.dtype, device=pq.device)
+    p, pq = torch.broadcast_tensors(p[..., None], pq)
     p = p[..., 0]
     t_arg = p * torch.sum(pq * pq, dim=-1)
     orders = torch.arange(lmax + 1, dtype=p.dtype, device=p.device)
@@ -190,19 +194,36 @@ def hermite_r(lmax: int, p, pq, omega=None):
     return r
 
 
+@lru_cache(maxsize=None)
+def _cross_tables(lab: int, lcd: int, dtype, device):
+    """The flat gather index into the (lab+lcd+1)^3 cube and the bra-ket
+    signs of :func:`hermite_r_cross`, on ``device`` once per (lab, lcd):
+    a call copies nothing from the host (a CUDA graph captures it).
+    Unbounded (a few small tensors per angular pair): a graph reads them
+    by address, so an entry must never be evicted."""
+    size = lab + lcd + 1
+    ts = np.arange(lab + 1)
+    taus = np.arange(lcd + 1)
+    idx = ts[:, None] + taus[None, :]  # (t, tau) -> t + tau
+    flat = ((idx[:, None, None, :, None, None] * size
+             + idx[None, :, None, None, :, None]) * size
+            + idx[None, None, :, None, None, :])
+    sign = (-1.0) ** (taus[:, None, None] + taus[None, :, None] + taus[None, None, :])
+    return (torch.as_tensor(flat.reshape(-1), device=device),
+            torch.as_tensor(np.broadcast_to(sign, flat.shape).copy(), dtype=dtype,
+                            device=device))
+
+
 def hermite_r_cross(lab: int, lcd: int, alpha, pq, omega=None):
     """R4[..., t,u,v, tau,nu,phi] = (-1)^(tau+nu+phi) R_{t+tau, u+nu, v+phi}.
 
     The sign of the bra-ket Hermite contraction is folded in, so an ERI is
     a plain contraction against the two E tensors. ``omega`` as in
-    :func:`hermite_r`.
+    :func:`hermite_r`. The entries are one ``index_select`` of the
+    flattened cube, whose backward is an index addition (no sort).
     """
     r = hermite_r(lab + lcd, alpha, pq, omega=omega)
-    ts = np.arange(lab + 1)
-    taus = np.arange(lcd + 1)
-    idx_t = torch.as_tensor(ts[:, None] + taus[None, :], device=r.device)
-    r4 = r[..., idx_t[:, None, None, :, None, None],
-           idx_t[None, :, None, None, :, None],
-           idx_t[None, None, :, None, None, :]]
-    sign = (-1.0) ** (taus[:, None, None] + taus[None, :, None] + taus[None, None, :])
-    return r4 * torch.as_tensor(sign, dtype=r.dtype, device=r.device)
+    flat, sign = _cross_tables(lab, lcd, r.dtype, r.device)
+    lead = r.shape[:-3]
+    r4 = r.reshape(*lead, -1).index_select(-1, flat).reshape(*lead, *sign.shape)
+    return r4 * sign

@@ -6,25 +6,34 @@ once as a CUDA graph (:class:`Captured`) and replayed; off CUDA the same
 function runs uncaptured. Programs live in bounded LRU caches keyed by
 structure, shapes and card (:func:`cached_program`): the SCF engine's
 ``_JIT_PROGRAM_CACHE`` (SCF chunks, ``get_veff``, the subsystem stage, the
-grid and AO tables, the TDA/RPA matvec blocks) and the CCSD solver's sweep
-and (T) caches (the reference's ``lru_cache(maxsize=8)``). :data:`RUNS`
-counts what they did in this process.
+grid and AO tables, the TDA/RPA matvec blocks), the CCSD solver's sweep
+and (T) caches (the reference's ``lru_cache(maxsize=8)``) and the
+derivative programs (:data:`DERIVATIVE_PROGRAMS`: the torch ERIs, and
+the HF and KS gradients, whose body runs a forward and its
+``torch.autograd.grad`` in one graph). :data:`RUNS` counts what they did
+in this process.
 """
 
 import gc
 import time
+import weakref
 from collections import Counter
 
+import numpy as np
 import torch
 
 from .jk import LaunchRecord, recording
 
-__all__ = ["RUNS", "Captured", "cached_program", "card", "replay"]
+__all__ = ["RUNS", "BufferProgram", "Captured", "DERIVATIVE_PROGRAMS", "cached_program",
+           "card", "derivative_program", "gradient_body", "replay", "structure_key",
+           "takes_program"]
 
 # how the programs of this process ran: SCFEngine.kernel() calls ("graph",
 # "eager"), "replays", "host_reads", "captures", "capture_s", "cycles", and
 # per fixed program kind (replay()) its replays under the kind's name and
-# f"{kind}_captures", f"{kind}_capture_s"; the counterpart of
+# f"{kind}_captures", f"{kind}_capture_s", and on a card the growth of
+# memory_reserved in GB over its captures (f"{kind}_pool_gb": the memory
+# its graphs' pool took); the counterpart of
 # ops.jk.LAUNCHES for a run to read per phase
 RUNS: Counter = Counter()
 
@@ -57,6 +66,8 @@ class Captured:
         self.keep = tuple(keep)
         self.graph = None
         self.record = LaunchRecord()
+        # memory_reserved (bytes) just before the capture and after it
+        self.reserved = None
 
     @property
     def captures(self) -> bool:
@@ -69,6 +80,12 @@ class Captured:
         with torch.cuda.stream(side):
             self.warmup()
         torch.cuda.current_stream(self.device).wait_stream(side)
+        # torch.cuda.graph empties the allocator's cache as it starts; doing
+        # it here first makes the growth of memory_reserved over the
+        # capture the memory its graph took into the pool
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
         # no garbage collection during the capture: collecting a program
         # dropped earlier (alive in some reference cycle) would destroy its
@@ -87,6 +104,7 @@ class Captured:
         if self.pool[0] is None:
             self.pool[0] = graph.pool()
         self.graph = graph
+        self.reserved = (before, torch.cuda.memory_reserved(self.device))
         for t, value in zip(self.keep, saved):
             t.copy_(value)
 
@@ -113,6 +131,8 @@ def replay(captured: Captured, kind: str):
             RUNS[key] += 1
         for key in ("capture_s", f"{kind}_capture_s"):
             RUNS[key] += seconds
+        before, after = captured.reserved
+        RUNS[f"{kind}_pool_gb"] += (after - before) / 1e9
     captured()
     RUNS["replays"] += 1
     RUNS[kind] += 1
@@ -144,3 +164,110 @@ def card(device) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+# the derivative programs of this process: the "eri" program
+# (integrals.eri.eri_program) and the "hf_grad"/"ks_grad" gradient
+# programs (solvers.gradients), keyed by (kind, structure_key, shapes and
+# the kind's constants, card); an LRU of its own, as the CCSD solver's
+DERIVATIVE_PROGRAMS: dict = {}
+DERIVATIVE_PROGRAMS_MAX = 16
+
+
+class _Pool(list):
+    """The one-item pool list of :class:`Captured`, weakly referenced by its
+    structure's key: it lives as long as a program of the structure."""
+
+
+_POOLS = weakref.WeakValueDictionary()
+
+
+def structure_key(mol) -> tuple:
+    """What fixes a derivative program's tables and constants: ``mol``'s
+    atoms, basis, charge and spin, and its MM charges, values included
+    (they enter the program's core Hamiltonian and nuclear repulsion as
+    constants, not buffers)."""
+    mm = None
+    if mol.mm_coords is not None:
+        mm = tuple(tuple(np.asarray(a, dtype=np.float64).ravel().tolist())
+                   for a in (mol.mm_coords, mol.mm_charges,
+                             () if mol.mm_radii is None else mol.mm_radii))
+    return (tuple(int(z) for z in mol.atom_charges), mol.basis, mol.charge, mol.spin, mm)
+
+
+def takes_program(jit_kernel: str, tensors) -> bool:
+    """Whether a derivative call runs as a program: "on" everywhere (the
+    body uncaptured off CUDA), "auto" on a CUDA device, "off" never.
+    Tensors that carry a derivative (``requires_grad``, a forward-mode
+    tangent) run eagerly under "auto" and raise under "on"."""
+    from ..scf.hf import carries_derivative
+
+    if jit_kernel not in ("on", "off", "auto"):
+        raise ValueError(f"jit_kernel must be 'on', 'off' or 'auto', got {jit_kernel!r}")
+    if jit_kernel == "off":
+        return False
+    tensors = [t for t in tensors if isinstance(t, torch.Tensor)]
+    if any(carries_derivative(t) for t in tensors):
+        if jit_kernel == "on":
+            raise ValueError("jit_kernel='on' takes no input that carries requires_grad "
+                             "or a forward-mode tangent; use 'auto' or 'off'")
+        return False
+    return jit_kernel == "on" or tensors[0].device.type == "cuda"
+
+
+class BufferProgram:
+    """A derivative program: ``body()`` reads the ``inputs`` buffers and
+    writes the ``outputs`` buffers only, as a :class:`Captured` graph of
+    ``kind``. A call copies its values into the inputs (outside the graph,
+    under ``no_grad``: an input may be a leaf that requires grad, which the
+    body differentiates), replays, and returns the outputs, which the next
+    call overwrites. ``holds``: the constant tensors the body reads from
+    bounded caches (device tables of a molecule), which its graph reads by
+    address: the program keeps them alive, so that a cache eviction cannot
+    free memory the graph still reads."""
+
+    def __init__(self, kind: str, inputs: dict, outputs: dict, body, device, pool: list,
+                 holds=()):
+        self.kind, self.inputs, self.outputs = kind, inputs, outputs
+        self.holds = tuple(holds)
+        self.captured = Captured(body, device, pool)
+
+    def __call__(self, **values) -> dict:
+        with torch.no_grad():
+            for name, value in values.items():
+                self.inputs[name].copy_(value)
+        replay(self.captured, self.kind)
+        return self.outputs
+
+
+def gradient_body(energy, x, out):
+    """The body of a gradient program: ``out`` <- d sum(energy(x)) / dx,
+    the forward and its ``torch.autograd.grad`` in one capture (the
+    whole-network capture of the PyTorch CUDA-graph notes: the warm-up on
+    a side stream, every shape fixed). ``x`` is a leaf buffer that
+    requires grad; the energies of lanes are summed, giving each lane's
+    own gradient."""
+    def body():
+        with torch.enable_grad():
+            (grad,) = torch.autograd.grad(torch.sum(energy(x)), x)
+        with torch.no_grad():
+            out.copy_(grad)
+
+    return body
+
+
+def derivative_program(key: tuple, device, build):
+    """The derivative program of ``key`` on ``device``'s card, from the LRU
+    :data:`DERIVATIVE_PROGRAMS`; else ``build(card, pool)``'s, its graphs
+    in the memory pool shared by the programs of its structure (``key[1]``)
+    on that card."""
+    device = card(device)
+    pool_key = (key[1], device)
+
+    def make():
+        pool = _POOLS.get(pool_key)
+        if pool is None:
+            pool = _POOLS[pool_key] = _Pool([None])
+        return build(device, pool)
+
+    return cached_program(DERIVATIVE_PROGRAMS, DERIVATIVE_PROGRAMS_MAX, (*key, device), make)

@@ -32,10 +32,13 @@ import torch
 from .._device import DTYPE, resolve_device
 from ..chem.molecule import Molecule
 from ..integrals import eri_tensor, overlap
+from ..integrals.eri import eri_program
 from ..ops.jk import prepare_jk
+from ..ops.programs import takes_program
 from ..scf.engine import lane_scf, lane_spec
 from ..scf.engine import single_scf as _single_scf
-from ..solvers.gradients import _autograd, _energy_functional, _hcore, _w_from_dm
+from ..solvers.gradients import (_autograd, _energy_functional, _hcore, _w_from_dm,
+                                 hf_gradient_program)
 
 __all__ = ["Mesh", "make_mesh", "sharded_scf", "make_sharded_scf", "sharded_df_scf",
            "make_sharded_df_scf", "sharded_df_ks", "make_sharded_df_ks",
@@ -137,9 +140,11 @@ def _lane_scf(mol: Molecule, x, nelec=None, jit_kernel: str = "auto", **scf_kw):
     """UHF of the (B, natm, 3) lanes ``x`` on their device, one batched SCF
     with every cycle's J/K in one fused-kernel launch, as a shared program
     (:func:`~nbed_tpu_torch.scf.engine.lane_scf`; ``jit_kernel`` as
-    there): (SCFResult of lanes, ERI tensors (B, n, n, n, n))."""
+    there), on the ERIs of the lanes' "eri" program
+    (:func:`~nbed_tpu_torch.integrals.eri.eri_program`): (SCFResult of
+    lanes, ERI tensors (B, n, n, n, n))."""
     with torch.no_grad():
-        g = eri_tensor(mol, x, device=x.device)
+        g = eri_program(mol, x, jit_kernel=jit_kernel)
         g_j, g_k = _supermatrices(g)
         res = lane_scf(lane_spec(mol, "uhf"),
                        {"hcore": _hcore(mol, x), "s": overlap(mol, x, device=x.device),
@@ -226,10 +231,47 @@ def _lanes_per_pass(mol: Molecule, x) -> int:
     return max(1, min(nb, int(0.5 * free // _gradient_bytes_per_lane(mol, x.device))))
 
 
-def _lane_gradients(mol: Molecule, x, res, g):
+# the share of the card's memory that one lane gradient program may keep:
+# its graph pool stays reserved while the program is cached, so it is sized
+# from the card, not from the memory free at the moment (with 36
+# acetonitrile lanes in one pass, a later pfoa phase of chip_smoke.py ran
+# out of device memory, 51 GiB of it in graph pools)
+PROGRAM_MEMORY_SHARE = 0.125
+
+
+def _even_passes(nb: int, most: int) -> int:
+    """Lanes per pass for ``nb`` lanes at most ``most`` a pass, as even
+    as the passes allow: one program shape serves every pass where it
+    divides (36 lanes at most 13 a pass: 3 passes of 12)."""
+    passes = -(-nb // max(1, min(nb, most)))
+    return -(-nb // passes)
+
+
+def _lanes_per_program(mol: Molecule, x) -> int:
+    """Lanes of one pass of the lane gradient program: all of them off
+    CUDA; on a card as many as :data:`PROGRAM_MEMORY_SHARE` of its memory
+    holds at :func:`_gradient_bytes_per_lane` each, in even passes. It
+    reads no free memory, so every call of a structure and batch size
+    takes the same passes, and the programs' keys (their lane shapes)
+    hold it."""
+    nb = x.shape[0]
+    if x.device.type != "cuda":
+        return nb
+    total = torch.cuda.get_device_properties(x.device).total_memory
+    return _even_passes(nb, int(PROGRAM_MEMORY_SHARE * total
+                                // _gradient_bytes_per_lane(mol, x.device)))
+
+
+def _lane_gradients(mol: Molecule, x, res, g, jit_kernel: str = "auto"):
     """(B, natm, 3) analytic UHF gradients of converged lanes: the
     stationary energy functional of :mod:`nbed_tpu_torch.solvers.gradients`
-    summed over lanes, differentiated once per pass of lanes."""
+    summed over lanes, differentiated once per pass of lanes; each pass
+    the "hf_grad" program of its lanes where ``jit_kernel`` takes programs
+    (see :func:`~nbed_tpu_torch.solvers.gradients.hf_gradient`)."""
+    if takes_program(jit_kernel, (x, res.dm)):
+        step = _lanes_per_program(mol, x)
+        return torch.cat([hf_gradient_program(mol, x[b:b + step], res.dm[b:b + step])
+                          for b in range(0, x.shape[0], step)])
     w_tot = _w_from_dm(mol, x, res.dm, hyb=1.0, eri=g)
     step = _lanes_per_pass(mol, x)
     return torch.cat([
@@ -246,15 +288,19 @@ def batched_hf_gradients(mol: Molecule, coords_batch, mesh: Mesh | None = None,
     Returns ``(e (B,), grad (B, natm, 3), converged (B,))``: each lane group
     runs one batched SCF (as :func:`batched_hf_energies`, ``jit_kernel``
     as there) and then the reverse-mode gradient of the stationary energy
-    functional over its lanes at once. On a card the lanes of one backward
-    pass are limited by the free device memory (:func:`_lanes_per_pass`).
+    functional over its lanes at once, on a card as the lanes' "hf_grad"
+    program (``jit_kernel``: the ERIs, the functional and its backward in
+    one CUDA graph per structure and lanes). On a card the lanes of one
+    backward pass are limited by the free device memory
+    (:func:`_lanes_per_pass`), or for the program by a share of the card's
+    memory (:func:`_lanes_per_program`).
     """
     es, grads, convs = [], [], []
     for _, x in _lane_groups(coords_batch, mesh, device):
         res, g = _lane_scf(mol, x, conv_tol=conv_tol, dm_conv_tol=dm_conv_tol,
                            max_cycle=max_cycle, jit_kernel=jit_kernel)
         es.append(res.e_elec + mol.energy_nuc_tensor(x))
-        grads.append(_lane_gradients(mol, x, res, g))
+        grads.append(_lane_gradients(mol, x, res, g, jit_kernel))
         convs.append(res.converged)
     return (_gather(es, mesh, device), _gather(grads, mesh, device),
             _gather(convs, mesh, device))

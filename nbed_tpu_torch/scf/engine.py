@@ -77,11 +77,11 @@ from ..dft.functionals import resolve_functional
 from ..dft.xc import STREAM_CHUNK, TABLE_CHUNK, make_xc_fn, make_xc_fn_streaming
 from ..grids import build_grid, eval_aos
 from ..grids.grid import ao_views, grid_constants, grid_points, shell_tables
-from ..integrals import (eri_tensor, kinetic, native, nuclear_attraction, overlap,
-                         point_charge_attraction)
+from ..integrals import kinetic, native, nuclear_attraction, overlap, point_charge_attraction
+from ..integrals.eri import eri_program
 from ..ops import eigh as eigh_ops
 from ..ops.jk import LAUNCHES, prepare_jk
-from ..ops.programs import RUNS, cached_program, replay
+from ..ops.programs import RUNS, cached_program, replay, takes_program
 from ..ops.programs import Captured as _Captured
 from ..ops.programs import card as _card
 from .hf import (SCFProgram, _first_lane, _one_lane, carries_derivative, lowdin_x, make_rdm1,
@@ -606,8 +606,8 @@ class SCFEngine:
 
     @cached_property
     def eri(self):
-        if self._torch_integrals:
-            return eri_tensor(self.mol, self.coords, device=self.device)
+        if self._torch_integrals:  # the "eri" program under jit_kernel
+            return eri_program(self.mol, self._tensor(self.coords), jit_kernel=self.jit_kernel)
         return self._tensor(native.eri(self.mol, self.coords))
 
     @cached_property
@@ -615,7 +615,8 @@ class SCFEngine:
         """Long-range erf(omega*r12)/r12 AO ERIs of a range-separated hybrid."""
         _, omega = self._rsh
         if self._torch_integrals:
-            return eri_tensor(self.mol, self.coords, omega=omega, device=self.device)
+            return eri_program(self.mol, self._tensor(self.coords), omega=omega,
+                               jit_kernel=self.jit_kernel)
         return self._tensor(native.eri(self.mol, self.coords, omega=omega))
 
     @cached_property
@@ -1411,18 +1412,12 @@ class SCFSolution:
 
 def _lanes_take_graphs(jit_kernel: str, tensors, inputs, use_diis: bool) -> bool:
     """Whether a lane call runs as a program of the cache: "on", or "auto"
-    on one CUDA device; never with inputs that carry a derivative, without
-    DIIS or over several devices, which run eagerly under "auto" and are
-    refused under "on"."""
-    if jit_kernel not in ("on", "off", "auto"):
-        raise ValueError(f"jit_kernel must be 'on', 'off' or 'auto', got {jit_kernel!r}")
-    if jit_kernel == "off":
-        return False
+    on one CUDA device (:func:`~nbed_tpu_torch.ops.programs.takes_program`:
+    never with inputs that carry a derivative); not without DIIS or over
+    several devices, which run eagerly under "auto" and are refused under
+    "on"."""
     everything = [*tensors, *(t for t in inputs if t is not None)]
-    if any(carries_derivative(t) for t in everything):
-        if jit_kernel == "on":
-            raise ValueError("jit_kernel='on' takes no input that carries requires_grad "
-                             "or a forward-mode tangent; use 'auto' or 'off'")
+    if not takes_program(jit_kernel, everything):
         return False
     devices = {t.device for t in everything}
     if not use_diis or len(devices) != 1:
@@ -1431,7 +1426,7 @@ def _lanes_take_graphs(jit_kernel: str, tensors, inputs, use_diis: bool) -> bool
                              "use 'auto' or 'off' for use_diis=False or operands on "
                              f"{len(devices)} devices")
         return False
-    return jit_kernel == "on" or next(iter(devices)).type == "cuda"
+    return True
 
 
 def lane_scf(spec: tuple, operands: dict, build, *, nelec, hyb: float = 1.0, v_emb=None,

@@ -20,6 +20,15 @@ The HF SCF runs on the ``eri_tensor`` supermatrices (detached) through the
 fused J/K kernel (:func:`nbed_tpu_torch.ops.jk.prepare_jk`); the KS SCF is
 an :class:`~nbed_tpu_torch.scf.SCFEngine` at the given geometry, whose J/K
 take the same kernel. Geometry optimization is scipy's BFGS on the host.
+
+Derivative programs (``jit_kernel``): on a card the gradient is one CUDA
+graph per structure, the integrals' forward, the energy functional and its
+``torch.autograd.grad`` captured together (kinds "hf_grad", single or
+lanes, and "ks_grad", grid response and RSH included), shared by every
+geometry of the structure through buffers: the coordinates (a leaf that
+requires grad) and the densities are copied in, ``W`` is formed inside
+from the same ERIs, and the gradient is read out. The HF SCF's ERIs come
+from the "eri" program (:func:`nbed_tpu_torch.integrals.eri.eri_program`).
 """
 
 import logging
@@ -32,9 +41,14 @@ from ..chem.molecule import Molecule
 from ..dft.functionals import resolve_functional
 from ..dft.xc import make_xc_fn
 from ..grids import build_grid, eval_aos
+from ..grids.grid import ao_views, grid_constants, grid_points, shell_tables
 from ..integrals import (eri_tensor, kinetic, nuclear_attraction, overlap,
                          point_charge_attraction)
+from ..integrals.core import _mm_tensors
+from ..integrals.eri import _device_tables, _eri_of, eri_program
 from ..ops.jk import prepare_jk
+from ..ops.programs import (BufferProgram, derivative_program, gradient_body, structure_key,
+                            takes_program)
 
 logger = logging.getLogger(__name__)
 
@@ -45,8 +59,8 @@ def _hcore(mol: Molecule, x):
     """T + V (+ the MM charges) at coordinates ``x`` (a tensor)."""
     h = kinetic(mol, x, device=x.device) + nuclear_attraction(mol, x, device=x.device)
     if mol.mm_coords is not None:
-        h = h + point_charge_attraction(mol, mol.mm_coords, mol.mm_charges, mol.mm_radii,
-                                        coords=x, device=x.device)
+        h = h + point_charge_attraction(mol, *_mm_tensors(mol, x.device), coords=x,
+                                        device=x.device)
     return h
 
 
@@ -70,6 +84,26 @@ def _k(g, d):
     return torch.einsum("...ikjl,...kl->...ij", g, d)
 
 
+def _functional(mol: Molecule, x, dm, w_tot, hyb: float, g, lr=None, xc_fn=None):
+    """E(x) of :func:`_energy_functional` from its pieces at ``x``: the ERI
+    tensor ``g``, ``lr`` = (beta, long-range ERIs) of a range-separated
+    hybrid and the differentiable XC closure ``xc_fn`` on the grid at
+    ``x``."""
+    d_tot = dm[..., 0, :, :] + dm[..., 1, :, :]
+    ej = 0.5 * torch.einsum("...ij,...ijkl,...kl->...", d_tot, g, d_tot)
+    ek = 0.5 * sum(torch.sum(_k(g, dm[..., s, :, :]) * dm[..., s, :, :], dim=(-2, -1))
+                   for s in (0, 1))
+    e = (torch.sum(d_tot * _hcore(mol, x), dim=(-2, -1)) + ej - hyb * ek
+         - torch.sum(w_tot * overlap(mol, x, device=x.device), dim=(-2, -1))
+         + mol.energy_nuc_tensor(x))
+    if lr is not None:
+        beta, g_lr = lr
+        e = e - beta * 0.5 * sum(torch.sum(_k(g_lr, dm[s]) * dm[s]) for s in (0, 1))
+    if xc_fn is not None:
+        e = e + xc_fn(dm)[0]
+    return e
+
+
 def _energy_functional(mol: Molecule, dm, w_tot, hyb: float, xc_name=None,
                        grid_scheme: str = "reference", grid_level: int = 3, rsh=None,
                        grid_size=(96, 22)):
@@ -86,37 +120,29 @@ def _energy_functional(mol: Molecule, dm, w_tot, hyb: float, xc_name=None,
     """
     dm = dm.detach()
     w_tot = w_tot.detach()
-    d_tot = dm[..., 0, :, :] + dm[..., 1, :, :]
 
     def energy(x):
         dev = x.device
         g = eri_tensor(mol, x, device=dev)
-        ej = 0.5 * torch.einsum("...ij,...ijkl,...kl->...", d_tot, g, d_tot)
-        ek = 0.5 * sum(torch.sum(_k(g, dm[..., s, :, :]) * dm[..., s, :, :], dim=(-2, -1))
-                       for s in (0, 1))
-        e = (torch.sum(d_tot * _hcore(mol, x), dim=(-2, -1)) + ej - hyb * ek
-             - torch.sum(w_tot * overlap(mol, x, device=dev), dim=(-2, -1))
-             + mol.energy_nuc_tensor(x))
-        if rsh is not None:
-            beta, omega = rsh
-            g_lr = eri_tensor(mol, x, omega=omega, device=dev)
-            e = e - beta * 0.5 * sum(torch.sum(_k(g_lr, dm[s]) * dm[s]) for s in (0, 1))
-        if xc_name is not None:
-            e = e + _xc_fn(mol, x, xc_name, grid_scheme, grid_level, grid_size)(dm)[0]
-        return e
+        lr = None if rsh is None else (rsh[0], eri_tensor(mol, x, omega=rsh[1], device=dev))
+        xc_fn = (None if xc_name is None
+                 else _xc_fn(mol, x, xc_name, grid_scheme, grid_level, grid_size))
+        return _functional(mol, x, dm, w_tot, hyb, g, lr, xc_fn)
 
     return energy
 
 
 def _w_from_dm(mol, x, dm, hyb: float, xc_name=None, grid_scheme: str = "reference",
-               grid_level: int = 3, rsh=None, grid_size=(96, 22), eri=None):
+               grid_level: int = 3, rsh=None, grid_size=(96, 22), eri=None, eri_lr=None,
+               xc_tables=None):
     """Energy-weighted density W = sum_s D_s F(D)_s D_s at coordinates
     ``x``, from the Fock at the converged density itself: the SCF's last
     eigenpairs diagonalise the DIIS-extrapolated Fock, whose eigenvalues
     can sit ~1e-3 off the true ones even when the density has converged,
     while D F D is the occupied-block Lagrange multiplier exactly.
-    ``eri``: the ERI tensor at ``x`` when the caller has it. HF lanes ride
-    along as in :func:`_energy_functional`."""
+    ``eri``, ``eri_lr`` and ``xc_tables`` (AO table, its gradient, grid
+    weights): the ERI tensors and XC tables at ``x`` when the caller has
+    them. HF lanes ride along as in :func:`_energy_functional`."""
     with torch.no_grad():
         dev = x.device
         g = eri_tensor(mol, x, device=dev) if eri is None else eri
@@ -125,11 +151,14 @@ def _w_from_dm(mol, x, dm, hyb: float, xc_name=None, grid_scheme: str = "referen
         f = _hcore(mol, x)[..., None, :, :] + j[..., None, :, :] - hyb * k
         if rsh is not None:
             beta, omega = rsh
-            g_lr = eri_tensor(mol, x, omega=omega, device=dev)
+            g_lr = eri_tensor(mol, x, omega=omega, device=dev) if eri_lr is None else eri_lr
             f = f - beta * torch.stack([_k(g_lr, dm[s]) for s in (0, 1)])
         if xc_name is not None:
-            points, weights = _grid(mol, x, grid_scheme, grid_level, grid_size)
-            ao, ao_grad = eval_aos(mol, points, x)
+            if xc_tables is None:
+                points, weights = _grid(mol, x, grid_scheme, grid_level, grid_size)
+                ao, ao_grad = eval_aos(mol, points, x)
+            else:
+                ao, ao_grad, weights = xc_tables
             f = f + make_xc_fn(ao, ao_grad, weights, xc_name)(dm)[1]
         return sum(dm[..., s, :, :] @ f[..., s, :, :] @ dm[..., s, :, :] for s in (0, 1))
 
@@ -155,16 +184,16 @@ def _exact_jk(t):
 
 def _hf_scf(mol, x, dm0=None, conv_tol=1e-10, dm_conv_tol=1e-8, max_cycle=100,
             jit_kernel="auto"):
-    """UHF at coordinates ``x`` on the ``eri_tensor`` supermatrices, with
-    J/K through the fused kernel, as the single-lane program of the shared
-    cache on a card (``jit_kernel``, see
-    :func:`~nbed_tpu_torch.scf.engine.lane_scf`): (SCFResult, ERI
-    tensor)."""
+    """UHF at coordinates ``x`` on the ``eri_tensor`` supermatrices (the
+    "eri" program under ``jit_kernel``), with J/K through the fused
+    kernel, as the single-lane program of the shared cache on a card
+    (``jit_kernel``, see :func:`~nbed_tpu_torch.scf.engine.lane_scf`):
+    (SCFResult, ERI tensor)."""
     from ..scf.engine import lane_spec, single_scf
 
     n = mol.nao
     with torch.no_grad():
-        g = eri_tensor(mol, x, device=x.device)
+        g = eri_program(mol, x, jit_kernel=jit_kernel)
         ops = {"hcore": _hcore(mol, x), "s": overlap(mol, x, device=x.device),
                "g_j": g.reshape(n * n, n * n).contiguous(),
                "g_k": g.permute(0, 2, 1, 3).reshape(n * n, n * n).contiguous()}
@@ -173,6 +202,93 @@ def _hf_scf(mol, x, dm0=None, conv_tol=1e-10, dm_conv_tol=1e-8, max_cycle=100,
             dm0=None if dm0 is None else torch.as_tensor(dm0, dtype=DTYPE, device=x.device),
             conv_tol=conv_tol, dm_conv_tol=dm_conv_tol, max_cycle=max_cycle)
     return res, g
+
+
+def _held_tables(mol: Molecule, device) -> tuple:
+    """The bounded-cache device tables that the energy functional's
+    one-electron integrals and nuclear repulsion read at ``device``: a
+    gradient program holds them (:class:`~nbed_tpu_torch.ops.programs.
+    BufferProgram` ``holds``), since its graph reads them by address."""
+    from ..chem.molecule import _nuclear_tables
+    from ..integrals.core import _device_pair_tables, _nuclear_charges
+
+    held = (_device_pair_tables(mol, mol, True, device), _nuclear_charges(mol, device),
+            _nuclear_tables(mol, device))
+    return held + ((_mm_tensors(mol, device),) if mol.mm_coords is not None else ())
+
+
+def _leaf(shape, device):
+    """A coordinate input buffer: a leaf that requires grad."""
+    return torch.zeros(shape, dtype=DTYPE, device=device, requires_grad=True)
+
+
+def hf_gradient_program(mol: Molecule, x, dm):
+    """The "hf_grad" program of ``mol``'s structure at ``x``'s shape
+    ((natm, 3), or (B, natm, 3) lanes with (B, 2, n, n) densities): W
+    from ``dm`` at ``x`` and the gradient of the energy functional, on one
+    evaluation of the ERIs; returns the gradient (a copy the caller
+    owns)."""
+    shape, n = tuple(x.shape), mol.nao
+
+    def build(device, pool):
+        xb = _leaf(shape, device)
+        dmb = torch.zeros(shape[:-2] + (2, n, n), dtype=DTYPE, device=device)
+        out = torch.zeros(shape, dtype=DTYPE, device=device)
+        tables = _device_tables(mol, device)
+
+        def energy(xv):
+            g = _eri_of(mol, xv, tables, 2**22, None)
+            w_tot = _w_from_dm(mol, xv.detach(), dmb, hyb=1.0, eri=g.detach())
+            return _functional(mol, xv, dmb, w_tot, 1.0, g)
+
+        return BufferProgram("hf_grad", {"x": xb, "dm": dmb}, {"grad": out},
+                             gradient_body(energy, xb, out), device, pool,
+                             holds=_held_tables(mol, device))
+
+    prog = derivative_program(("hf_grad", structure_key(mol), shape), x.device, build)
+    return prog(x=x, dm=dm)["grad"].clone()
+
+
+def ks_gradient_program(mol: Molecule, x, dm, xc: str, grid_scheme: str, grid_level: int,
+                        grid_size):
+    """The "ks_grad" program of ``mol``'s structure, functional and grid
+    at (natm, 3) ``x``: the ERIs (and the long-range ones of a
+    range-separated hybrid), the grid points, Becke weights and AO tables
+    at ``x`` from constants made once per structure, W from ``dm`` on
+    them, and the gradient of the energy functional with its grid
+    response; returns the gradient (a copy the caller owns)."""
+    _, hyb, rsh = resolve_functional(xc)
+    shape, n = tuple(x.shape), mol.nao
+    grid_size = tuple(int(v) for v in grid_size)
+
+    def build(device, pool):
+        xb = _leaf(shape, device)
+        dmb = torch.zeros((2, n, n), dtype=DTYPE, device=device)
+        out = torch.zeros(shape, dtype=DTYPE, device=device)
+        tables = _device_tables(mol, device)
+        constants = grid_constants(mol, grid_size[0], grid_size[1], grid_scheme, grid_level,
+                                   device)
+        shells = shell_tables(mol, DTYPE, device)
+
+        def energy(xv):
+            g = _eri_of(mol, xv, tables, 2**22, None)
+            g_lr = None if rsh is None else _eri_of(mol, xv, tables, 2**22, float(rsh[1]))
+            points, weights = grid_points(constants, xv)
+            ao, ao_grad = (t.contiguous() for t in ao_views(mol, points, xv, shells))
+            w_tot = _w_from_dm(mol, xv.detach(), dmb, hyb, xc_name=xc, rsh=rsh,
+                               eri=g.detach(), eri_lr=None if g_lr is None else g_lr.detach(),
+                               xc_tables=(ao.detach(), ao_grad.detach(), weights.detach()))
+            return _functional(mol, xv, dmb, w_tot, hyb, g,
+                               None if rsh is None else (rsh[0], g_lr),
+                               make_xc_fn(ao, ao_grad, weights, xc, differentiable=True))
+
+        return BufferProgram("ks_grad", {"x": xb, "dm": dmb}, {"grad": out},
+                             gradient_body(energy, xb, out), device, pool,
+                             holds=_held_tables(mol, device))
+
+    key = ("ks_grad", structure_key(mol), shape, xc, grid_scheme, int(grid_level), grid_size)
+    prog = derivative_program(key, x.device, build)
+    return prog(x=x, dm=dm)["grad"].clone()
 
 
 def hf_gradient(mol: Molecule, coords=None, scf_result=None, dm0=None,
@@ -184,8 +300,9 @@ def hf_gradient(mol: Molecule, coords=None, scf_result=None, dm0=None,
     in Ha/bohr on ``device``. A converged ``scf_result``
     (:class:`~nbed_tpu_torch.scf.hf.SCFResult`) skips the SCF; ``dm0``
     warm-starts it (as :func:`optimize_geometry` does). ``jit_kernel`` as
-    ``SCFEngine``'s: on a card the SCF replays CUDA graphs shared by every
-    geometry of the molecule.
+    ``SCFEngine``'s: on a card the SCF, its ERIs and the gradient replay
+    CUDA graphs shared by every geometry of the molecule ("on" runs the
+    same programs uncaptured off CUDA, "off" the eager route).
     """
     x = _coords_tensor(mol, coords, device)
     if scf_result is None:
@@ -193,8 +310,11 @@ def hf_gradient(mol: Molecule, coords=None, scf_result=None, dm0=None,
     else:
         g = None
     dm = scf_result.dm.to(x.device)
-    w_tot = _w_from_dm(mol, x, dm, hyb=1.0, eri=g)
-    grad = _autograd(_energy_functional(mol, dm, w_tot, hyb=1.0), x)
+    if takes_program(jit_kernel, (x, dm)):
+        grad = hf_gradient_program(mol, x, dm)
+    else:
+        w_tot = _w_from_dm(mol, x, dm, hyb=1.0, eri=g)
+        grad = _autograd(_energy_functional(mol, dm, w_tot, hyb=1.0), x)
     return scf_result.e_elec + mol.energy_nuc(x.cpu()), grad, scf_result
 
 
@@ -211,7 +331,9 @@ def ks_gradient(mol: Molecule, xc: str, coords=None, solution=None,
     solution's engine (its scheme, level and product-grid size); the
     reference takes ``build_grid``'s own product-grid size there, a grid the
     SCF did not use (ROADMAP queue 3). ``jit_kernel`` is the SCF engine's
-    (its programs are shared by every geometry of the molecule).
+    (its programs are shared by every geometry of the molecule), and the
+    gradient's: on a card one "ks_grad" program per structure, functional
+    and grid.
     """
     from ..scf.engine import SCFEngine
 
@@ -231,8 +353,12 @@ def ks_gradient(mol: Molecule, xc: str, coords=None, solution=None,
     eng = solution.engine
     kw = dict(hyb=hyb, xc_name=xc, grid_scheme=eng.grid_scheme, grid_level=eng.grid_level,
               rsh=rsh, grid_size=tuple(eng.grid_size))
-    w_tot = _w_from_dm(mol, x, dm, **kw)
-    grad = _autograd(_energy_functional(mol, dm, w_tot, **kw), x)
+    if takes_program(jit_kernel, (x, dm)):
+        grad = ks_gradient_program(mol, x, dm, xc, eng.grid_scheme, eng.grid_level,
+                                   eng.grid_size)
+    else:
+        w_tot = _w_from_dm(mol, x, dm, **kw)
+        grad = _autograd(_energy_functional(mol, dm, w_tot, **kw), x)
     return solution.e_tot, grad, solution
 
 

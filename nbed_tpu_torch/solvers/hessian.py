@@ -9,7 +9,10 @@ lane SCF whose every cycle is one fused J/K launch for all lanes, then one
 reverse-mode pass over the lanes (:mod:`nbed_tpu_torch.parallel.sharding`),
 split in lane groups over a mesh's 'batch' axis when one is given. KS
 Hessians loop ``ks_gradient`` over the displacements, as the reference
-does.
+does. On a card every displacement replays its structure's programs: the
+lane SCF, the lanes' "eri" program and their "hf_grad" program (HF), or
+the engines' SCF programs and one "ks_grad" program (KS); a second
+geometry of a structure makes no capture.
 
 Frequencies follow from the mass-weighted Hessian: eigenvalues lambda in
 Eh/(m_e a0^2) give nu = sqrt(lambda) * 219474.63 cm^-1. Translations and
@@ -53,8 +56,10 @@ def hessian_fd(mol: Molecule, coords=None, step: float = 5e-3, mesh=None, xc=Non
     one batched call, its lanes split over ``mesh``'s 'batch' axis when
     given; else KS with grid response, one ``ks_gradient`` per
     displacement), symmetrised, as a numpy array. ``jit_kernel`` as
-    ``SCFEngine``'s: on a card the 6N SCFs replay one set of CUDA graphs
-    (the lane program, or the KS engines' shared programs).
+    ``SCFEngine``'s: on a card the 6N SCFs and gradients replay one set
+    of CUDA graphs (the lane SCF and the lanes' "eri" and "hf_grad"
+    programs, or the KS engines' shared programs and one "ks_grad"
+    program).
 
     Raises:
         RuntimeError: when a displaced SCF does not converge.
@@ -133,7 +138,7 @@ def dipole_derivative_fd(mol: Molecule, coords=None, step: float = 5e-3, mesh=No
     SCFs (cold, on the ``eri_tensor`` supermatrices) and dipole integrals
     as one batched call, every SCF cycle one fused J/K launch for the
     lanes, split over ``mesh``'s 'batch' axis when given; ``jit_kernel``
-    as :func:`hessian_fd`'s."""
+    as :func:`hessian_fd`'s (the lanes' ERIs are their "eri" program)."""
     from ..parallel.sharding import _gather, _lane_groups, _lane_scf
 
     x0 = np.asarray(mol.coords if coords is None else coords, dtype=np.float64)
