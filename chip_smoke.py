@@ -2561,6 +2561,237 @@ def run_water_embed_fleet(device="cuda"):
     print("water_embed_fleet", json.dumps(out), flush=True)
 
 
+@contextmanager
+def _same_operators():
+    """The embedding program's ERIs (both routes' entry points) and S, T +
+    V computed once per geometry batch, tangent and range-separation
+    parameter, and reused by every call inside, with their forward-mode
+    tangents: both are sums of atomic adds on the card, which round
+    differently from call to call, and the 1e6 mu shift carries that into
+    e_emb_rhf and its derivative. Also records each lane SCF's cycles."""
+    from torch.autograd import forward_ad
+
+    from nbed_tpu_torch.parallel import embed_path
+
+    built, cycles = {}, []
+    saved = {name: getattr(embed_path, name) for name in ("eri_tensor", "eri_program",
+                                                          "core_program", "lane_scf")}
+
+    def key(x, *extra):
+        p, t = forward_ad.unpack_dual(x)
+        return (p.detach().cpu().numpy().tobytes(),
+                None if t is None else t.cpu().numpy().tobytes(), *extra)
+
+    def memo(k, compute):
+        if k not in built:
+            out = compute()
+            parts = out if isinstance(out, tuple) else (out,)
+            built[k] = tuple(tuple(v.detach().clone() if v is not None else None
+                                   for v in forward_ad.unpack_dual(o)) for o in parts)
+        parts = tuple(o if t is None else forward_ad.make_dual(o, t) for o, t in built[k])
+        return parts if len(parts) > 1 else parts[0]
+
+    def eri(mol, x, omega=None, **kw):
+        name = "eri_tensor" if "device" in kw else "eri_program"
+        return memo(key(x, "eri", omega), lambda: saved[name](mol, x, omega=omega, **kw))
+
+    def core(mol, x, jit_kernel="auto"):
+        return memo(key(x, "core"), lambda: saved["core_program"](mol, x, jit_kernel))
+
+    def lanes(*args, **kw):
+        res = saved["lane_scf"](*args, **kw)
+        cycles.append(res.n_iter.tolist())
+        return res
+
+    embed_path.eri_tensor = embed_path.eri_program = eri
+    embed_path.core_program, embed_path.lane_scf = core, lanes
+    try:
+        yield cycles
+    finally:
+        for name, fn in saved.items():
+            setattr(embed_path, name, fn)
+
+
+@contextmanager
+def _eager_eigh_jvp():
+    """Inside the block the embedding program's eager dual route
+    diagonalises dual matrices as its tangent programs do (``eigh_jvp`` on
+    the capturable cuSOLVER call, its private switch), not with
+    ``torch.linalg.eigh``: a graph held against eager on the same
+    arithmetic."""
+    from nbed_tpu_torch.scf import hf
+
+    hf._EAGER_EIGH_JVP = True
+    try:
+        yield
+    finally:
+        hf._EAGER_EIGH_JVP = False
+
+
+def run_embed_tangents_graphed(device="cuda"):
+    """The embedding program's forward-mode tangents as CUDA-graph programs
+    (water/STO-3G, B3LYP, grid level 1, the host driver's active count,
+    tolerances 1e-10/1e-8; d e_emb_rhf/dz of the second H): the tangent
+    programs of the integrals and tables within 1e-12 of the eager forward
+    mode; graphed against the eager dual route on the same ERIs and S, T
+    + V (``_same_operators``) and the same eigensolver
+    (``_eager_eigh_jvp``) within 1e-10 Ha/bohr in as many SCF cycles, at
+    ``grad_cycles`` 40 and 0 and over 8 lanes along the stretch (the
+    eager route on ``torch.linalg.eigh`` printed beside it: the 1e6 mu
+    shift turns the two solvers' rounding into differences above that
+    gate and other embedded HF cycle counts); within 1e-6 of a five-point difference (h = 1e-3) of
+    the graphed primal program at 40; no capture at a second geometry or
+    direction. Prints first (with capture), warm graphed and eager
+    seconds, captures, the graph pools and the warm graphed calls' idle
+    shares. On the CPU (a rehearsal) the programs run uncaptured
+    ("on")."""
+    from torch.autograd import forward_ad
+
+    from nbed_tpu_torch import nbed
+    from nbed_tpu_torch.grids.grid import tables_program
+    from nbed_tpu_torch.integrals.core import core_program
+    from nbed_tpu_torch.integrals.eri import eri_program
+    from nbed_tpu_torch.ops import jk
+    from nbed_tpu_torch.ops.programs import DERIVATIVE_PROGRAMS, RUNS
+    from nbed_tpu_torch.parallel import make_mu_embed_energy
+    from nbed_tpu_torch.profiling import device_profile
+    from nbed_tpu_torch.scf import engine
+
+    driver = nbed(**CONFIGS["water"], device=device)
+    mol = driver._ks_engine.mol
+    inds = driver.localized_system.active_mo_inds
+    n_act = len(inds) if np.ndim(inds) == 1 else (len(inds[0]), len(inds[1]))
+    cuda = torch.device(device).type == "cuda"
+    graphed = "auto" if cuda else "on"
+    kw = dict(xc="b3lyp", grid_level=1, conv_tol=1e-10, dm_conv_tol=1e-8, device=device)
+    x0 = torch.tensor(np.asarray(mol.coords), device=device)
+    t = torch.zeros_like(x0)
+    t[2, 2] = 1.0
+    out = {"n_act_mos": n_act}
+
+    def jvp(fn, x, tx):
+        with forward_ad.dual_level():
+            res = fn(forward_ad.make_dual(x, tx))
+            p, d = forward_ad.unpack_dual(res["e_emb_rhf"])
+            return p.detach().clone(), d.clone()
+
+    # the integral and table programs against the eager forward mode
+    devs = {}
+    with forward_ad.dual_level():
+        xd = forward_ad.make_dual(x0[None], t[None])
+        pairs = [("eri", eri_program(mol, xd, jit_kernel=graphed),
+                  eri_program(mol, xd, jit_kernel="off")),
+                 ("eri_omega", eri_program(mol, xd, omega=0.33, jit_kernel=graphed),
+                  eri_program(mol, xd, omega=0.33, jit_kernel="off"))]
+        pairs += list(zip(("s", "hcore"), core_program(mol, xd, graphed),
+                          core_program(mol, xd, "off")))
+        tables = (tables_program(mol, xd, level=1, jit_kernel=graphed),
+                  tables_program(mol, xd, level=1, jit_kernel="off"))
+        pairs += [(name, tables[0][name], tables[1][name]) for name in tables[0]]
+        for name, a, b in pairs:
+            (pa, ta), (pb, tb) = forward_ad.unpack_dual(a), forward_ad.unpack_dual(b)
+            devs[name] = [_gate_array(f"embed_tangents_graphed {name} program vs eager",
+                                      u.cpu().numpy(), v.cpu().numpy(), 1e-12)
+                          for u, v in ((pa, pb), (ta, tb))]
+    out["operators_vs_eager"] = devs
+
+    checks = []
+    for cycles in (40, 0):
+        fn = make_mu_embed_energy(mol, 1, n_act, grad_cycles=cycles, jit_kernel=graphed, **kw)
+        eager_fn = make_mu_embed_energy(mol, 1, n_act, grad_cycles=cycles, jit_kernel="off",
+                                        **kw)
+        engine._JIT_PROGRAM_CACHE.clear()
+        DERIVATIVE_PROGRAMS.clear()
+        before = dict(RUNS)
+        t0 = time.perf_counter()
+        jvp(fn, x0, t)
+        row = {"first_s": _sync_s(t0, device),
+               "captures": RUNS["captures"] - before.get("captures", 0),
+               "capture_s": RUNS["capture_s"] - before.get("capture_s", 0.0),
+               "pool_gb_by_kind": {k: RUNS[k] - before.get(k, 0.0) for k in RUNS
+                                   if k.endswith("_pool_gb") and RUNS[k] != before.get(k, 0.0)}}
+        row["pool_gb"] = sum(row["pool_gb_by_kind"].values())
+        x1 = x0 + 0.01 * t
+        t2 = torch.zeros_like(x0)
+        t2[1, 0] = 1.0
+        mid = RUNS["captures"]
+        t0 = time.perf_counter()
+        jvp(fn, x1, t)
+        row["warm_s"] = _sync_s(t0, device)
+        jvp(fn, x1, t2)
+        row["later_captures"] = RUNS["captures"] - mid
+        if row["later_captures"]:
+            raise RuntimeError(f"embed_tangents_graphed: {row['later_captures']} captures at a "
+                               "second geometry or direction")
+        # on the same operators, against the eager route on the programs'
+        # eigensolver (the gate) and on torch.linalg.eigh (its default,
+        # timed and printed)
+        with _same_operators() as scf_cycles:
+            _, d_same = jvp(fn, x1, t)
+            with _eager_eigh_jvp():
+                _, d_same_eager = jvp(eager_fn, x1, t)
+            t0 = time.perf_counter()
+            _, d_torch_eigh = jvp(eager_fn, x1, t)
+            row["eager_s"] = _sync_s(t0, device)
+        row["scf_cycles"] = {"graphed": scf_cycles[:2], "eager": scf_cycles[2:4],
+                             "eager_torch_eigh": scf_cycles[4:]}
+        row["graph_minus_eager"] = float(d_same - d_same_eager)
+        row["graph_minus_eager_torch_eigh"] = float(d_same - d_torch_eigh)
+        checks.append((cycles, scf_cycles, float(d_same), float(d_same_eager)))
+        if cycles:
+            def e(step):
+                return float(fn(x0 + step * t)["e_emb_rhf"])
+
+            _, d0 = jvp(fn, x0, t)
+            fd5 = (8 * (e(1e-3) - e(-1e-3)) - (e(2e-3) - e(-2e-3))) / 12e-3
+            _gate("embed_tangents_graphed forward-mode derivative", [("de/dz", float(d0), fd5)],
+                  1e-6)
+            row["jvp_minus_fd5"] = float(d0) - fd5
+        _, prof = device_profile(lambda: jvp(fn, x1, t))
+        row["profile"] = {k: prof[k] for k in ("wall_s", "device_busy_s", "device_idle_share",
+                                               "device_events")}
+        out[f"grad_cycles_{cycles}"] = row
+
+    # eight tangents along the stretch in one pass
+    xb = torch.tensor(stretch_coords(mol, 8, 0.04), device=device)
+    tb = torch.zeros_like(xb)
+    tb[:, 2, 2] = 1.0
+    fn = make_mu_embed_energy(mol, 1, n_act, grad_cycles=40, jit_kernel=graphed, **kw)
+    eager_fn = make_mu_embed_energy(mol, 1, n_act, grad_cycles=40, jit_kernel="off", **kw)
+    t0 = time.perf_counter()
+    jvp(fn, xb, tb)
+    out["lanes_first_s"] = _sync_s(t0, device)
+    t0 = time.perf_counter()
+    _, d_lanes = jvp(fn, xb, tb)
+    out["lanes_warm_s"] = _sync_s(t0, device)
+    with _same_operators() as scf_cycles:
+        _, d_same = jvp(fn, xb, tb)
+        with _eager_eigh_jvp():
+            t0 = time.perf_counter()
+            _, d_same_eager = jvp(eager_fn, xb, tb)
+            out["lanes_eager_s"] = _sync_s(t0, device)
+    out["lanes_graph_minus_eager"] = float(torch.max(torch.abs(d_same - d_same_eager)))
+    out["lanes_de_dz"] = d_lanes.tolist()
+    # the phase's fused J/K launches by shape (the counts were cleared
+    # just before it)
+    out["fused_jk_by_shape"] = {f"{k} M={m} R={r} B={b}": n for (k, m, r, b), n
+                                in jk.LAUNCHES_BY_SHAPE.items()}
+    print("embed_tangents_graphed", json.dumps(out), flush=True)
+    # the gates, after the line: graphed against eager on the same
+    # operators and eigensolver in as many SCF cycles, single and lanes
+    checks.append(("8 lanes, 40", scf_cycles, d_same.cpu().numpy(),
+                   d_same_eager.cpu().numpy()))
+    for cycles, scf_cycles, d, d_eager in checks:
+        if scf_cycles[:2] != scf_cycles[2:4]:
+            raise RuntimeError(f"embed_tangents_graphed: SCF cycles {scf_cycles[:2]} graphed, "
+                               f"{scf_cycles[2:4]} eager at grad_cycles {cycles}")
+        _gate_array(f"embed_tangents_graphed de/dz graphed vs eager, grad_cycles {cycles}",
+                    d, d_eager, 1e-10)
+    if not np.all(np.diff(d_lanes.cpu().numpy()) > 0):
+        raise RuntimeError(f"embed_tangents_graphed: de/dz not increasing along the stretch "
+                           f"{d_lanes.tolist()}")
+
+
 def _hold_single(label: str, graphed, eager) -> float:
     """A one-geometry SCF run as a program against its eager loop: both
     converged, within 1e-10 Ha, in as many cycles; returns the energy
@@ -3690,7 +3921,8 @@ INCREMENTAL = ("fused_jk_f32", "eigh_f64")
 # slices, summarised at the end
 NEW_PHASES = ("water_global", "acetonitrile_post", "h2_stability", "water_qse", "pfoa_post",
               "water_derivatives", "acetonitrile_derivatives", "water_ccpvdz_gradient",
-              "water_fleet", "water_fleet_gradients", "water_embed_fleet", "sharded",
+              "water_fleet", "water_fleet_gradients", "water_embed_fleet",
+              "embed_tangents_graphed", "sharded",
               "pfoa_sharded", "graphed_scf", "hessian_mesh", "shared_programs",
               "incremental_graphed", "water_tpss_kernel", "pfoa_incremental",
               "pfoa_warmup_graphed", "grid_programs", "tddft_graphed", "ccsd_graphed",
@@ -3768,6 +4000,7 @@ def main():
         ("water_fleet", run_water_fleet, LANES),
         ("water_fleet_gradients", run_water_fleet_gradients, LANES),
         ("water_embed_fleet", run_water_embed_fleet, LANES),
+        ("embed_tangents_graphed", run_embed_tangents_graphed, LANES),
         ("sharded", run_sharded, LANES),
         ("water", run_water, F64),
         ("water_mixed", lambda: run_mixed("water", f64["water"]), MIXED),

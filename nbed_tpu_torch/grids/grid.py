@@ -22,12 +22,14 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
 from .._device import DTYPE, resolve_device
 from ..chem.molecule import Molecule, cartesian_components
 from .lebedev import LEBEDEV_PARAMS, lebedev_grid
 
-__all__ = ["MolecularGrid", "ao_views", "build_grid", "eval_aos", "grid_constants", "grid_points"]
+__all__ = ["MolecularGrid", "ao_views", "build_grid", "eval_aos", "grid_constants", "grid_points",
+           "tables_program"]
 
 # Bragg-Slater radii (angstrom -> bohr at use site), H..Ar, for Becke size
 # adjustment and NWChem pruning. Values from Bragg (1920) as used by
@@ -252,9 +254,10 @@ def _becke_weights(points, owner, coords, bragg_radii, chunk=32768, adjust="treu
             f = 0.5 * f * (3.0 - f * f)
         s = 0.5 * (1.0 - f)
         s = torch.where(diag, torch.ones_like(s), s)
-        if s.requires_grad:
-            # torch.prod's backward reads whether a factor is zero on the
-            # host, which a CUDA graph cannot capture: multiply out instead
+        if s.requires_grad or forward_ad.unpack_dual(s).tangent is not None:
+            # torch.prod's backward (and its forward-mode rule, which calls
+            # it) reads whether a factor is zero on the host, which a CUDA
+            # graph cannot capture: multiply out instead
             p = s[:, :, 0]
             for k in range(1, natm):
                 p = p * s[:, :, k]
@@ -372,6 +375,51 @@ def ao_views(mol: Molecule, points, coords, tables):
     ao_t = torch.cat(vals, dim=0)  # (nao, G)
     grad_t = torch.cat(grads, dim=1)  # (3, nao, G)
     return ao_t.T, grad_t.transpose(1, 2)
+
+
+def tables_program(mol: Molecule, coords, level: int = 3, scheme: str = "reference",
+                   n_rad: int = 80, n_theta: int = 18, jit_kernel: str = "auto") -> dict:
+    """The grid and AO tables at ``coords`` ((natm, 3) or (B, natm, 3)
+    tensor), lane by lane: {"points" ([B,] G, 3), "w" ([B,] G), "ao" ([B,]
+    G, nao), "ao_grad" ([B,] 3, G, nao)}. Where the coordinates carry a
+    forward-mode tangent and ``jit_kernel`` takes a program ("on", or
+    "auto" on a card), all four with their tangents from the derivative
+    program of kind "grid_jvp", the tangent variant of the engine's "grid"
+    and "aos" tables (points, Becke weights, AO values and gradients): one
+    CUDA graph per (structure, grid, shape, card) over the structure's
+    :func:`grid_constants` and :func:`shell_tables`, made once (dual
+    tensors the caller owns); else :func:`build_grid` and
+    :func:`eval_aos` on ``coords``' device."""
+    from ..ops.programs import (TangentProgram, derivative_program, has_tangent, structure_key,
+                                takes_program)
+
+    def tables(x, constants, shells):
+        lanes = x if x.ndim == 3 else x[None]
+        parts = []
+        for xb in lanes:
+            points, w = grid_points(constants, xb)
+            ao, ao_grad = ao_views(mol, points, xb, shells)
+            parts.append((points, w, ao.contiguous(), ao_grad.contiguous()))
+        out = {name: torch.stack([p[i] for p in parts])
+               for i, name in enumerate(("points", "w", "ao", "ao_grad"))}
+        return out if x.ndim == 3 else {name: t[0] for name, t in out.items()}
+
+    dev = coords.device
+    if not (has_tangent(coords) and takes_program(jit_kernel, (coords,), tangent=True)):
+        return tables(coords, grid_constants(mol, n_rad, n_theta, scheme, level, dev),
+                      shell_tables(mol, DTYPE, dev))
+    shape = tuple(coords.shape)
+
+    def build(device, pool):
+        constants = grid_constants(mol, n_rad, n_theta, scheme, level, device)
+        shells = shell_tables(mol, DTYPE, device)
+        return TangentProgram("grid_jvp", {"x": torch.zeros(shape, dtype=DTYPE, device=device)},
+                              lambda x: tables(x, constants, shells), device, pool,
+                              holds=(constants, shells))
+
+    key = ("grid_jvp", structure_key(mol), shape, scheme, int(level), int(n_rad), int(n_theta))
+    out = derivative_program(key, dev, build)(x=coords)
+    return {name: t.clone() for name, t in out.items()}
 
 
 def shell_tables(mol: Molecule, dtype, device) -> list:

@@ -332,6 +332,38 @@ def nuclear_attraction(mol: Molecule, coords=None, device="cuda"):
     return _assemble(mol, mol, c, c, _nuclear_prim, symmetric=True, extra=(centers, z))
 
 
+def core_program(mol: Molecule, coords, jit_kernel: str = "auto"):
+    """(S, T + V) at ``coords`` ((natm, 3) or (B, natm, 3) tensor). Where
+    the coordinates carry a forward-mode tangent and ``jit_kernel`` takes a
+    program ("on", or "auto" on a card), both with their tangents from the
+    derivative program of kind "core_jvp": one CUDA graph per (structure,
+    shape, card) in :data:`nbed_tpu_torch.ops.programs.DERIVATIVE_PROGRAMS`
+    (dual tensors the caller owns); else :func:`overlap`,
+    :func:`kinetic` and :func:`nuclear_attraction` on ``coords``' device."""
+    from ..ops.programs import (TangentProgram, derivative_program, has_tangent, structure_key,
+                                takes_program)
+
+    dev = coords.device
+    if not (has_tangent(coords) and takes_program(jit_kernel, (coords,), tangent=True)):
+        return (overlap(mol, coords, device=dev),
+                kinetic(mol, coords, device=dev) + nuclear_attraction(mol, coords, device=dev))
+    shape = tuple(coords.shape)
+
+    def build(device, pool):
+        def fn(x):
+            return {"s": overlap(mol, x, device=device),
+                    "hcore": kinetic(mol, x, device=device)
+                    + nuclear_attraction(mol, x, device=device)}
+
+        return TangentProgram("core_jvp", {"x": torch.zeros(shape, dtype=DTYPE, device=device)},
+                              fn, device,
+                              pool, holds=(_device_pair_tables(mol, mol, True, device),
+                                           _nuclear_charges(mol, device)))
+
+    out = derivative_program(("core_jvp", structure_key(mol), shape), dev, build)(x=coords)
+    return out["s"].clone(), out["hcore"].clone()
+
+
 def point_charge_attraction(mol: Molecule, centers, charges, radii=None, coords=None,
                             device="cuda"):
     """External charge attraction added to hcore for QM/MM: point charges,

@@ -218,31 +218,40 @@ def eri_program(mol: Molecule, coords, omega=None, chunk_elems: int = 2**22,
     (structure, lanes, omega, ``chunk_elems``, card) in
     :data:`nbed_tpu_torch.ops.programs.DERIVATIVE_PROGRAMS`, the
     coordinates copied into its input buffer and the tensor read from its
-    output (a copy the caller owns). ``jit_kernel`` as the SCF engine's:
-    "auto" runs the program on a card and :func:`eri_tensor` elsewhere,
-    "on" the program everywhere (uncaptured off CUDA), "off"
-    :func:`eri_tensor`; coordinates that carry a derivative run
+    output (a copy the caller owns). Coordinates that carry a forward-mode
+    tangent take the program of kind "eri_jvp", which writes the tensor
+    and its tangent (a dual tensor the caller owns). ``jit_kernel`` as the
+    SCF engine's: "auto" runs the program on a card and :func:`eri_tensor`
+    elsewhere, "on" the program everywhere (uncaptured off CUDA), "off"
+    :func:`eri_tensor`; coordinates that require grad run
     :func:`eri_tensor` under "auto" and raise under "on"."""
-    from ..ops.programs import BufferProgram, derivative_program, structure_key, takes_program
+    from ..ops.programs import (BufferProgram, TangentProgram, derivative_program, has_tangent,
+                                structure_key, takes_program)
 
-    if not takes_program(jit_kernel, (coords,)):
+    tangent = has_tangent(coords)
+    if not takes_program(jit_kernel, (coords,), tangent=tangent):
         return eri_tensor(mol, coords, chunk_elems=chunk_elems, omega=omega,
                           device=coords.device)
     omega = None if omega is None else float(omega)
     shape = tuple(coords.shape)
     n = mol.nao
+    kind = "eri_jvp" if tangent else "eri"
 
     def build(device, pool):
         x = torch.zeros(shape, dtype=DTYPE, device=device)
-        out = torch.zeros(shape[:-2] + (n, n, n, n), dtype=DTYPE, device=device)
         tables = _device_tables(mol, device)
+        if tangent:
+            return TangentProgram(kind, {"x": x},
+                                  lambda x: {"eri": _eri_of(mol, x, tables, chunk_elems, omega)},
+                                  device, pool, holds=(tables,))
+        out = torch.zeros(shape[:-2] + (n, n, n, n), dtype=DTYPE, device=device)
 
         def body():
             with torch.no_grad():
                 out.copy_(_eri_of(mol, x, tables, chunk_elems, omega))
 
-        return BufferProgram("eri", {"x": x}, {"eri": out}, body, device, pool, holds=(tables,))
+        return BufferProgram(kind, {"x": x}, {"eri": out}, body, device, pool, holds=(tables,))
 
-    prog = derivative_program(("eri", structure_key(mol), shape, omega, int(chunk_elems)),
+    prog = derivative_program((kind, structure_key(mol), shape, omega, int(chunk_elems)),
                               coords.device, build)
     return prog(x=coords)["eri"].clone()

@@ -13,6 +13,11 @@ call adds the count of failed matrices to the device's
 :func:`failure_count`, which the caller reads after the graph has run and
 raises on.
 
+:func:`eigh_jvp` is the same call with a forward-mode rule, for matrices
+that carry a ``torch.autograd.forward_ad`` tangent inside a captured
+program (``torch.linalg.eigh``'s own rule needs its eigh, which does not
+capture).
+
 Tensors on the CPU take :func:`eigh_reference`; tensors on a CUDA device
 always launch the cuSOLVER routine, built with ``nvcc`` into
 ``nbed_tpu_torch/_build`` at first use. There is no fallback: a CUDA call
@@ -30,8 +35,8 @@ import torch
 from .._compile import build_shared_library
 from .jk import _NVCC_FLAGS, _nvcc, count_launch
 
-__all__ = ["eigh", "eigh_retry", "eigh_reference", "prepare_eigh", "failure_count", "Eigh",
-           "LAUNCHES", "build_library"]
+__all__ = ["eigh", "eigh_retry", "eigh_jvp", "eigh_reference", "prepare_eigh",
+           "failure_count", "Eigh", "LAUNCHES", "build_library"]
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "eigh.cu"
 
@@ -239,3 +244,38 @@ def eigh(a, count=None):
         return eigh_reference(a)
     n = a.shape[-1]
     return prepare_eigh(n, a[..., 0, 0].numel(), a.dtype, a.device)(a, count)
+
+
+class _EighJVP(torch.autograd.Function):
+    """:func:`eigh` (or :func:`eigh_retry`) with the forward-mode rule of
+    ``torch.linalg.eigh``: for P = V^T dA V, dw = diag(P) and dV = V (F o P),
+    F_ij = 1 / (w_j - w_i) off the diagonal and 0 on it. Forward mode only."""
+
+    @staticmethod
+    def forward(ctx, a, count, retry):
+        w, v = (eigh_retry if retry else eigh)(a, count)
+        # a fresh row-major tensor, not the cuSOLVER call's transposed view:
+        # a view's tangent must share its layout
+        v = v.contiguous()
+        ctx.save_for_forward(w, v)
+        return w, v
+
+    @staticmethod
+    def jvp(ctx, a_dot, _count_dot, _retry_dot):
+        w, v = ctx.saved_tensors
+        p = (v.transpose(-1, -2) @ a_dot) @ v
+        w_dot = torch.diagonal(p, dim1=-2, dim2=-1).clone()
+        eye = torch.eye(w.shape[-1], dtype=torch.bool, device=w.device)
+        gap = w[..., None, :] - w[..., :, None]
+        off = p / torch.where(eye, torch.ones_like(gap), gap)
+        return w_dot, v @ torch.where(eye, torch.zeros_like(off), off)
+
+
+def eigh_jvp(a, count=None, retry: bool = False):
+    """:func:`eigh` (:func:`eigh_retry` with ``retry``) of ``a``, carrying a
+    forward-mode tangent of ``a`` into (w, v) by ``torch.linalg.eigh``'s
+    rule (:class:`_EighJVP`): on CUDA the capturable cuSOLVER call, so a
+    captured program diagonalises dual matrices; ``count`` as there. The
+    eigenvector tangent divides by eigenvalue gaps, as
+    ``torch.linalg.eigh``'s does."""
+    return _EighJVP.apply(a, count, retry)

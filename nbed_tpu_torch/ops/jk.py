@@ -25,6 +25,7 @@ once per replay of the graph (:class:`LaunchRecord`).
 import ctypes
 import os
 import shutil
+import weakref
 from collections import Counter
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -33,12 +34,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
 from .._compile import build_shared_library
 
 __all__ = ["fused_jk", "fused_jk_reference", "prepare_jk", "forward_ad_jk", "FusedJK",
-           "Plan", "plan", "split", "LAUNCHES", "LAUNCHES_BY_M", "LAUNCHES_BY_SHAPE",
-           "LaunchRecord", "count_launch", "recording", "build_kernels", "SMEM_MAX"]
+           "TangentJK", "Plan", "plan", "split", "LAUNCHES", "LAUNCHES_BY_M",
+           "LAUNCHES_BY_SHAPE", "LaunchRecord", "count_launch", "recording", "build_kernels",
+           "SMEM_MAX"]
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "fused_jk.cu"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -378,42 +381,68 @@ def fused_jk(g_j, g_k, dm):
     return FusedJK(g_j, g_k)(dm)
 
 
-class _ForwardJK(torch.autograd.Function):
-    """The lane kernel under forward-mode AD: J/K is linear in G and in D,
-    so the tangent of ``out = JK(G, D)`` is ``JK(G, dD) + JK(dG, D)``, two
-    launches of the same kernel. Forward mode only (no backward)."""
+class TangentJK:
+    """The J/K of (B, R, M) supermatrices ``g_j``, ``g_k`` and of their
+    forward-mode tangents ``g_j_dot``, ``g_k_dot`` (None: zero), prepared
+    once: on CUDA a :class:`FusedJK` on G and one on its tangent, on the
+    CPU the plain version. J/K is linear in G and in D, so a call on a
+    density ``dm`` (B, 2, nao, nao) that may carry a tangent returns the
+    (B, 3, R) output JK(G, D) with the tangent JK(G, dD) + JK(dG, D):
+    three launches of the kernel, no host read (a CUDA graph captures it).
 
-    @staticmethod
-    def forward(ctx, dm, g_j, g_k, jk, jk_dot):
-        ctx.jk, ctx.jk_dot = jk, jk_dot
-        ctx.save_for_forward(dm)
-        return jk.launch(dm)
+    A program prepares one on its own buffers; :func:`forward_ad_jk` then
+    finds it again for dual views of those buffers (:data:`_TANGENT_JK`)."""
 
-    @staticmethod
-    def jvp(ctx, dm_dot, g_j_dot, g_k_dot, _jk, _jk_dot):
-        (dm,) = ctx.saved_tensors
-        out = None if dm_dot is None else ctx.jk.launch(dm_dot.contiguous())
-        if ctx.jk_dot is not None:
-            extra = ctx.jk_dot.launch(dm)
-            out = extra if out is None else out + extra
-        return out if out is not None else torch.zeros_like(ctx.jk._out_like)
+    def __init__(self, g_j, g_k, g_j_dot=None, g_k_dot=None):
+        def zero_if_none(t, like):
+            return torch.zeros_like(like) if t is None else t
+
+        self.g = (g_j, g_k)
+        self.g_dot = (zero_if_none(g_j_dot, g_j), zero_if_none(g_k_dot, g_k))
+        if g_j.device.type == "cpu":
+            self.jk = lambda dm: fused_jk_reference(*self.g, dm)
+            self.jk_dot = lambda dm: fused_jk_reference(*self.g_dot, dm)
+        else:
+            self.g = tuple(t.contiguous() for t in self.g)
+            self.g_dot = tuple(t.contiguous() for t in self.g_dot)
+            self.jk, self.jk_dot = FusedJK(*self.g).launch, FusedJK(*self.g_dot).launch
+        _TANGENT_JK[_tangent_key(*self.g, *self.g_dot)] = self
+
+    def __call__(self, dm):
+        primal, tangent = forward_ad.unpack_dual(dm)
+        out = self.jk(primal.contiguous())
+        out_dot = self.jk_dot(primal.contiguous())
+        if tangent is not None:
+            out_dot = out_dot + self.jk(tangent.contiguous())
+        return forward_ad.make_dual(out, out_dot)
+
+
+def _tangent_key(*tensors) -> tuple:
+    """What identifies the memory of supermatrices and their tangents:
+    address, shape, strides, dtype and device of each."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
+                 for t in tensors)
+
+
+# the TangentJK prepared on each live set of buffers, held by their
+# programs: a dual view of the same memory finds it
+_TANGENT_JK = weakref.WeakValueDictionary()
 
 
 def forward_ad_jk(g_j, g_k):
     """``dm -> (B, 3, R)`` for (B, R, M) supermatrices that may carry
     forward-mode tangents (``torch.autograd.forward_ad`` dual tensors, as
-    the geometry-differentiable embedding program makes them). On the CPU
-    the plain version, which forward AD passes through; on CUDA the lane
-    kernel inside :class:`_ForwardJK`, prepared once on G's primal and
-    once on its tangent."""
+    the geometry-differentiable embedding program makes them): the
+    :class:`TangentJK` prepared on the same memory where a program made
+    one, else a new one on CUDA; on the CPU the plain version, which
+    forward AD passes through. Without tangents, :func:`prepare_jk`."""
+    (pj, tj), (pk, tk) = forward_ad.unpack_dual(g_j), forward_ad.unpack_dual(g_k)
+    if tj is None and tk is None:
+        return prepare_jk(pj, pk)
+    if tj is not None and tk is not None:
+        prepared = _TANGENT_JK.get(_tangent_key(pj, pk, tj, tk))
+        if prepared is not None:
+            return prepared
     if g_j.device.type == "cpu":
         return lambda dm: fused_jk_reference(g_j, g_k, dm)
-    from torch.autograd import forward_ad
-
-    (pj, tj), (pk, tk) = forward_ad.unpack_dual(g_j), forward_ad.unpack_dual(g_k)
-    jk = FusedJK(pj.contiguous(), pk.contiguous())
-    if tj is None and tk is None:
-        return jk
-    jk_dot = FusedJK((torch.zeros_like(pj) if tj is None else tj).contiguous(),
-                     (torch.zeros_like(pk) if tk is None else tk).contiguous())
-    return lambda dm: _ForwardJK.apply(dm, g_j, g_k, jk, jk_dot)
+    return TangentJK(pj.contiguous(), pk.contiguous(), tj, tk)

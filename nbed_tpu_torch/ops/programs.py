@@ -18,22 +18,26 @@ import gc
 import time
 import weakref
 from collections import Counter
+from contextlib import contextmanager
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
 from .jk import LaunchRecord, recording
 
-__all__ = ["RUNS", "BufferProgram", "Captured", "DERIVATIVE_PROGRAMS", "cached_program",
-           "card", "derivative_program", "gradient_body", "replay", "structure_key",
-           "takes_program"]
+__all__ = ["RUNS", "BufferProgram", "Captured", "DERIVATIVE_PROGRAMS", "TangentProgram",
+           "cached_program", "card", "derivative_program", "dual_scope", "gradient_body",
+           "has_tangent", "replay", "structure_key", "takes_program", "tangent_body",
+           "write_dual"]
 
 # how the programs of this process ran: SCFEngine.kernel() calls ("graph",
 # "eager"), "replays", "host_reads", "captures", "capture_s", "cycles", and
 # per fixed program kind (replay()) its replays under the kind's name and
 # f"{kind}_captures", f"{kind}_capture_s", and on a card the growth of
 # memory_reserved in GB over its captures (f"{kind}_pool_gb": the memory
-# its graphs' pool took); the counterpart of
+# its graphs' pool took; "scf_pool_gb" for the SCF programs'); the
+# counterpart of
 # ops.jk.LAUNCHES for a run to read per phase
 RUNS: Counter = Counter()
 
@@ -195,11 +199,12 @@ def structure_key(mol) -> tuple:
     return (tuple(int(z) for z in mol.atom_charges), mol.basis, mol.charge, mol.spin, mm)
 
 
-def takes_program(jit_kernel: str, tensors) -> bool:
+def takes_program(jit_kernel: str, tensors, tangent: bool = False) -> bool:
     """Whether a derivative call runs as a program: "on" everywhere (the
     body uncaptured off CUDA), "auto" on a CUDA device, "off" never.
-    Tensors that carry a derivative (``requires_grad``, a forward-mode
-    tangent) run eagerly under "auto" and raise under "on"."""
+    Tensors that carry ``requires_grad`` run eagerly under "auto" and raise
+    under "on"; so do forward-mode tangents, unless the call has a
+    ``tangent`` program (:class:`TangentProgram`), which takes them."""
     from ..scf.hf import carries_derivative
 
     if jit_kernel not in ("on", "off", "auto"):
@@ -207,10 +212,15 @@ def takes_program(jit_kernel: str, tensors) -> bool:
     if jit_kernel == "off":
         return False
     tensors = [t for t in tensors if isinstance(t, torch.Tensor)]
-    if any(carries_derivative(t) for t in tensors):
+    if tangent:
+        refused = any(t.requires_grad for t in tensors)
+    else:
+        refused = any(carries_derivative(t) for t in tensors)
+    if refused:
         if jit_kernel == "on":
-            raise ValueError("jit_kernel='on' takes no input that carries requires_grad "
-                             "or a forward-mode tangent; use 'auto' or 'off'")
+            what = "requires_grad" if tangent else "requires_grad or a forward-mode tangent"
+            raise ValueError(f"jit_kernel='on' takes no input that carries {what}; use 'auto' "
+                             "or 'off'")
         return False
     return jit_kernel == "on" or tensors[0].device.type == "cuda"
 
@@ -254,6 +264,94 @@ def gradient_body(energy, x, out):
             out.copy_(grad)
 
     return body
+
+
+def has_tangent(t) -> bool:
+    """Whether ``t`` is a tensor that carries a forward-mode tangent."""
+    return isinstance(t, torch.Tensor) and forward_ad.unpack_dual(t).tangent is not None
+
+
+@contextmanager
+def dual_scope():
+    """A forward-mode AD level for the block: the caller's where one is
+    open (a program called under ``forward_ad.dual_level()`` makes its dual
+    tensors in it; torch nests no levels), else a new one."""
+    if forward_ad._current_level >= 0:
+        yield
+    else:
+        with forward_ad.dual_level():
+            yield
+
+
+def write_dual(pair, value):
+    """Copy ``value``'s primal and forward-mode tangent (zero where it has
+    none) into the (primal, tangent) buffers ``pair``."""
+    primal, tangent = forward_ad.unpack_dual(value)
+    with torch.no_grad():
+        pair[0].copy_(primal)
+        if tangent is None:
+            pair[1].zero_()
+        else:
+            pair[1].copy_(tangent)
+
+
+def tangent_body(fn, inputs: dict, outputs: dict):
+    """The body of a tangent program, the counterpart of
+    :func:`gradient_body`: in a forward-mode level (:func:`dual_scope`), the
+    inputs ({name: (primal, tangent)} buffers) as dual tensors, ``fn(**duals)
+    -> {name: tensor}``, and each output's primal and tangent (zero where it
+    has none) written into its ({name: (primal, tangent)}) buffers. The
+    capture records the primal and tangent kernels of every operation."""
+    def body():
+        with dual_scope():
+            duals = {name: forward_ad.make_dual(p, t) for name, (p, t) in inputs.items()}
+            result = fn(**duals)
+            for name, pair in outputs.items():
+                write_dual(pair, result[name])
+
+    return body
+
+
+class TangentProgram:
+    """A forward-mode derivative program: ``fn(**duals) -> {name: tensor}``
+    on dual views of its input buffers ({name: (primal, tangent)}, made
+    from ``inputs``' shapes and dtypes), captured with :func:`tangent_body`
+    as a :class:`Captured` graph of ``kind``. A call takes tensors that
+    may carry forward-mode tangents, copies their primals and tangents
+    (zero where there is none) into the buffers, replays, and returns the
+    outputs as dual tensors of the caller's level (views of the output
+    buffers, which the next call overwrites). The output buffers are made
+    at the first call from one uncaptured run of ``fn`` (their shapes).
+    ``holds`` as :class:`BufferProgram`'s."""
+
+    def __init__(self, kind: str, inputs: dict, fn, device, pool: list, holds=()):
+        self.kind, self.fn = kind, fn
+        self.inputs = {name: (torch.zeros_like(t), torch.zeros_like(t))
+                       for name, t in inputs.items()}
+        self.outputs = None
+        self.device, self.pool = device, pool
+        self.holds = tuple(holds)
+        self.captured = None
+
+    def _allocate(self):
+        """The output buffers, from one uncaptured run on the inputs."""
+        with dual_scope():
+            duals = {name: forward_ad.make_dual(p, t) for name, (p, t) in self.inputs.items()}
+            result = self.fn(**duals)
+            primals = {name: forward_ad.unpack_dual(v).primal for name, v in result.items()}
+            self.outputs = {name: (torch.empty_like(p), torch.empty_like(p))
+                            for name, p in primals.items()}
+        self.captured = Captured(tangent_body(self.fn, self.inputs, self.outputs),
+                                 self.device, self.pool)
+
+    def __call__(self, **values) -> dict:
+        for name, value in values.items():
+            write_dual(self.inputs[name], value)
+        if self.outputs is None:
+            self._allocate()
+        replay(self.captured, self.kind)
+        with dual_scope():
+            return {name: forward_ad.make_dual(p, t) for name, (p, t) in self.outputs.items()}
 
 
 def derivative_program(key: tuple, device, build):

@@ -17,7 +17,8 @@ def device_profile(fn):
 
     The summary holds ``wall_s``, the host wall time of the call with the
     device synchronised at its end; ``device_busy_s``, the self device time
-    of every device event (kernels and copies) summed; ``device_idle_share``
+    of every device event (kernels and copies, not ``record_function``
+    ranges) summed; ``device_idle_share``
     = 1 - busy / wall; ``device_events``, their number; and ``top``, the
     twelve events with the most device time as [name, count, ms]. The sum
     is the busy time where the work runs on one stream, as the port's does.
@@ -35,7 +36,11 @@ def device_profile(fn):
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    events = prof.key_averages()
+    # record_function ranges show on the device timeline as spans over
+    # their kernels: not device work of their own
+    ranges = {e.key for e in events if getattr(e, "is_user_annotation", False)}
+    dev = sorted((e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges),
                  key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in dev) / 1e6
     return out, {

@@ -68,6 +68,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
 from .._device import DTYPE, resolve_device
 from ..chem.basis.auxiliary import make_auxiliary_molecule
@@ -81,11 +82,11 @@ from ..integrals import kinetic, native, nuclear_attraction, overlap, point_char
 from ..integrals.eri import eri_program
 from ..ops import eigh as eigh_ops
 from ..ops.jk import LAUNCHES, prepare_jk
-from ..ops.programs import RUNS, cached_program, replay, takes_program
+from ..ops.programs import RUNS, cached_program, has_tangent, replay, takes_program
 from ..ops.programs import Captured as _Captured
 from ..ops.programs import card as _card
-from .hf import (SCFProgram, _first_lane, _one_lane, carries_derivative, lowdin_x, make_rdm1,
-                 run_scf)
+from .hf import (SCFProgram, TangentSCFProgram, _first_lane, _one_lane, carries_derivative,
+                 lowdin_x, make_rdm1, run_scf)
 
 logger = logging.getLogger(__name__)
 
@@ -278,14 +279,14 @@ class _GraphedSCF:
         state: the capture's warm-up call runs the body once."""
         if not captured.captures or captured.graph is not None:
             return
-        prog = self.program
-        buffers = [*prog.state.values(), prog.flags, prog.status, prog.fock, prog.huz,
-                   prog.e_fin]
+        buffers = self.program.buffers()
         saved = [t.clone() for t in buffers]
         t0 = time.perf_counter()
         captured.capture()
         stats["capture_s"] += time.perf_counter() - t0
         stats["captures"] += 1
+        before, after = captured.reserved
+        RUNS["scf_pool_gb"] += (after - before) / 1e9
         for t, value in zip(buffers, saved):
             t.copy_(value)
 
@@ -338,7 +339,8 @@ class _GraphedSCF:
             prog.start_polish()
         status = self._loop(lambda it, ddm: (self.chunk, self.cycles), max_cycle, stats)
         if self.grad is not None and status[4]:
-            self._replay(self.grad, stats)
+            for _ in range(prog.polish_replays):
+                self._replay(self.grad, stats)
         self._replay(self.final, stats)
         stats["host_reads"] += 1  # the energy, read by result()
         return prog.result(mixed)
@@ -1410,20 +1412,23 @@ class SCFSolution:
         return s2, 2.0 * (s2 + 0.25) ** 0.5
 
 
-def _lanes_take_graphs(jit_kernel: str, tensors, inputs, use_diis: bool) -> bool:
+def _lanes_take_graphs(jit_kernel: str, tensors, inputs, use_diis: bool,
+                       tangent: bool = False) -> bool:
     """Whether a lane call runs as a program of the cache: "on", or "auto"
     on one CUDA device (:func:`~nbed_tpu_torch.ops.programs.takes_program`:
-    never with inputs that carry a derivative); not without DIIS or over
+    never with inputs that require grad, and with forward-mode tangents
+    only where the call has a ``tangent`` program); not without DIIS or over
     several devices, which run eagerly under "auto" and are refused under
-    "on"."""
+    "on" (and under "auto" on a card for a ``tangent`` call, which has no
+    eager route there)."""
     everything = [*tensors, *(t for t in inputs if t is not None)]
-    if not takes_program(jit_kernel, everything):
+    if not takes_program(jit_kernel, everything, tangent=tangent):
         return False
     devices = {t.device for t in everything}
     if not use_diis or len(devices) != 1:
-        if jit_kernel == "on":
-            raise ValueError("jit_kernel='on' runs the lane program with DIIS on one device; "
-                             "use 'auto' or 'off' for use_diis=False or operands on "
+        if jit_kernel == "on" or tangent:
+            raise ValueError(f"jit_kernel={jit_kernel!r} runs the lane program with DIIS on one "
+                             "device; use 'off' for use_diis=False or operands on "
                              f"{len(devices)} devices")
         return False
     return True
@@ -1451,8 +1456,14 @@ def lane_scf(spec: tuple, operands: dict, build, *, nelec, hyb: float = 1.0, v_e
     ``jit_kernel`` as ``SCFEngine``'s: "auto" runs the program on a CUDA
     device and :func:`run_scf` on the closures over ``operands`` elsewhere,
     "on" the program everywhere (uncaptured off CUDA), "off" ``run_scf``.
-    Inputs that carry a derivative, ``use_diis=False`` and operands on
-    several devices run ``run_scf`` under "auto" and raise under "on".
+    Operands or inputs that carry forward-mode tangents take a tangent
+    lane program (:class:`~nbed_tpu_torch.scf.hf.TangentSCFProgram`, its
+    operators' primals and tangents copied into the buffers; ``build`` is
+    then called on dual views of them inside every body, and its J/K must
+    find the :class:`~nbed_tpu_torch.ops.jk.TangentJK` the program
+    prepares) and return dual results. Inputs that require grad,
+    ``use_diis=False`` and operands on several devices run ``run_scf``
+    under "auto" and raise under "on" (a tangent call on a card raises).
     ``dispatch_cycles`` as ``SCFEngine``'s.
     Returns the lanes' :class:`~nbed_tpu_torch.scf.hf.SCFResult`."""
     hcore = operands["hcore"]
@@ -1463,8 +1474,9 @@ def lane_scf(spec: tuple, operands: dict, build, *, nelec, hyb: float = 1.0, v_e
                   dm_env_virt=dm_env_virt, dm0=dm0, conv_tol=conv_tol,
                   dm_conv_tol=dm_conv_tol, max_cycle=max_cycle, level_shift=level_shift,
                   grad_cycles=grad_cycles, diis_space=diis_space)
-    if not _lanes_take_graphs(jit_kernel, tensors.values(), (v_emb, dm_env_occ, dm_env_virt,
-                                                             dm0), use_diis):
+    inputs = (v_emb, dm_env_occ, dm_env_virt, dm0)
+    tangent = any(has_tangent(t) for t in (*tensors.values(), *inputs))
+    if not _lanes_take_graphs(jit_kernel, tensors.values(), inputs, use_diis, tangent):
         jk_fn, xc_fn = build(operands)
         RUNS["lanes_eager"] += 1
         return run_scf(hcore=hcore, s=operands["s"], jk_fn=jk_fn, xc_fn=xc_fn,
@@ -1477,33 +1489,51 @@ def lane_scf(spec: tuple, operands: dict, build, *, nelec, hyb: float = 1.0, v_e
     present = (v_emb is not None, dm_env_occ is not None, dm_env_virt is not None)
     shapes = tuple(sorted((name, tuple(t.shape), str(t.dtype)) for name, t in tensors.items()))
     device = _card(s.device)
-    ops = _operands(("lanes", spec, shapes, device))
+    route = ("tangent",) if tangent else ()
+    ops = _operands(("lanes", spec, shapes, device, *route))
+    failures = eigh_ops.failure_count(device) if device.type == "cuda" else None
 
     def make():
         b = ops.buffers
+        if tangent:
+            program = TangentSCFProgram(
+                operands={name: (b[name], b[name + "_dot"]) for name in tensors}, build=build,
+                nelec=nelec, hyb=hyb, huzinaga=present[1], level_shift=level_shift,
+                diis_space=diis_space, grad_cycles=grad_cycles, failures=failures)
+            return _GraphedSCF(program, cycles, ops.pool, ops)
         jk_fn, xc_fn = build(b)
         program = SCFProgram(
             hcore=b["hcore"], s=b["s"], x=b["x"], nelec=nelec, jk_fn=jk_fn, xc_fn=xc_fn,
             hyb=hyb, huzinaga=present[1], level_shift=level_shift, diis_space=diis_space,
-            lanes=True, grad_cycles=grad_cycles,
-            failures=eigh_ops.failure_count(device) if device.type == "cuda" else None)
+            lanes=True, grad_cycles=grad_cycles, failures=failures)
         return _GraphedSCF(program, cycles, ops.pool, ops)
 
     owner = next(_OWNERS)  # a lane call's operators are its own
-    ops.fill(owner, {name: (lambda t=t: t) for name, t in tensors.items()})
+    sources = {name: (lambda t=t: t) for name, t in tensors.items()}
+    if tangent:  # the primal and the tangent of every operator
+        sources.update({name + "_dot": (lambda t=t: _tangent_of(t))
+                        for name, t in tensors.items()})
+    ops.fill(owner, sources)
     graph = _shared_program(
         ("lanes", spec, shapes, (nelec, present, float(level_shift), cycles,
-                                 int(grad_cycles), float(hyb), int(diis_space)), device),
+                                 int(grad_cycles), float(hyb), int(diis_space)), device,
+         *route),
         make)
     stats = {"replays": 0, "host_reads": 0, "captures": 0, "capture_s": 0.0}
     res = graph.run(dict(v_emb=v_emb, dm_env_occ=dm_env_occ, dm_env_virt=dm_env_virt,
                          dm0=None if dm0 is None else dm0.to(s.dtype),
                          conv_tol=conv_tol, dm_conv_tol=dm_conv_tol, max_cycle=max_cycle),
                     stats)
-    RUNS["lanes_graph"] += 1
+    RUNS["lanes_tangent" if tangent else "lanes_graph"] += 1
     for key, value in stats.items():
         RUNS[key] += value
     return res
+
+
+def _tangent_of(t):
+    """The forward-mode tangent of ``t`` (zeros where it has none)."""
+    tangent = forward_ad.unpack_dual(t).tangent
+    return torch.zeros_like(t) if tangent is None else tangent
 
 
 def lane_spec(mol: Molecule, tag: str, *extra) -> tuple:

@@ -57,15 +57,18 @@ Not ported: the TPU-only Newton refinement of ``eigh`` (a no-op off the TPU,
 """
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Optional
 
 import torch
+from torch.autograd import forward_ad
 
 from ..ops import eigh as eigh_ops
 from ..ops.jk import prepare_jk
+from ..ops.programs import dual_scope, write_dual
 
-__all__ = ["SCFResult", "SCFProgram", "run_scf", "make_rdm1", "lowdin_x",
-           "huzinaga_operator"]
+__all__ = ["SCFResult", "SCFProgram", "TangentSCFProgram", "run_scf", "make_rdm1",
+           "lowdin_x", "huzinaga_operator"]
 
 
 @dataclass
@@ -421,13 +424,26 @@ def carries_derivative(t) -> bool:
     return t.requires_grad or forward_ad.unpack_dual(t).tangent is not None
 
 
-def scf_eigh(a, count=None, retry: bool = False):
+# whether the eager route diagonalises a matrix that carries a forward-mode
+# tangent as the tangent programs do (eigh_jvp), not with torch.linalg.eigh:
+# a private switch for holding a graph against an eager run of the same
+# arithmetic on the card, where the embedding program's 1e6 mu shift turns
+# two eigensolvers' rounding into energy differences above the graph's
+# gate and other SCF cycle counts
+_EAGER_EIGH_JVP = False
+
+
+def scf_eigh(a, count=None, retry: bool = False, program: bool = False):
     """The lane SCF's eigh, graphed and eager: the capturable cuSOLVER call
     of :func:`nbed_tpu_torch.ops.eigh.eigh` (``eigh_retry`` with ``retry``;
-    ``torch.linalg.eigh`` on the CPU); ``torch.linalg.eigh`` for a matrix
-    that carries a derivative (the cuSOLVER call has none). ``count`` as
-    there."""
+    ``torch.linalg.eigh`` on the CPU). A matrix that carries a derivative
+    takes ``torch.linalg.eigh`` on the eager route, and inside a tangent
+    program (``program``) the same cuSOLVER call with its forward-mode rule
+    (:func:`nbed_tpu_torch.ops.eigh.eigh_jvp`), which a graph captures.
+    ``count`` as there."""
     if carries_derivative(a):
+        if program or _EAGER_EIGH_JVP:
+            return eigh_ops.eigh_jvp(a, count, retry)
         return torch.linalg.eigh(a)
     return (eigh_ops.eigh_retry if retry else eigh_ops.eigh)(a, count)
 
@@ -720,6 +736,17 @@ def _run_scf_lanes(*, hcore, s, nelec, jk_fn, v_emb, xc_fn, hyb, dm_env_occ, dm_
     )
 
 
+def _write_flags(st: dict, failures, flags, status):
+    """The flags of a program's state ``st``: [all converged, most cycles of
+    a lane, eigh ``failures``] into ``flags``; the same and [largest
+    density change, any converged] as float64 into ``status``, for the one
+    host read of a replay."""
+    values = torch.stack([st["conv"].all().to(torch.int64), st["cycles"].max(), failures])
+    flags.copy_(values)
+    status.copy_(torch.cat([values.to(torch.float64),
+                            torch.stack([st["ddm"].max(), st["conv"].any().to(torch.float64)])]))
+
+
 class SCFProgram:
     """An SCF on fixed device buffers: the cycle of :func:`_lane_ops`,
     advanced in place, so that a chunk of cycles and the final Fock build
@@ -818,6 +845,11 @@ class SCFProgram:
     def _lane(self, t):
         return t if t is None or self.lanes else t[None]
 
+    def buffers(self) -> list:
+        """The state and output buffers, which a capture's warm-up call must
+        leave as they were."""
+        return [*self.state.values(), self.flags, self.status, self.fock, self.huz, self.e_fin]
+
     def load(self, *, v_emb=None, dm_env_occ=None, dm_env_virt=None, dm0=None,
              conv_tol, dm_conv_tol, max_cycle):
         """Copy one call's inputs ((2, n, n) tensors of the program's dtype,
@@ -865,12 +897,7 @@ class SCFProgram:
             st = self._cycle(st, self.conv_tol, self.dm_conv_tol, self.max_cycle, variant)
         for key, value in st.items():
             self.state[key].copy_(value)
-        flags = torch.stack([st["conv"].all().to(torch.int64), st["cycles"].max(),
-                             self._failures])
-        self.flags.copy_(flags)
-        self.status.copy_(torch.cat([flags.to(torch.float64),
-                                     torch.stack([st["ddm"].max(),
-                                                  st["conv"].any().to(torch.float64)])]))
+        _write_flags(st, self._failures, self.flags, self.status)
 
     def start_polish(self):
         """The polish loop's start (eager): the mixed loop's density,
@@ -879,6 +906,11 @@ class SCFProgram:
         for key in ("hist_f", "hist_e", "conv", "cycles", "it"):
             st[key].zero_()
         st["ddm"].fill_(float("inf"))
+
+    @property
+    def polish_replays(self) -> int:
+        """Calls of :meth:`grad_polish` that run the ``grad_cycles``: one."""
+        return 1
 
     def grad_polish(self):
         """``grad_cycles`` damped DIIS-free cycles of the converged lanes
@@ -922,3 +954,191 @@ class SCFProgram:
             mo_occ=self.occ[0].clone(), dm=st["dm"][0].clone(), e_elec=e_fin,
             converged=bool(conv), fock=self.fock[0].clone(), huzinaga_op=self.huz[0].clone(),
             n_iter=int(cycles) + extra_cycles, n_mixed=extra_cycles)
+
+
+class TangentSCFProgram:
+    """:class:`SCFProgram`'s lane SCF under forward-mode AD: the tangent
+    state (density, orbitals, energies, DIIS history) beside the primal one
+    in device buffers, each cycle the jvp of the primal cycle, as the
+    eager lane loop (:func:`run_scf` on dual operators) runs it: J/K
+    through :class:`nbed_tpu_torch.ops.jk.TangentJK`, the differentiable
+    XC closure, the Fock eigh through
+    :func:`nbed_tpu_torch.ops.eigh.eigh_jvp`, DIIS coefficients without a
+    tangent (the reference's ``stop_gradient``), and the ``grad_cycles``
+    damped polish carrying the tangent. Convergence is read on the primal
+    alone, through the same flags and status buffers.
+
+    ``operands``: {name: (primal, tangent)} buffers of "hcore" (B, 2, n,
+    n), "s", "x" (B, n, n) and the tensors ``build`` reads; ``build(duals)
+    -> (jk_fn, xc_fn)`` gives the lane closures over dual views of them,
+    and is called inside every body (a dual tensor lives in its level),
+    so it must prepare nothing: its J/K finds the
+    :class:`~nbed_tpu_torch.ops.jk.TangentJK` made here on "g_j"/"g_k".
+    Every method reads and writes buffers only and runs in the caller's
+    forward-mode level (or one of its own), so a chunk of cycles, the
+    polish and the final build are captured as CUDA graphs by
+    :class:`nbed_tpu_torch.scf.engine._GraphedSCF`, as the primal ones
+    are. The lane form only (``lanes`` True), float64, no incremental
+    loop, no ROHF."""
+
+    incremental = False
+    xc_fast = False
+    lanes = True
+
+    def __init__(self, *, operands: dict, build, nelec, hyb=1.0, huzinaga=False,
+                 level_shift=0.0, diis_space=8, grad_cycles=0, failures=None):
+        from ..ops.jk import TangentJK
+
+        s = operands["s"][0]
+        nb, n = s.shape[0], s.shape[-1]
+        dtype, device = s.dtype, s.device
+        self.dtype, self.device, self.nelec = dtype, device, tuple(int(v) for v in nelec)
+        self.operands, self.build = operands, build
+        self.hyb, self.huzinaga, self.level_shift = hyb, huzinaga, level_shift
+        self.diis_space, self.grad_cycles = diis_space, int(grad_cycles)
+        self.occ = _occupations(nelec, nb, n, dtype, device)
+        self._failures = (torch.zeros((), dtype=torch.int64, device=device)
+                          if failures is None else failures)
+        # the J/K of the supermatrices and their tangents, prepared once on
+        # the buffers; build's forward_ad_jk finds it by their memory
+        self._jk = TangentJK(operands["g_j"][0], operands["g_k"][0], operands["g_j"][1],
+                             operands["g_k"][1])
+
+        def pair(*shape):
+            return (torch.zeros(shape, dtype=dtype, device=device),
+                    torch.zeros(shape, dtype=dtype, device=device))
+
+        self.v_emb, self.h_eff = pair(nb, 2, n, n), pair(nb, 2, n, n)
+        if huzinaga:
+            self.dm_env_occ, self.dm_env_virt = pair(nb, 2, n, n), pair(nb, 2, n, n)
+            self.dm_occ_s, self.dm_virt_s = pair(nb, 2, n, n), pair(nb, 2, n, n)
+        self.conv_tol = torch.zeros((), dtype=torch.float64, device=device)
+        self.dm_conv_tol = torch.zeros((), dtype=torch.float64, device=device)
+        self.max_cycle = torch.zeros((), dtype=torch.int64, device=device)
+        self.state = _initial_state(torch.zeros((nb, 2, n, n), dtype=dtype, device=device),
+                                    diis_space)
+        self.state_dot = {key: torch.zeros_like(t) for key, t in self.state.items()
+                          if t.is_floating_point()}
+        self.flags = torch.zeros(3, dtype=torch.int64, device=device)
+        self.status = torch.zeros(5, dtype=torch.float64, device=device)
+        self.fock, self.huz = pair(nb, 2, n, n), pair(nb, 2, n, n)
+        self.e_fin = pair(nb)
+
+    def buffers(self) -> list:
+        pairs = [self.fock, self.huz, self.e_fin]
+        return [*self.state.values(), *self.state_dot.values(), self.flags, self.status,
+                *(t for p in pairs for t in p)]
+
+    @staticmethod
+    def _dual(pair):
+        return forward_ad.make_dual(*pair)
+
+    def _ops(self):
+        """(:func:`_lane_ops`, jk_fn) over dual views of the buffers (inside
+        a forward-mode level)."""
+        duals = {name: self._dual(p) for name, p in self.operands.items()}
+        jk_fn, xc_fn = self.build(duals)
+        products = {}
+        if self.huzinaga:
+            products = dict(dm_occ_s=self._dual(self.dm_occ_s),
+                            dm_virt_s=self._dual(self.dm_virt_s))
+        return _lane_ops(h_eff=self._dual(self.h_eff), s=duals["s"], x=duals["x"],
+                         occ=self.occ, jk_fn=jk_fn, xc_fn=xc_fn, hyb=self.hyb,
+                         level_shift=self.level_shift, diis_space=self.diis_space,
+                         eigh=partial(scf_eigh, program=True), **products), jk_fn
+
+    def _state(self) -> dict:
+        return {key: (forward_ad.make_dual(t, self.state_dot[key]) if key in self.state_dot
+                      else t) for key, t in self.state.items()}
+
+    def _store(self, st: dict):
+        for key, value in st.items():
+            if key in self.state_dot:
+                write_dual((self.state[key], self.state_dot[key]), value)
+            else:
+                self.state[key].copy_(value)
+
+    def load(self, *, v_emb=None, dm_env_occ=None, dm_env_virt=None, dm0=None,
+             conv_tol, dm_conv_tol, max_cycle):
+        """:meth:`SCFProgram.load` for (B, 2, n, n) inputs that may carry
+        tangents (eager work)."""
+        if (dm_env_occ is not None) != self.huzinaga:
+            raise ValueError("this TangentSCFProgram was built "
+                             f"{'with' if self.huzinaga else 'without'} Huzinaga projectors")
+        with dual_scope():
+            hcore, s = self._dual(self.operands["hcore"]), self._dual(self.operands["s"])
+            v = torch.zeros_like(self.v_emb[0]) if v_emb is None else v_emb
+            write_dual(self.v_emb, v)
+            write_dual(self.h_eff, hcore + self._dual(self.v_emb))
+            if self.huzinaga:
+                write_dual(self.dm_env_occ, dm_env_occ)
+                write_dual(self.dm_env_virt, torch.zeros_like(dm_env_occ)
+                           if dm_env_virt is None else dm_env_virt)
+                occ_s, virt_s = _huzinaga_products(
+                    self._dual(self.dm_env_occ),
+                    None if dm_env_virt is None else self._dual(self.dm_env_virt), s)
+                write_dual(self.dm_occ_s, occ_s)
+                write_dual(self.dm_virt_s, virt_s)
+            self.conv_tol.fill_(conv_tol)
+            self.dm_conv_tol.fill_(dm_conv_tol)
+            self.max_cycle.fill_(int(max_cycle))
+            if dm0 is None:
+                (_, eig_fock, _, _), _ = self._ops()
+                f_init = self._dual(self.h_eff)
+                if self.huzinaga:
+                    f_init = f_init + huzinaga_operator(f_init, self._dual(self.dm_occ_s),
+                                                        self._dual(self.dm_virt_s))
+                dm0 = make_rdm1(eig_fock(f_init)[1], self.occ)
+            self._store(_initial_state(dm0.to(self.dtype), self.diis_space))
+
+    def run_cycles(self, k: int, variant=None):
+        """``k`` cycles in place, then the flags (of the primal state)."""
+        with dual_scope():
+            (_, _, cycle, _), _ = self._ops()
+            st = self._state()
+            for _ in range(k):
+                st = cycle(st, self.conv_tol, self.dm_conv_tol, self.max_cycle)
+            self._store(st)
+        _write_flags(self.state, self._failures, self.flags, self.status)
+
+    @property
+    def polish_replays(self) -> int:
+        """Calls of :meth:`grad_polish` that run the ``grad_cycles``: one
+        each, so that a graph of one cycle is captured, not of all."""
+        return self.grad_cycles
+
+    def grad_polish(self):
+        """One of the ``grad_cycles`` damped cycles of the converged lanes,
+        primal and tangent, in place."""
+        with dual_scope():
+            (_, _, _, grad_step), _ = self._ops()
+            st = self._state()
+            dm, c, mo_e = grad_step(st["dm"], st["c"], st["mo_e"], st["conv"])
+            self._store({"dm": dm, "c": c, "mo_e": mo_e})
+
+    def finish(self):
+        """The final J/K, Fock, Huzinaga operator and energy of the state's
+        density, primal and tangent."""
+        with dual_scope():
+            (assemble, _, _, _), jk_fn = self._ops()
+            dm = self._state()["dm"]
+            j, k = jk_fn(dm)
+            f, huz, e = assemble(dm, j, k)
+            write_dual(self.fock, f)
+            write_dual(self.huz, huz)
+            write_dual(self.e_fin, e)
+
+    def result(self, extra_cycles: int = 0) -> SCFResult:
+        """The lanes' :class:`SCFResult` as dual tensors of the caller's
+        forward-mode level (copies of the buffers), no host read."""
+        st = self.state
+
+        def dual(primal, tangent):
+            return forward_ad.make_dual(primal.clone(), tangent.clone())
+
+        return SCFResult(
+            mo_coeff=dual(st["c"], self.state_dot["c"]),
+            mo_energy=dual(st["mo_e"], self.state_dot["mo_e"]), mo_occ=self.occ.clone(),
+            dm=dual(st["dm"], self.state_dot["dm"]), e_elec=dual(*self.e_fin),
+            converged=st["conv"].clone(), fock=dual(*self.fock),
+            huzinaga_op=dual(*self.huz), n_iter=st["cycles"] + extra_cycles)
