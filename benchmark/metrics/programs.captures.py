@@ -1,0 +1,11 @@
+"""programs.captures: CUDA-graph captures per request over the window
+(nbed_tpu_torch.ops.programs.RUNS["captures"])."""
+
+COUNTERS = ["nbed_tpu_torch.ops.programs:RUNS"]
+
+
+def read(run):
+    done = run.completed
+    if not done:
+        return None
+    return run.counter(COUNTERS[0])["captures"] / len(done)
