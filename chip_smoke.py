@@ -3964,15 +3964,13 @@ def main():
     def count(name):
         per_phase[name] = {**jk.LAUNCHES, **eigh.LAUNCHES, "lanes": lane_launches()}
         runs[name] = dict(engine.RUNS)
-        for (key, m), n in jk.LAUNCHES_BY_M.items():
-            by_m[f"{key} M={m}"] = by_m.get(f"{key} M={m}", 0) + n
         for (key, m, r, b), n in jk.LAUNCHES_BY_SHAPE.items():
+            by_m[f"{key} M={m}"] = by_m.get(f"{key} M={m}", 0) + n
             label = f"{key} M={m} R={r} B={b}"
             by_shape[label] = by_shape.get(label, 0) + n
 
     def clear():
         jk.LAUNCHES.clear()
-        jk.LAUNCHES_BY_M.clear()
         jk.LAUNCHES_BY_SHAPE.clear()
         eigh.LAUNCHES.clear()
         engine.RUNS.clear()

@@ -35,7 +35,7 @@ from .ham.qubit import MAPPINGS
 from .ham.taper import taper_auto
 from .localizers import (BOYSLocalizer, ConcentricLocalizer, IBOLocalizer,
                          LocalizedSystem, PAOLocalizer, PMLocalizer, SPADELocalizer)
-from .profiling import StageTimer
+from .profiling import request, span
 from .scf.engine import SCFEngine, SCFSolution
 from .solvers import oscillator_strengths, run_ccsd, run_cis, run_fci, run_rpa
 from .solvers.frozen import freeze_spinorbitals
@@ -175,15 +175,16 @@ class NbedDriver:
         """The configured occupied localizer on the global UKS (reference
         driver.py:180-208)."""
         cfg = self.config
-        if cfg.localization is OccupiedLocalizerTypes.SPADE:
-            self.localizer = SPADELocalizer(self._global_ks, cfg.n_active_atoms,
-                                            max_shells=cfg.max_shells,
-                                            n_mo_overwrite=self.n_mo_overwrite)
-        else:
-            self.localizer = self._JACOBI[cfg.localization](
-                self._global_ks, cfg.n_active_atoms, occ_cutoff=cfg.occupied_threshold,
-                virt_cutoff=cfg.virtual_threshold)
-        return self.localizer.localize()
+        with span(f"localize.{cfg.localization.value}"):
+            if cfg.localization is OccupiedLocalizerTypes.SPADE:
+                self.localizer = SPADELocalizer(self._global_ks, cfg.n_active_atoms,
+                                                max_shells=cfg.max_shells,
+                                                n_mo_overwrite=self.n_mo_overwrite)
+            else:
+                self.localizer = self._JACOBI[cfg.localization](
+                    self._global_ks, cfg.n_active_atoms, occ_cutoff=cfg.occupied_threshold,
+                    virt_cutoff=cfg.virtual_threshold)
+            return self.localizer.localize()
 
     @cached_property
     def _env_projector(self):
@@ -244,30 +245,39 @@ class NbedDriver:
                             localized_system, env_projector) -> SCFSolution:
         """Remove environment MOs from the embedded solution, per spin
         (reference driver.py:346-388)."""
-        inds = localized_system.enviro_mo_inds
-        if inds.dtype == object:
-            n_env = (len(inds[0]), len(inds[1]))  # open shell: ragged sizes
-        else:
-            # per-spin counts, not the upstream union of both spins' index
-            # sets (see nbed_tpu/driver.py:363-376 for why)
-            n_env = (inds.shape[-1], inds.shape[-1])
-        parts = [
-            _delete_spin_environment(
-                projector, n_env[s], sol.mo_coeff[s], sol.mo_energy[s],
-                sol.mo_occ[s], env_projector[s],
-                n_extra_virt=max(n_env) - n_env[s],
-            )
-            for s in (0, 1)
-        ]
-        sol.mo_coeff = torch.stack([parts[0][0], parts[1][0]])
-        sol.mo_energy = torch.stack([parts[0][1], parts[1][1]])
-        sol.mo_occ = torch.stack([parts[0][2], parts[1][2]])
-        return sol
+        with span("post.delete"):
+            inds = localized_system.enviro_mo_inds
+            if inds.dtype == object:
+                n_env = (len(inds[0]), len(inds[1]))  # open shell: ragged sizes
+            else:
+                # per-spin counts, not the upstream union of both spins' index
+                # sets (see nbed_tpu/driver.py:363-376 for why)
+                n_env = (inds.shape[-1], inds.shape[-1])
+            parts = [
+                _delete_spin_environment(
+                    projector, n_env[s], sol.mo_coeff[s], sol.mo_energy[s],
+                    sol.mo_occ[s], env_projector[s],
+                    n_extra_virt=max(n_env) - n_env[s],
+                )
+                for s in (0, 1)
+            ]
+            sol.mo_coeff = torch.stack([parts[0][0], parts[1][0]])
+            sol.mo_energy = torch.stack([parts[0][1], parts[1][1]])
+            sol.mo_occ = torch.stack([parts[0][2], parts[1][2]])
+            return sol
 
     # ---------------------------------------------------------------- main
     def embed(self, init_huzinaga_rhf_with_mu: bool = False,
               n_mo_overwrite: tuple = (None, None)) -> None:
-        """Run the full embedding pipeline (reference driver.py:391-489)."""
+        """Run the full embedding pipeline (reference driver.py:391-489).
+        Its stages and spans go to the open request's table
+        (:func:`nbed_tpu_torch.profiling.request`), or to a request of its
+        own; ``timings`` is that table's."""
+        with request(self.device) as timer:
+            self.timings = timer.timings
+            self._embed(timer, init_huzinaga_rhf_with_mu, n_mo_overwrite)
+
+    def _embed(self, timer, init_huzinaga_rhf_with_mu, n_mo_overwrite) -> None:
         cfg = self.config
         if (cfg.virtual_localization is VirtualLocalizerTypes.PROJECTED_AO
                 and cfg.projector is not ProjectorTypes.HUZ):
@@ -277,9 +287,8 @@ class NbedDriver:
                 "PAO virtual localization requires projector='huzinaga'.")
         init_huzinaga_rhf_with_mu = (init_huzinaga_rhf_with_mu
                                      or cfg.init_huzinaga_rhf_with_mu)
-        timer = StageTimer(self.device)
-        self.timings = timer.timings
-        self.e_nuc = self._ks_engine.energy_nuc()
+        with span("driver.setup"):
+            self.e_nuc = self._ks_engine.energy_nuc()
         if n_mo_overwrite is not None and n_mo_overwrite != (None, None):
             self.n_mo_overwrite = n_mo_overwrite
         else:
@@ -353,9 +362,10 @@ class NbedDriver:
         result["beta_correction"] = float(torch.einsum("ij,ij", v_emb[1], dm_act[1]))
 
         if cfg.virtual_localization is VirtualLocalizerTypes.CONCENTRIC:
-            result["cl"] = ConcentricLocalizer(result["scf"], cfg.n_active_atoms,
-                                               max_shells=cfg.max_shells)
-            result["scf"] = result["cl"].localize_virtual()
+            with span("post.concentric"):
+                result["cl"] = ConcentricLocalizer(result["scf"], cfg.n_active_atoms,
+                                                   max_shells=cfg.max_shells)
+                result["scf"] = result["cl"].localize_virtual()
 
         corr = result["correction"] + result["beta_correction"]
         result["e_rhf"] = result["scf"].e_tot + self.e_env + self.two_e_cross - corr
@@ -501,31 +511,32 @@ def dft_in_dft(driver: NbedDriver, projection_method) -> dict:
     """DFT-in-DFT self-consistency check (reference driver.py:831-885): the
     embedded SCF rerun with the KS engine, whose energy with the
     environment terms must give back the global KS energy."""
-    result = {}
-    engine = driver._ks_engine
-    if projection_method is ProjectorTypes.MU:
-        result["scf_dft"], result["v_emb_dft"] = driver._mu_embed(
-            engine, driver.embedding_potential)
-    else:
-        result["scf_dft"], result["v_emb_dft"] = driver._huzinaga_embed(
-            engine, driver.embedding_potential, driver.localized_system)
-    result["scf_dft"] = driver._delete_environment(
-        projection_method, result["scf_dft"], driver.localized_system,
-        driver._env_projector)
+    with span("post.dft_in_dft"):
+        result = {}
+        engine = driver._ks_engine
+        if projection_method is ProjectorTypes.MU:
+            result["scf_dft"], result["v_emb_dft"] = driver._mu_embed(
+                engine, driver.embedding_potential)
+        else:
+            result["scf_dft"], result["v_emb_dft"] = driver._huzinaga_embed(
+                engine, driver.embedding_potential, driver.localized_system)
+        result["scf_dft"] = driver._delete_environment(
+            projection_method, result["scf_dft"], driver.localized_system,
+            driver._env_projector)
 
-    dm_act = driver.localized_system.dm_active
-    y_emb = result["scf_dft"].make_rdm1()
-    v = result["v_emb_dft"]
-    result["dft_correction"] = float(torch.einsum("ij,ij", v[0], y_emb[0] - dm_act[0]))
-    result["dft_correction_beta"] = float(torch.einsum("ij,ij", v[1], y_emb[1] - dm_act[1]))
-    veff = engine.get_veff(y_emb)
-    rks_e_elec = (float(veff.exc) + float(veff.ecoul)
-                  + float(torch.einsum("ij,sij->", engine.hcore, y_emb)))
-    result["e_dft_in_dft"] = (rks_e_elec + driver.e_env + driver.two_e_cross
-                              + result["dft_correction"]
-                              + result["dft_correction_beta"] + engine.energy_nuc())
-    result["emb_dft"] = rks_e_elec
-    return result
+        dm_act = driver.localized_system.dm_active
+        y_emb = result["scf_dft"].make_rdm1()
+        v = result["v_emb_dft"]
+        result["dft_correction"] = float(torch.einsum("ij,ij", v[0], y_emb[0] - dm_act[0]))
+        result["dft_correction_beta"] = float(torch.einsum("ij,ij", v[1], y_emb[1] - dm_act[1]))
+        veff = engine.get_veff(y_emb)
+        rks_e_elec = (float(veff.exc) + float(veff.ecoul)
+                      + float(torch.einsum("ij,sij->", engine.hcore, y_emb)))
+        result["e_dft_in_dft"] = (rks_e_elec + driver.e_env + driver.two_e_cross
+                                  + result["dft_correction"]
+                                  + result["dft_correction_beta"] + engine.energy_nuc())
+        result["emb_dft"] = rks_e_elec
+        return result
 
 
 def _spin_expand_frozen(frozen):
@@ -553,8 +564,9 @@ def run_emb_ccsd(scf_sol: SCFSolution, frozen=None, convergence: float = 1e-6,
     MO indices: frozen occupied orbitals are folded in exactly, frozen
     virtuals dropped. ``triples=True`` adds the (T) correction to both
     returns."""
-    e_shift, h1, h2, occ_mask = _embedded_hamiltonian(scf_sol, frozen)
-    out = run_ccsd(h1, h2, occ_mask, conv_tol=convergence * 1e-2, triples=triples)
+    with span("post.ccsd"):
+        e_shift, h1, h2, occ_mask = _embedded_hamiltonian(scf_sol, frozen)
+        out = run_ccsd(h1, h2, occ_mask, conv_tol=convergence * 1e-2, triples=triples)
     if triples:
         e_corr, e_t, e_ref_elec = out
         e_corr = e_corr + e_t
@@ -571,9 +583,10 @@ def run_emb_fci(scf_sol: SCFSolution, frozen=None, convergence: float = 1e-6) ->
     driver.py:760-784); frozen orbitals are folded into the integrals
     exactly. ``convergence`` is taken for the reference's signature: the
     diagonalisation is exact."""
-    e_shift, h1, h2, occ_mask = _embedded_hamiltonian(scf_sol, frozen)
-    nelec = (int(np.sum(occ_mask[::2])), int(np.sum(occ_mask[1::2])))
-    vals, _ = run_fci(0.0, h1, h2, h1.shape[0], nelec)
+    with span("post.fci"):
+        e_shift, h1, h2, occ_mask = _embedded_hamiltonian(scf_sol, frozen)
+        nelec = (int(np.sum(occ_mask[::2])), int(np.sum(occ_mask[1::2])))
+        vals, _ = run_fci(0.0, h1, h2, h1.shape[0], nelec)
     e_tot = float(vals[0]) + e_shift + scf_sol.energy_nuc()
     logger.info("FCI embedding energy: %s", e_tot)
     return e_tot

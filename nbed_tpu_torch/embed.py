@@ -3,6 +3,7 @@ command line ``nbed-tpu-torch --config <file.json> [--device cuda|cpu]``
 (also ``python -m nbed_tpu_torch.embed``)."""
 
 from .config import NbedConfig, parse_config
+from .profiling import request, span
 
 __all__ = ["nbed", "cli"]
 
@@ -16,12 +17,16 @@ def nbed(config: "NbedConfig | str | None" = None, device="cuda", **config_kwarg
 
     Returns:
         NbedDriver: the completed driver with ``mu`` / ``huzinaga`` result
-        dicts, ``embedded_scf`` and ``classical_energy`` populated.
+        dicts, ``embedded_scf`` and ``classical_energy`` populated, and
+        ``timings``: the host seconds of every span of the call (one
+        request, :func:`nbed_tpu_torch.profiling.request`) by name.
     """
     from .driver import NbedDriver
 
-    driver = NbedDriver(parse_config(config, **config_kwargs), device=device)
-    driver.embed()
+    with request(device):
+        with span("driver.init"):
+            driver = NbedDriver(parse_config(config, **config_kwargs), device=device)
+        driver.embed()
     return driver
 
 

@@ -20,6 +20,7 @@ import torch
 
 from ..exceptions import HamiltonianBuilderError
 from ..integrals import ao_to_mo_eri
+from ..profiling import span
 
 __all__ = ["HamiltonianBuilder", "EQ_TOLERANCE", "reduce_virtuals"]
 
@@ -99,7 +100,8 @@ class HamiltonianBuilder:
     def build(self):
         """``(constant, h1_spinorb, 0.5 * h2_spinorb)``, over the orbitals
         left after ``n_frozen_virt`` and ``n_frozen_core``."""
-        return self._build(EQ_TOLERANCE)
+        with span("ham.build"):
+            return self._build(EQ_TOLERANCE)
 
     def _build(self, tolerance: float):
         """:meth:`build` with coefficients below ``tolerance`` zeroed (0.0:

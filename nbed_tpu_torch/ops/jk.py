@@ -39,19 +39,17 @@ from torch.autograd import forward_ad
 from .._compile import build_shared_library
 
 __all__ = ["fused_jk", "fused_jk_reference", "prepare_jk", "forward_ad_jk", "FusedJK",
-           "TangentJK", "Plan", "plan", "split", "LAUNCHES", "LAUNCHES_BY_M",
-           "LAUNCHES_BY_SHAPE", "LaunchRecord", "count_launch", "recording", "build_kernels",
-           "SMEM_MAX"]
+           "TangentJK", "Plan", "plan", "split", "LAUNCHES", "LAUNCHES_BY_SHAPE",
+           "LaunchRecord", "count_launch", "recording", "build_kernels", "SMEM_MAX"]
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "fused_jk.cu"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC"]
 
 # launches made through the wrapper in this process, by dtype:
-# "fused_jk_f64" and "fused_jk_f32"; by (that key, M); and by (that key,
-# M, R, B): columns, rows per lane and lanes
+# "fused_jk_f64" and "fused_jk_f32"; and by (that key, M, R, B): columns,
+# rows per lane and lanes
 LAUNCHES: Counter = Counter()
-LAUNCHES_BY_M: Counter = Counter()
 LAUNCHES_BY_SHAPE: Counter = Counter()
 
 # the open recordings of launches captured into CUDA graphs, innermost last
@@ -315,7 +313,6 @@ class FusedJK:
         f64 = g_j.dtype == torch.float64
         self._fn = build_kernels().nbed_jk_f64 if f64 else build_kernels().nbed_jk_f32
         self._key = "fused_jk_f64" if f64 else "fused_jk_f32"
-        self._key_m = (self._key, m)
         self._key_shape = (self._key, m, rows, batch)
         self._ptrs = (g_j.data_ptr(), g_k.data_ptr())
         self._dm_shape = (batch, 2, nao, nao) if lanes else (2, nao, nao)
@@ -346,7 +343,6 @@ class FusedJK:
         if err != 0:
             raise RuntimeError(f"fused_jk kernel launch failed with CUDA error {err}")
         count_launch(LAUNCHES, self._key)
-        count_launch(LAUNCHES_BY_M, self._key_m)
         count_launch(LAUNCHES_BY_SHAPE, self._key_shape)
         return out
 

@@ -15,7 +15,6 @@ in this process.
 """
 
 import gc
-import time
 import weakref
 from collections import Counter
 from contextlib import contextmanager
@@ -24,6 +23,7 @@ import numpy as np
 import torch
 from torch.autograd import forward_ad
 
+from ..profiling import span
 from .jk import LaunchRecord, recording
 
 __all__ = ["RUNS", "BufferProgram", "Captured", "DERIVATIVE_PROGRAMS", "TangentProgram",
@@ -125,16 +125,15 @@ class Captured:
 def replay(captured: Captured, kind: str):
     """Run ``captured``, capturing it at its first call, and count it in
     :data:`RUNS`: "replays" and ``kind`` (this kind's replays), and at a
-    capture "captures", "capture_s", f"{kind}_captures" and
-    f"{kind}_capture_s"."""
+    capture (the span "program.capture") "captures", "capture_s",
+    f"{kind}_captures" and f"{kind}_capture_s"."""
     if captured.captures and captured.graph is None:
-        t0 = time.perf_counter()
-        captured.capture()
-        seconds = time.perf_counter() - t0
+        with span("program.capture", {"kind": kind}) as capture:
+            captured.capture()
         for key in ("captures", f"{kind}_captures"):
             RUNS[key] += 1
         for key in ("capture_s", f"{kind}_capture_s"):
-            RUNS[key] += seconds
+            RUNS[key] += capture.seconds
         before, after = captured.reserved
         RUNS[f"{kind}_pool_gb"] += (after - before) / 1e9
     captured()

@@ -47,7 +47,6 @@ from functools import partial
 import numpy as np
 import torch
 from torch.autograd import forward_ad
-from torch.profiler import record_function
 
 from .._device import DTYPE, resolve_device
 from ..chem.molecule import Molecule, _nuclear_tables
@@ -58,6 +57,7 @@ from ..ops import eigh as eigh_ops
 from ..ops.jk import TangentJK, forward_ad_jk
 from ..ops.programs import (RUNS, TangentProgram, derivative_program, has_tangent, structure_key,
                             takes_program)
+from ..profiling import span
 from ..scf import hf
 from ..scf.engine import lane_scf, lane_spec
 from .sharding import _lane_groups, _lanes_jk, _supermatrices
@@ -224,13 +224,21 @@ def make_mu_embed_energy(mol: Molecule, n_active_atoms: int, n_act_mos, xc: str 
                 return eri_program(mol, x, omega=omega, jit_kernel=jit)
             return eri_tensor(mol, x, omega=omega, device=dev)
 
-        s, hcore = core_program(mol, x, jit)
-        g_j, g_k = _supermatrices(eris())
+        with span("lanes.core"):
+            s, hcore = core_program(mol, x, jit)
+        with span("lanes.eri"):
+            eri = eris()
+        with span("lanes.supermatrices"):
+            g_j, g_k = _supermatrices(eri)
         ops = {"s": s, "hcore": hcore, "g_j": g_j, "g_k": g_k, "g_k_xc": g_k}
         if rsh is not None:
-            ops["g_k_xc"] = hyb * g_k + rsh[0] * _supermatrices(eris(rsh[1]))[1]
+            with span("lanes.eri"):
+                eri_lr = eris(rsh[1])
+            with span("lanes.supermatrices"):
+                ops["g_k_xc"] = hyb * g_k + rsh[0] * _supermatrices(eri_lr)[1]
         if terms:
-            tables = tables_program(mol, x, level=grid_level, jit_kernel=jit)
+            with span("lanes.tables"):
+                tables = tables_program(mol, x, level=grid_level, jit_kernel=jit)
             ops.update(ao=tables["ao"], ao_grad=tables["ao_grad"], w=tables["w"])
         return ops
 
@@ -319,7 +327,7 @@ def make_mu_embed_energy(mol: Molecule, n_active_atoms: int, n_act_mos, xc: str 
         program = dual and takes_program(jit_kernel, (x,), tangent=True)
         if dual:
             RUNS["embed_tangent_program" if program else "embed_tangent_eager"] += 1
-        with record_function("embed.operators"):
+        with span("embed.operators"):
             ops = operators(x, program)
         ks_ops = {"hcore": ops["hcore"], "s": ops["s"], "g_j": ops["g_j"],
                   "g_k": ops["g_k_xc"]}
@@ -327,11 +335,11 @@ def make_mu_embed_energy(mol: Molecule, n_active_atoms: int, n_act_mos, xc: str 
         hf_ops = {name: ops[name] for name in ("hcore", "s", "g_j", "g_k")}
 
         # global KS (the driver's _global_ks)
-        with record_function("embed.global_ks"):
+        with span("embed.global_ks"):
             glob = lane_scf(ks_spec, ks_ops, _lane_build(n, grid_terms, dual), hyb=hyb_xc,
                             nelec=n_occ, **run)
 
-        with record_function("embed.spade_subsystem"):
+        with span("embed.spade_subsystem"):
             inputs = {"c": glob.mo_coeff, "x": x, **ks_ops}
             if program:
                 sub = subsystem_program(inputs)
@@ -341,7 +349,7 @@ def make_mu_embed_energy(mol: Molecule, n_active_atoms: int, n_act_mos, xc: str 
         e_global = glob.e_elec + sub["e_nuc"]
 
         # embedded HF
-        with record_function("embed.embedded_hf"):
+        with span("embed.embedded_hf"):
             hf_build = _lane_build(n, None, dual)
             if projector == "mu":
                 emb = lane_scf(hf_spec, hf_ops, hf_build, nelec=n_act, v_emb=sub["v_emb"],

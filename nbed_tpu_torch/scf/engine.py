@@ -60,7 +60,6 @@ streaming-crash chunking are not ported, nor is its Pallas switch
 
 import itertools
 import logging
-import time
 import weakref
 from dataclasses import dataclass, field
 from functools import cached_property, lru_cache
@@ -85,6 +84,7 @@ from ..ops.jk import LAUNCHES, prepare_jk
 from ..ops.programs import RUNS, cached_program, has_tangent, replay, takes_program
 from ..ops.programs import Captured as _Captured
 from ..ops.programs import card as _card
+from ..profiling import span
 from .hf import (SCFProgram, TangentSCFProgram, _first_lane, _one_lane, carries_derivative,
                  lowdin_x, make_rdm1, run_scf)
 
@@ -135,29 +135,30 @@ def df_b_factor(mol, beta: float = 1.8, device="cuda",
     auxiliary axis (eigenvector freedom): compare B B^T, never B.
 
     ``coords`` (Bohr) overrides the molecule's geometry. ``timings``, when
-    given, receives the seconds of each part:
-    ``eri_3c``, ``eri_2c``, ``eigh`` (host) and ``product`` (device).
+    given, receives the seconds of each part, the spans "df.eri_3c",
+    "df.eri_2c", "df.eigh" (host) and "df.product" (device, synchronised):
+    ``eri_3c``, ``eri_2c``, ``eigh`` and ``product``.
     """
     device = resolve_device(device)
     timings = {} if timings is None else timings
     aux = make_auxiliary_molecule(mol, beta=beta)
-    t0 = time.perf_counter()
-    b3 = native.eri_3c(mol, aux, coords, omega=omega)
-    t1 = time.perf_counter()
-    m2 = native.eri_2c(aux, coords, omega=omega)
-    t2 = time.perf_counter()
-    w, v = np.linalg.eigh(m2)
-    keep = w > 1e-10 * w.max()
-    m_isqrt = v[:, keep] / np.sqrt(w[keep])[None, :]  # (naux, nkeep)
-    t3 = time.perf_counter()
-    nao = mol.nao
-    b = torch.as_tensor(b3, dtype=DTYPE, device=device).reshape(nao * nao, -1)
-    b = b @ torch.as_tensor(m_isqrt, dtype=DTYPE, device=device)
-    b = b.reshape(nao, nao, -1).permute(0, 2, 1).contiguous()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    timings.update(eri_3c=t1 - t0, eri_2c=t2 - t1, eigh=t3 - t2,
-                   product=time.perf_counter() - t3)
+    with span("df.eri_3c") as eri_3c:
+        b3 = native.eri_3c(mol, aux, coords, omega=omega)
+    with span("df.eri_2c") as eri_2c:
+        m2 = native.eri_2c(aux, coords, omega=omega)
+    with span("df.eigh") as eigh:
+        w, v = np.linalg.eigh(m2)
+        keep = w > 1e-10 * w.max()
+        m_isqrt = v[:, keep] / np.sqrt(w[keep])[None, :]  # (naux, nkeep)
+    with span("df.product") as product:
+        nao = mol.nao
+        b = torch.as_tensor(b3, dtype=DTYPE, device=device).reshape(nao * nao, -1)
+        b = b @ torch.as_tensor(m_isqrt, dtype=DTYPE, device=device)
+        b = b.reshape(nao, nao, -1).permute(0, 2, 1).contiguous()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    timings.update(eri_3c=eri_3c.seconds, eri_2c=eri_2c.seconds, eigh=eigh.seconds,
+                   product=product.seconds)
     logger.debug("DF aux: %d functions, %d kept after metric pruning",
                  len(w), int(keep.sum()))
     return b
@@ -281,9 +282,9 @@ class _GraphedSCF:
             return
         buffers = self.program.buffers()
         saved = [t.clone() for t in buffers]
-        t0 = time.perf_counter()
-        captured.capture()
-        stats["capture_s"] += time.perf_counter() - t0
+        with span("program.capture", {"kind": "scf"}) as capture:
+            captured.capture()
+        stats["capture_s"] += capture.seconds
         stats["captures"] += 1
         before, after = captured.reserved
         RUNS["scf_pool_gb"] += (after - before) / 1e9
@@ -323,27 +324,30 @@ class _GraphedSCF:
         cycles, then the ``grad_cycles`` polish if any lane converged and
         the final build; returns the
         :class:`nbed_tpu_torch.scf.hf.SCFResult` and adds replays, host
-        reads, captures and capture seconds to ``stats``."""
+        reads, captures and capture seconds to ``stats``. The load is a part
+        of the span "scf.setup", the rest the span "scf.run"."""
         prog = self.program
-        prog.load(**inputs)
+        with span("scf.setup"):
+            prog.load(**inputs)
         max_cycle = int(inputs["max_cycle"])
-        mixed = 0
-        if prog.incremental:
-            def pick(it, ddm):
-                if self.cycles > 1:
-                    return self._variant((None, None), self.cycles), self.cycles
-                coarse = prog.xc_fast and ddm > prog.xc_switch_tol
-                return self._variant((it % prog.rebase_every == 0, coarse), 1), 1
+        with span("scf.run"):
+            mixed = 0
+            if prog.incremental:
+                def pick(it, ddm):
+                    if self.cycles > 1:
+                        return self._variant((None, None), self.cycles), self.cycles
+                    coarse = prog.xc_fast and ddm > prog.xc_switch_tol
+                    return self._variant((it % prog.rebase_every == 0, coarse), 1), 1
 
-            mixed = int(self._loop(pick, max_cycle, stats)[1])
-            prog.start_polish()
-        status = self._loop(lambda it, ddm: (self.chunk, self.cycles), max_cycle, stats)
-        if self.grad is not None and status[4]:
-            for _ in range(prog.polish_replays):
-                self._replay(self.grad, stats)
-        self._replay(self.final, stats)
-        stats["host_reads"] += 1  # the energy, read by result()
-        return prog.result(mixed)
+                mixed = int(self._loop(pick, max_cycle, stats)[1])
+                prog.start_polish()
+            status = self._loop(lambda it, ddm: (self.chunk, self.cycles), max_cycle, stats)
+            if self.grad is not None and status[4]:
+                for _ in range(prog.polish_replays):
+                    self._replay(self.grad, stats)
+            self._replay(self.final, stats)
+            stats["host_reads"] += 1  # the energy, read by result()
+            return prog.result(mixed)
 
 
 class _FixedProgram:
@@ -579,7 +583,8 @@ class SCFEngine:
 
     @cached_property
     def _native_1e(self):
-        return native.one_electron(self.mol, self.coords)
+        with span("integrals.native"):
+            return native.one_electron(self.mol, self.coords)
 
     @cached_property
     def s(self):
@@ -610,7 +615,8 @@ class SCFEngine:
     def eri(self):
         if self._torch_integrals:  # the "eri" program under jit_kernel
             return eri_program(self.mol, self._tensor(self.coords), jit_kernel=self.jit_kernel)
-        return self._tensor(native.eri(self.mol, self.coords))
+        with span("integrals.native"):
+            return self._tensor(native.eri(self.mol, self.coords))
 
     @cached_property
     def eri_lr(self):
@@ -619,7 +625,8 @@ class SCFEngine:
         if self._torch_integrals:
             return eri_program(self.mol, self._tensor(self.coords), omega=omega,
                                jit_kernel=self.jit_kernel)
-        return self._tensor(native.eri(self.mol, self.coords, omega=omega))
+        with span("integrals.native"):
+            return self._tensor(native.eri(self.mol, self.coords, omega=omega))
 
     @cached_property
     def eri_j(self):
@@ -1090,13 +1097,15 @@ class SCFEngine:
             def cast(t):
                 return None if t is None else t.to(f32)
 
-            graph = self._scf_graph(f32, nelec, present, 0.0, cycles)
+            with span("scf.setup"):
+                graph = self._scf_graph(f32, nelec, present, 0.0, cycles)
             warm = graph.run(dict(v_emb=cast(v_emb), dm_env_occ=cast(dm_env_occ),
                                   dm_env_virt=cast(dm_env_virt), dm0=cast(dm0),
                                   conv_tol=1e-4, dm_conv_tol=1e-3, max_cycle=max_cycle), stats)
             stats["warmup_cycles"] = warm.n_iter
             dm0 = warm.dm.to(DTYPE)
-        graph = self._scf_graph(DTYPE, nelec, present, level_shift, cycles)
+        with span("scf.setup"):
+            graph = self._scf_graph(DTYPE, nelec, present, level_shift, cycles)
         res = graph.run(dict(v_emb=v_emb, dm_env_occ=dm_env_occ, dm_env_virt=dm_env_virt,
                              dm0=dm0, conv_tol=conv_tol, dm_conv_tol=dm_conv_tol,
                              max_cycle=max_cycle), stats)
@@ -1223,30 +1232,34 @@ class SCFEngine:
                dm0=None, conv_tol=None, dm_conv_tol=None, max_cycle=None,
                level_shift=0.0) -> "SCFSolution":
         """Run SCF; all embedding terms are explicit arguments. Graphed or
-        eager as ``jit_kernel`` says; ``last_run`` records which."""
-        nelec = self.mol.nelec if nelec is None else nelec
-        if self.restricted and nelec[0] != nelec[1]:
-            raise ValueError("Restricted reporting requires n_alpha == n_beta.")
-        xc_fn, hyb = self._xc
-        from_guess = False
-        if (dm0 is None and self.init_guess == "sad"
-                and tuple(nelec) == tuple(self.mol.nelec) and v_emb is None):
-            # full-molecule SCF: seed from atomic densities (embedded SCFs
-            # keep the reference's modified-hcore guess)
-            dm0 = self._sad_guess()
-            from_guess = True
-        max_cycle = self.max_cycle if max_cycle is None else max_cycle
-        conv_tol = self.conv_tol if conv_tol is None else conv_tol
-        dm_conv_tol = self.dm_conv_tol if dm_conv_tol is None else dm_conv_tol
-        warmup = self.warmup_f32 and (dm0 is None or from_guess)
+        eager as ``jit_kernel`` says; ``last_run`` records which. The guess,
+        the operators and the program are the span "scf.setup", the cycles
+        "scf.run"."""
+        with span("scf.setup"):
+            nelec = self.mol.nelec if nelec is None else nelec
+            if self.restricted and nelec[0] != nelec[1]:
+                raise ValueError("Restricted reporting requires n_alpha == n_beta.")
+            xc_fn, hyb = self._xc
+            from_guess = False
+            if (dm0 is None and self.init_guess == "sad"
+                    and tuple(nelec) == tuple(self.mol.nelec) and v_emb is None):
+                # full-molecule SCF: seed from atomic densities (embedded SCFs
+                # keep the reference's modified-hcore guess)
+                dm0 = self._sad_guess()
+                from_guess = True
+            max_cycle = self.max_cycle if max_cycle is None else max_cycle
+            conv_tol = self.conv_tol if conv_tol is None else conv_tol
+            dm_conv_tol = self.dm_conv_tol if dm_conv_tol is None else dm_conv_tol
+            warmup = self.warmup_f32 and (dm0 is None or from_guess)
+            v_emb_t = None if v_emb is None else self._tensor(v_emb)
+            graphed = self._takes_graphs((v_emb_t, dm_env_occ, dm_env_virt, dm0))
 
         def opt(t, dtype=DTYPE):
             return None if t is None else _spinify(self._tensor(t)).to(dtype)
 
-        v_emb_t = None if v_emb is None else self._tensor(v_emb)
         stats = {"mode": "eager", "replays": 0, "host_reads": 0, "captures": 0,
                  "capture_s": 0.0}
-        if self._takes_graphs((v_emb_t, dm_env_occ, dm_env_virt, dm0)):
+        if graphed:
             stats["mode"] = "graph"
             v2 = v_emb_t if v_emb_t is None or v_emb_t.ndim == 3 else \
                 torch.stack([v_emb_t, v_emb_t])
@@ -1254,27 +1267,28 @@ class SCFEngine:
                                        conv_tol, dm_conv_tol, int(max_cycle), level_shift,
                                        warmup, stats)
         else:
-            if warmup:
-                f32 = torch.float32
-                ops = self._f32_ops
-                warm = run_scf(
-                    hcore=ops["hcore"], s=ops["s"], jk_fn=ops["jk_fn"], nelec=nelec,
-                    v_emb=None if v_emb_t is None else v_emb_t.to(f32),
-                    xc_fn=ops["xc_fn"], hyb=ops["hyb"],
-                    dm_env_occ=opt(dm_env_occ, f32), dm_env_virt=opt(dm_env_virt, f32),
-                    dm0=opt(dm0, f32), conv_tol=1e-4, dm_conv_tol=1e-3,
-                    max_cycle=max_cycle, rohf=self.rohf,
+            with span("scf.run"):
+                if warmup:
+                    f32 = torch.float32
+                    ops = self._f32_ops
+                    warm = run_scf(
+                        hcore=ops["hcore"], s=ops["s"], jk_fn=ops["jk_fn"], nelec=nelec,
+                        v_emb=None if v_emb_t is None else v_emb_t.to(f32),
+                        xc_fn=ops["xc_fn"], hyb=ops["hyb"],
+                        dm_env_occ=opt(dm_env_occ, f32), dm_env_virt=opt(dm_env_virt, f32),
+                        dm0=opt(dm0, f32), conv_tol=1e-4, dm_conv_tol=1e-3,
+                        max_cycle=max_cycle, rohf=self.rohf,
+                    )
+                    stats["warmup_cycles"] = warm.n_iter
+                    dm0 = warm.dm.to(DTYPE)
+                res = run_scf(
+                    hcore=self.hcore, s=self.s, jk_fn=self.get_jk, nelec=nelec,
+                    jk_fn_fast=self._jk_fast_fn, xc_fn_fast=self._xc_fast_fn,
+                    rebase_every=self.rebase_every, v_emb=v_emb_t, xc_fn=xc_fn, hyb=hyb,
+                    dm_env_occ=opt(dm_env_occ), dm_env_virt=opt(dm_env_virt), dm0=opt(dm0),
+                    conv_tol=conv_tol, dm_conv_tol=dm_conv_tol, max_cycle=max_cycle,
+                    level_shift=level_shift, rohf=self.rohf,
                 )
-                stats["warmup_cycles"] = warm.n_iter
-                dm0 = warm.dm.to(DTYPE)
-            res = run_scf(
-                hcore=self.hcore, s=self.s, jk_fn=self.get_jk, nelec=nelec,
-                jk_fn_fast=self._jk_fast_fn, xc_fn_fast=self._xc_fast_fn,
-                rebase_every=self.rebase_every, v_emb=v_emb_t, xc_fn=xc_fn, hyb=hyb,
-                dm_env_occ=opt(dm_env_occ), dm_env_virt=opt(dm_env_virt), dm0=opt(dm0),
-                conv_tol=conv_tol, dm_conv_tol=dm_conv_tol, max_cycle=max_cycle,
-                level_shift=level_shift, rohf=self.rohf,
-            )
         stats["cycles"] = res.n_iter
         if self.incremental_jk == "on":
             stats["mixed_cycles"] = res.n_mixed

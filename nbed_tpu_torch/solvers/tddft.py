@@ -28,7 +28,6 @@ thick restart, a ``RuntimeWarning`` if it stops unconverged) around the
 device matvec.
 """
 
-import time
 import warnings
 
 import numpy as np
@@ -37,6 +36,7 @@ import torch
 from .._device import DTYPE, to_host
 from ..dft.xc import STREAM_CHUNK, TABLE_CHUNK
 from ..ops.programs import replay
+from ..profiling import span
 from ..scf.engine import _Captured, _FixedProgram, _spinify, _xc_closure
 from .cis import CISResult, RPAResult
 
@@ -79,9 +79,9 @@ def _davidson(matvec_block, diag, nroots, max_subspace=120, conv_tol=1e-8,
     stats.update(iterations=0, matvec_blocks=0, matvec_s=0.0)
 
     def apply(block):
-        t0 = time.perf_counter()
-        out = matvec_block(block)
-        stats["matvec_s"] += time.perf_counter() - t0
+        with span("tddft.matvec") as matvec:
+            out = matvec_block(block)
+        stats["matvec_s"] += matvec.seconds
         stats["matvec_blocks"] += 1
         return out
 

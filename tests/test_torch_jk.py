@@ -172,7 +172,7 @@ def test_cpu_engine_takes_plain_version(monkeypatch):
                         lambda g_j, g_k, dm: calls.append(dm.dtype) or plain(g_j, g_k, dm))
     xyz = "2\n\nH 0.0 0.0 0.0\nH 0.0 0.0 0.74\n"
     eng = SCFEngine(build_molecule(xyz, "sto-3g"), device="cpu", warmup_f32=True)
-    before = dict(jk.LAUNCHES), dict(jk.LAUNCHES_BY_M)
+    before = dict(jk.LAUNCHES), dict(jk.LAUNCHES_BY_SHAPE)
     dm = torch.eye(2, dtype=torch.float64)
     j, k = eng.get_jk(torch.stack([dm, dm]))
     j_ref, k_ref = plain(eng.eri_j, eng.eri_k, torch.stack([dm, dm]))
@@ -181,7 +181,7 @@ def test_cpu_engine_takes_plain_version(monkeypatch):
     eng._f32_ops["jk_fn"](torch.stack([dm, dm]).float())
     assert calls == [torch.float64, torch.float32]
     assert not isinstance(eng._jk_exact, jk.FusedJK)
-    assert (dict(jk.LAUNCHES), dict(jk.LAUNCHES_BY_M)) == before
+    assert (dict(jk.LAUNCHES), dict(jk.LAUNCHES_BY_SHAPE)) == before
 
 
 @pytest.mark.cuda
