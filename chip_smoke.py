@@ -3041,6 +3041,82 @@ def check_eigh() -> list:
     return rows
 
 
+# the FCI sectors (spin orbitals, nelec, nonzero h2 terms drawn; None: all)
+# the sector-matrix kernel is held and timed at: water's embedded mu sector
+# (the benchmark's water cell, D = 100), water's full sector (the global
+# FCI, D = 441), and two larger sectors (D = 3920, 15876) on sparse random
+# terms, so that the host oracle builds them in seconds
+FCI_SECTORS = ((10, (3, 3), None), (14, (5, 5), None), (16, (4, 3), 2000),
+               (18, (4, 4), 2000))
+
+
+def fci_bound(dim: int):
+    """(ms, "bytes"): the least time of one sector matrix, its D^2 float64
+    written once at 3.35 TB/s (h1 and h2 are read from L2; the operations
+    per element are a few dozen integer steps, not a bound)."""
+    return 1e3 * dim * dim * 8 / HBM_BYTES_PER_S, "bytes"
+
+
+def check_fci_hamiltonian() -> list:
+    """The sector-matrix kernel (``ops.fci_hamiltonian``) at each of
+    :data:`FCI_SECTORS` on seeded random Hermitian h1 and h2 against the host
+    oracle ``sector_hamiltonian(...).toarray()`` (within 1e-12), and
+    ``run_fci``'s card route against its host route (lowest three values
+    within 1e-10); times the kernel (single call, back to back and by the
+    profiler), the oracle, ``torch.linalg.eigvalsh`` of the matrix and both
+    routes of ``run_fci``; returns rows."""
+    from nbed_tpu_torch.ops import fci_hamiltonian as fh
+    from nbed_tpu_torch.solvers import fci
+
+    rows = []
+    for n, nelec, n_terms in FCI_SECTORS:
+        rng = np.random.default_rng(n)
+        h1 = rng.standard_normal((n, n))
+        h2 = rng.standard_normal((n, n, n, n))
+        if n_terms is not None:
+            keep = np.zeros(h2.size, dtype=bool)
+            keep[rng.choice(h2.size, n_terms, replace=False)] = True
+            h2 = h2 * keep.reshape(h2.shape)
+        h1, h2 = h1 + h1.T, 0.5 * (h2 + h2.transpose(3, 2, 1, 0))
+        h1c, h2c = (torch.tensor(t, device="cuda") for t in (h1, h2))
+        basis_c = torch.as_tensor(fci.sector_basis(n, nelec), device="cuda")
+        dim = basis_c.numel()
+        kernel = lambda: fh.sector_matrix(0.5, h1c, h2c, basis_c)  # noqa: E731
+        ours = kernel()
+        t0 = time.perf_counter()
+        ref = fci.sector_hamiltonian(0.5, h1, h2, n, nelec)[0].toarray()
+        oracle_ms = 1e3 * (time.perf_counter() - t0)
+        err = float(np.max(np.abs(ours.cpu().numpy() - ref)))
+        del ref
+        if not err <= 1e-12:
+            raise RuntimeError(f"fci_hamiltonian D={dim}: kernel misses the host oracle "
+                               f"by {err}")
+        if not torch.equal(kernel(), ours):
+            raise RuntimeError(f"fci_hamiltonian D={dim}: two launches differ")
+        route = lambda: fci.run_fci(0.5, h1c, h2c, n, nelec, k=3)  # noqa: E731
+        # the two larger sectors' eigvalsh takes up to seconds: one timed call
+        reps, warmup = (10, 3) if dim <= 441 else (1, 1)
+        vals = route()[0]
+        row = {"n": n, "nelec": list(nelec), "dim": dim, "h2_terms": int(np.count_nonzero(h2)),
+               "max_abs_err": err, "ms": median_ms(kernel), "ms_stream": stream_ms(kernel),
+               "kernel_device_us": device_us(kernel, "fci_hamiltonian"),
+               "oracle_ms": oracle_ms,
+               "eigvalsh_ms": median_ms(lambda: torch.linalg.eigvalsh(ours), reps, warmup),
+               "card_route_ms": median_ms(route, reps, warmup),
+               **dict(zip(("bound_ms", "bound_by"), fci_bound(dim)))}
+        del ours
+        t0 = time.perf_counter()
+        host_vals = fci.run_fci(0.5, h1, h2, n, nelec, k=3)[0]
+        row["host_route_ms"] = 1e3 * (time.perf_counter() - t0)
+        row["route_max_abs_err"] = float(np.max(np.abs(vals - host_vals)))
+        if not row["route_max_abs_err"] <= 1e-10:
+            raise RuntimeError(f"run_fci D={dim}: card route misses the host route by "
+                               f"{row['route_max_abs_err']}")
+        print("fci_hamiltonian", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 @contextmanager
 def driver_engines(jit_kernel: str):
     """Inside the block, the engines that ``nbed()`` makes run with
@@ -3890,15 +3966,17 @@ def run_mp2_graphed(pfoa_driver, device="cuda"):
 
 
 def build_all():
-    """Build the CUDA kernel library, the cuSOLVER eigh library and the two
-    host C++ libraries, each compiler started at once."""
+    """Build the CUDA kernel library, the cuSOLVER eigh library, the FCI
+    sector-matrix kernel and the two host C++ libraries, each compiler
+    started at once."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nbed_tpu_torch._compile import native_integrals_library, qubit_terms_library
-    from nbed_tpu_torch.ops import eigh, jk
+    from nbed_tpu_torch.ops import eigh, fci_hamiltonian, jk
 
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         futures = [pool.submit(f) for f in (jk.build_kernels, eigh.build_library,
+                                            fci_hamiltonian.build_library,
                                             native_integrals_library, qubit_terms_library)]
         for f in futures:
             f.result()
@@ -3916,6 +3994,9 @@ MIXED = ("fused_jk_f64", "fused_jk_f32", "eigh_f64", "eigh_f32")
 LANES = ("fused_jk_f64", "lanes", "eigh_f64")
 # the incremental SCF's float32 J/K of density changes inside graphs
 INCREMENTAL = ("fused_jk_f32", "eigh_f64")
+# the embedded or global FCI of integrals on the card: the sector-matrix
+# kernel, eager, once per run_fci
+FCI = ("fci_hamiltonian",)
 # the phases of the post-SCF, derivatives, parallel, compiled-program,
 # shared-program, remaining-program, quantum-end and derivative-program
 # slices, summarised at the end
@@ -3932,7 +4013,7 @@ NEW_PHASES = ("water_global", "acetonitrile_post", "h2_stability", "water_qse", 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False")
-    from nbed_tpu_torch.ops import eigh, jk
+    from nbed_tpu_torch.ops import eigh, fci_hamiltonian, jk
     from nbed_tpu_torch.scf import engine
     from nbed_tpu_torch.scf.engine import _atomic_density
 
@@ -3955,6 +4036,9 @@ def main():
     t0 = time.perf_counter()
     eigh_rows = check_eigh()
     phase_s["eigh_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fci_rows = check_fci_hamiltonian()
+    phase_s["fci_hamiltonian_check"] = time.perf_counter() - t0
 
     # each pipeline is a cold run (its atoms' SAD SCFs included), with the
     # launch counts set to 0 just before it and read just after
@@ -3962,7 +4046,8 @@ def main():
     per_phase, by_m, by_shape, peak_gb, runs = {}, {}, {}, {}, {}
 
     def count(name):
-        per_phase[name] = {**jk.LAUNCHES, **eigh.LAUNCHES, "lanes": lane_launches()}
+        per_phase[name] = {**jk.LAUNCHES, **eigh.LAUNCHES, **fci_hamiltonian.LAUNCHES,
+                           "lanes": lane_launches()}
         runs[name] = dict(engine.RUNS)
         for (key, m, r, b), n in jk.LAUNCHES_BY_SHAPE.items():
             by_m[f"{key} M={m}"] = by_m.get(f"{key} M={m}", 0) + n
@@ -3973,6 +4058,7 @@ def main():
         jk.LAUNCHES.clear()
         jk.LAUNCHES_BY_SHAPE.clear()
         eigh.LAUNCHES.clear()
+        fci_hamiltonian.LAUNCHES.clear()
         engine.RUNS.clear()
 
     def remember(name, driver):
@@ -4000,23 +4086,23 @@ def main():
         ("water_embed_fleet", run_water_embed_fleet, LANES),
         ("embed_tangents_graphed", run_embed_tangents_graphed, LANES),
         ("sharded", run_sharded, LANES),
-        ("water", run_water, F64),
-        ("water_mixed", lambda: run_mixed("water", f64["water"]), MIXED),
+        ("water", run_water, F64 + FCI),
+        ("water_mixed", lambda: run_mixed("water", f64["water"]), MIXED + FCI),
         ("acetonitrile", run_acetonitrile, F64),
         ("acetonitrile_mixed", lambda: run_mixed("acetonitrile", f64["acetonitrile"]),
          MIXED),
         ("acetonitrile_taper", run_acetonitrile_taper, F64),
-        ("water_vqe", run_water_vqe, F64),
+        ("water_vqe", run_water_vqe, F64 + FCI),
         ("vqe_20q", lambda: run_vqe_20q(keep["pra_scf"], *keep["water"]), ()),
         ("vqe_graphed", lambda: run_vqe_graphed(keep.pop("water_registers"),
                                                 keep["pra_scf"]), ()),
         ("adapt_graphed", lambda: run_adapt_graphed(*keep.pop("water"), keep.pop("pra_scf")),
          ()),
-        ("water_qse", lambda: run_water_qse(*keep.pop("water_qse")), ()),
+        ("water_qse", lambda: run_water_qse(*keep.pop("water_qse")), FCI),
         ("water631g_localizers", run_water631g_localizers, F64),
         ("acetonitrile_pao", run_acetonitrile_pao, F64),
         ("acetonitrile_cis", run_acetonitrile_cis, F64),
-        ("water_global", run_water_global, F64),
+        ("water_global", run_water_global, F64 + FCI),
         ("acetonitrile_post", run_acetonitrile_post, F64),
         ("h2_stability", run_h2_stability, F64),
         ("water_derivatives", run_water_derivatives, LANES),
@@ -4205,6 +4291,20 @@ def main():
                                    "ms_stream", "host_us", "kernel_device_us", "n", "batch",
                                    "dtype")},
         })
+    # the FCI sector matrix at water's embedded mu sector (D = 100)
+    row = next(r for r in fci_rows if r["dim"] == 100)
+    kernels.append({
+        "name": "fci_hamiltonian", "route": "cuda",
+        "source": "nbed_tpu_torch/csrc/fci_hamiltonian.cu",
+        "replaces": "nbed_tpu/solvers/fci.py:60",
+        "launches": sum(c.get("fci_hamiltonian", 0) for c in per_phase.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in fci_rows),
+        "library_ms": None,
+        # the plain version: the host oracle, sector_hamiltonian(...).toarray()
+        "plain_ms": row["oracle_ms"],
+        **{k: row[k] for k in ("ms", "bound_ms", "bound_by", "ms_stream",
+                               "kernel_device_us", "dim")},
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,46 @@
 """Exact diagonalisation in a fixed (n_alpha, n_beta) determinant sector
-(port of ``nbed_tpu/solvers/fci.py``, host numpy/scipy).
+(port of ``nbed_tpu/solvers/fci.py``).
 
 Operates directly on interleaved spin-orbital tensors
 ``H = const + sum h1[p,q] a+_p a_q + sum h2[p,q,r,s] a+_p a+_q a_r a_s``
-(the :class:`nbed_tpu_torch.ham.HamiltonianBuilder` output), with
-vectorised bitstring arithmetic over the determinant basis. Tensors given
-here are copied to host numpy first.
+(the :class:`nbed_tpu_torch.ham.HamiltonianBuilder` output). :func:`run_fci`
+takes one of two routes by the device its tensors lie on:
+
+- "card": h1 on a CUDA device. The hand-written kernel
+  ``csrc/fci_hamiltonian.cu``
+  (:func:`nbed_tpu_torch.ops.fci_hamiltonian.sector_matrix`) writes the
+  dense sector matrix from h1 and h2 where they lie, and cuSOLVER's dense
+  symmetric solver (``torch.linalg.eigvalsh``) diagonalises it; the lowest
+  k eigenvalues are the one host read. A sector whose dense matrix does not
+  fit in the card's free memory raises ``torch.OutOfMemoryError``: nothing
+  of a CUDA call moves to the host.
+- "host": h1 on the CPU (or a numpy array), as the reference does it:
+  :func:`sector_hamiltonian` builds the sparse matrix with vectorised
+  bitstring arithmetic over the determinant basis, one pass per nonzero
+  term, and numpy (or ``eigsh`` above 600 determinants) diagonalises it.
+
+:data:`ROUTES` counts the calls by route; spans ``fci.build`` and
+``fci.eigh`` time the two steps of either.
 """
 
+from collections import Counter
+from functools import lru_cache
 from itertools import combinations
+from math import comb
 
 import numpy as np
+import torch
 from scipy.sparse import coo_matrix, identity
 from scipy.sparse.linalg import eigsh
 
 from .._device import to_host
+from ..ops.fci_hamiltonian import sector_matrix
+from ..profiling import span
 
-__all__ = ["run_fci", "sector_hamiltonian", "sector_basis"]
+__all__ = ["run_fci", "sector_hamiltonian", "sector_basis", "ROUTES"]
+
+# run_fci calls in this process by route: "card" and "host"
+ROUTES: Counter = Counter()
 
 
 def sector_basis(n_spinorb: int, nelec: tuple) -> np.ndarray:
@@ -99,13 +123,70 @@ def sector_hamiltonian(constant, h1, h2, n_spinorb: int, nelec: tuple):
     return ham, basis
 
 
+def _sector_dim(n_spinorb: int, nelec) -> int:
+    """Number of determinants of :func:`sector_basis`."""
+    return comb(len(range(0, n_spinorb, 2)), nelec[0]) * comb(n_spinorb // 2, nelec[1])
+
+
+def _card_route(device: torch.device) -> bool:
+    """Whether tensors on ``device`` take the card route."""
+    return device.type == "cuda"
+
+
+def _dense_bytes(dim: int) -> int:
+    """Device bytes of the card route at ``dim`` determinants: the float64
+    matrix and the copy of it that ``eigvalsh`` factorises."""
+    return 2 * dim * dim * 8
+
+
+def _check_fits(dim: int, free_bytes: int, device) -> None:
+    """Raise ``torch.OutOfMemoryError`` where the card route's dense sector
+    matrix of ``dim`` determinants needs more than ``free_bytes``."""
+    need = _dense_bytes(dim)
+    if need > free_bytes:
+        raise torch.OutOfMemoryError(
+            f"run_fci: a sector of {dim} determinants needs {need / 2**30:.2f} GiB on "
+            f"{device} as a dense matrix, {free_bytes / 2**30:.2f} GiB are free; "
+            f"pass the integrals on the CPU for the sparse host route")
+
+
+def _free_bytes(device: torch.device) -> int:
+    """The card's free memory plus what PyTorch's allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+@lru_cache(maxsize=32)
+def _device_basis(n_spinorb: int, nelec: tuple, device: torch.device):
+    """(:func:`sector_basis`, read-only, and its copy on ``device``), made
+    once per sector and device."""
+    basis = sector_basis(n_spinorb, nelec)
+    on_device = torch.as_tensor(basis, device=device)
+    basis.setflags(write=False)
+    return basis, on_device
+
+
 def run_fci(constant, h1, h2, n_spinorb: int, nelec: tuple, k: int = 1):
-    """Lowest-k eigenvalues of the sector Hamiltonian (ascending) and the
-    basis bitstrings; ``h2`` is the HamiltonianBuilder's ``0.5*h2``
-    coefficient tensor."""
-    ham, basis = sector_hamiltonian(constant, h1, h2, n_spinorb, nelec)
-    if ham.shape[0] <= 600:
-        vals = np.linalg.eigvalsh(ham.toarray())[:k]
-    else:
-        vals = np.sort(eigsh(ham, k=k, which="SA", return_eigenvectors=False))
+    """Lowest-k eigenvalues of the sector Hamiltonian (ascending numpy) and
+    the basis bitstrings (numpy); ``h2`` is the HamiltonianBuilder's
+    ``0.5*h2`` coefficient tensor. h1 on a CUDA device takes the card
+    route, h1 on the CPU the host route (module docstring)."""
+    nelec = (int(nelec[0]), int(nelec[1]))
+    if isinstance(h1, torch.Tensor) and _card_route(h1.device):
+        _check_fits(_sector_dim(n_spinorb, nelec), _free_bytes(h1.device), h1.device)
+        ROUTES["card"] += 1
+        with span("fci.build"):
+            basis, basis_dev = _device_basis(n_spinorb, nelec, h1.device)
+            ham = sector_matrix(constant, h1, h2, basis_dev)
+        with span("fci.eigh"):
+            vals = torch.linalg.eigvalsh(ham)[:k].cpu().numpy()
+        return vals, basis
+    ROUTES["host"] += 1
+    with span("fci.build"):
+        ham, basis = sector_hamiltonian(constant, h1, h2, n_spinorb, nelec)
+    with span("fci.eigh"):
+        if ham.shape[0] <= 600:
+            vals = np.linalg.eigvalsh(ham.toarray())[:k]
+        else:
+            vals = np.sort(eigsh(ham, k=k, which="SA", return_eigenvectors=False))
     return vals, basis
