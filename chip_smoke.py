@@ -5,7 +5,13 @@ against its plain PyTorch version on the card (the fused J/K kernel also on
 CAM-B3LYP's range-separated exchange operator), then drives the embedding
 pipeline end to end through ``nbed_tpu_torch.nbed(..., device="cuda")`` on
 water (both projectors, CCSD and FCI) and on the acetonitrile configuration
-of the PRA 109, 022418 notebook (28-qubit embedded register).
+of the PRA 109, 022418 notebook (28-qubit embedded register). Before the
+pipelines it holds the FCI kernels: the dense sector matrix against the host
+oracle, the matrix-free route (``check_fci_direct``: its gather and scatter
+kernels against their plain steps, its eigenvalues against the dense route's,
+and both routes' times, which set ``fci.DENSE_MAX``), and acetonitrile's
+embedded FCI of the published 28-qubit sector, 11,778,624 determinants,
+against the benchmark's plain reference (``check_fci_acetonitrile``).
 
 The functional surface follows: water's global UKS for every registered
 functional, a composition string and B2PLYP's PT2 term; ROHF and ROKS of
@@ -3061,8 +3067,8 @@ def check_fci_hamiltonian() -> list:
     """The sector-matrix kernel (``ops.fci_hamiltonian``) at each of
     :data:`FCI_SECTORS` on seeded random Hermitian h1 and h2 against the host
     oracle ``sector_hamiltonian(...).toarray()`` (within 1e-12), and
-    ``run_fci``'s card route against its host route (lowest three values
-    within 1e-10); times the kernel (single call, back to back and by the
+    ``run_fci``'s dense card route against its host route (lowest three
+    values within 1e-10); times the kernel (single call, back to back and by the
     profiler), the oracle, ``torch.linalg.eigvalsh`` of the matrix and both
     routes of ``run_fci``; returns rows."""
     from nbed_tpu_torch.ops import fci_hamiltonian as fh
@@ -3093,10 +3099,18 @@ def check_fci_hamiltonian() -> list:
                                f"by {err}")
         if not torch.equal(kernel(), ours):
             raise RuntimeError(f"fci_hamiltonian D={dim}: two launches differ")
-        route = lambda: fci.run_fci(0.5, h1c, h2c, n, nelec, k=3)  # noqa: E731
+        def route():
+            return fci.run_fci(0.5, h1c, h2c, n, nelec, k=3)
+
         # the two larger sectors' eigvalsh takes up to seconds: one timed call
         reps, warmup = (10, 3) if dim <= 441 else (1, 1)
+        before = fci.ROUTES["card"]
         vals = route()[0]
+        # these random terms mix spins: the dense route at every size, also
+        # above fci.DENSE_MAX, where the matrix-free route cannot take them
+        if fci.ROUTES["card"] != before + 1:
+            raise RuntimeError(f"run_fci D={dim}: spin-mixing terms left the card route "
+                               f"({dict(fci.ROUTES)})")
         row = {"n": n, "nelec": list(nelec), "dim": dim, "h2_terms": int(np.count_nonzero(h2)),
                "max_abs_err": err, "ms": median_ms(kernel), "ms_stream": stream_ms(kernel),
                "kernel_device_us": device_us(kernel, "fci_hamiltonian"),
@@ -3115,6 +3129,179 @@ def check_fci_hamiltonian() -> list:
         print("fci_hamiltonian", json.dumps(row), flush=True)
         rows.append(row)
     return rows
+
+
+# the matrix-free route's sectors (n spin orbitals, (n_alpha, n_beta)): the
+# dense route's sizes of FCI_SECTORS, on spin-conserving terms
+FCI_DIRECT_SECTORS = ((10, (3, 3)), (14, (5, 5)), (16, (4, 3)), (18, (4, 4)))
+
+
+def spin_conserving_terms(n_spinorb: int, seed: int, unrestricted: bool = False,
+                          device: str = "cuda"):
+    """(h1, 0.5 h2) spin-orbital tensors of a seeded molecule-like
+    spatial Hamiltonian (orbital energies -2..1 Ha with small couplings,
+    ERIs a positive sum of factor products), interleaved by HamiltonianBuilder's
+    ``_spinorb_from_spatial``; alpha and beta differ where ``unrestricted``."""
+    from nbed_tpu_torch.ham import HamiltonianBuilder
+
+    k = n_spinorb // 2
+    rng = np.random.default_rng(seed)
+
+    def one_body():
+        h = 0.1 * rng.standard_normal((k, k))
+        return np.diag(np.linspace(-2.0, 1.0, k)) + h + h.T
+
+    def factor():
+        b = rng.standard_normal((2 * k, k, k))
+        return 0.15 * (b + b.transpose(0, 2, 1))
+
+    ha, ba = one_body(), factor()
+    hb, bb = (one_body(), factor()) if unrestricted else (ha, ba)
+    chem = [np.einsum("lpq,lrs->pqrs", x, y) for x, y in ((ba, ba), (bb, bb), (ba, bb), (bb, ba))]
+    one = torch.tensor(np.stack([ha, hb]), device=device)
+    two = torch.tensor(np.stack(chem), device=device).permute(0, 1, 3, 4, 2)
+    h1, h2 = HamiltonianBuilder._spinorb_from_spatial(one, two.contiguous(), 0.0)
+    return h1, 0.5 * h2
+
+
+def _plain_sigma(op, c):
+    """``op.sigma(c)`` with the gather and scatter steps' plain versions."""
+    from unittest import mock
+
+    from nbed_tpu_torch.ops import fci_sigma
+
+    with mock.patch.object(fci_sigma, "gather", fci_sigma.gather_reference), \
+            mock.patch.object(fci_sigma, "scatter", fci_sigma.scatter_reference):
+        return op.sigma(c)
+
+
+def _sigma_row(op, label: str) -> dict:
+    """The kernels' sigma against the plain steps' on a seeded vector (within
+    1e-12 of its largest element), and one product's times both ways."""
+    from nbed_tpu_torch.solvers import fci_direct
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shape = op.diagonal.shape
+    c = torch.randn(shape, generator=gen, dtype=torch.float64, device="cuda")
+    ours, plain = op.sigma(c), _plain_sigma(op, c)
+    err = float(torch.max(torch.abs(ours - plain)) / torch.max(torch.abs(plain)))
+    if not err <= 1e-12:
+        raise RuntimeError(f"fci_sigma {label}: kernels miss the plain steps by {err} "
+                           f"(relative)")
+    if not torch.equal(op.sigma(c), ours):
+        raise RuntimeError(f"fci_sigma {label}: two products differ")
+    before = dict(fci_direct.SIGMAS)
+    row = {"label": label, "na": op.t.na, "nb": op.t.nb, "block_rows": op.block,
+           "rel_err": err, "sigma_ms": median_ms(lambda: op.sigma(c), 5, 1),
+           "plain_sigma_ms": median_ms(lambda: _plain_sigma(op, c), 3, 1),
+           "gather_device_us": device_us(lambda: op.sigma(c), "fci_sigma_gather", n=2),
+           "scatter_device_us": device_us(lambda: op.sigma(c), "fci_sigma_scatter", n=2)}
+    assert fci_direct.SIGMAS["sigma"] > before.get("sigma", 0)
+    return row
+
+
+def check_fci_direct() -> list:
+    """The matrix-free route at each of :data:`FCI_DIRECT_SECTORS` on
+    seeded spin-conserving terms (restricted; the (4, 3) sector also
+    unrestricted): its kernels against their plain steps, its lowest three
+    eigenvalues against the dense card route's (within 1e-10), and both
+    routes' times, whose crossover sets ``fci.DENSE_MAX``; returns rows."""
+    from nbed_tpu_torch.solvers import fci, fci_direct
+
+    rows = []
+    for n, nelec in FCI_DIRECT_SECTORS:
+        for unrestricted in (False, True) if nelec == (4, 3) else (False,):
+            h1, h2 = spin_conserving_terms(n, n, unrestricted)
+            label = f"n={n} {nelec}{' unrestricted' if unrestricted else ''}"
+            op = fci_direct.DirectFCI(h1, h2, n, nelec)
+            row = _sigma_row(op, label)
+            basis = torch.as_tensor(fci.sector_basis(n, nelec), device="cuda")
+
+            def dense():
+                from nbed_tpu_torch.ops.fci_hamiltonian import sector_matrix
+                return torch.linalg.eigvalsh(sector_matrix(0.25, h1, h2, basis))[:3].cpu().numpy()
+
+            def direct():
+                return fci_direct.run_direct(0.25, h1, h2, n, nelec, k=3)
+
+            reps, warmup = (5, 1) if basis.numel() <= 3920 else (1, 1)
+            before = fci_direct.SIGMAS["sigma"]
+            vals = direct()
+            row["sigmas_k3"] = fci_direct.SIGMAS["sigma"] - before
+            before = fci_direct.SIGMAS["sigma"]
+            vals1 = fci_direct.run_direct(0.25, h1, h2, n, nelec, k=1)
+            row["sigmas_k1"] = fci_direct.SIGMAS["sigma"] - before
+            dense_vals = dense()
+            row.update(dim=basis.numel(), dense_ms=median_ms(dense, reps, warmup),
+                       direct_ms=median_ms(direct, reps, warmup),
+                       direct_k1_ms=median_ms(lambda: fci_direct.run_direct(
+                           0.25, h1, h2, n, nelec, k=1), reps, warmup),
+                       max_abs_err=float(np.max(np.abs(vals - dense_vals))),
+                       k1_err=float(abs(vals1[0] - dense_vals[0])))
+            if not (row["max_abs_err"] <= 1e-10 and row["k1_err"] <= 1e-10):
+                raise RuntimeError(f"fci_direct {label}: misses the dense route: {row}")
+            print("fci_direct", json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
+def check_fci_acetonitrile() -> dict:
+    """The PRA acetonitrile embedding with the embedded FCI on (the
+    published 28-qubit Hamiltonian, 7 + 7 electrons in 14 orbitals,
+    11,778,624 determinants) through ``nbed()`` on the card: the route it
+    takes, its kernels against their plain steps on the real sector, and
+    ``e_fci`` against the benchmark reference's matrix-free FCI
+    (``benchmark/reference/fci_direct.py``, plain torch) on the same
+    embedded Hamiltonian (within 1e-9 Ha)."""
+    from nbed_tpu_torch import nbed
+    from nbed_tpu_torch.driver import _embedded_hamiltonian
+    from nbed_tpu_torch.ops import fci_sigma
+    from nbed_tpu_torch.solvers import fci, fci_direct
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmark"))
+    from reference.fci_direct import fci_energy_direct
+
+    config = {**CONFIGS["acetonitrile"], "run_fci_emb": True}
+    before = dict(fci.ROUTES)
+    driver, first_s = _timed(lambda: nbed(device="cuda", **config))
+    routes = {k: fci.ROUTES[k] - before.get(k, 0) for k in fci.ROUTES}
+    if routes.get("matrix_free") != 1:
+        raise RuntimeError(f"acetonitrile FCI: routes {routes}, not one matrix-free call")
+    # the warm request's own launches: the counters set to 0 just before it
+    # and read just after
+    sigmas = fci_direct.SIGMAS["sigma"]
+    fci_sigma.LAUNCHES.clear()
+    fci_sigma.LAUNCHES_BY_SHAPE.clear()
+    driver2, warm_s = _timed(lambda: nbed(device="cuda", **config))
+    sigmas = fci_direct.SIGMAS["sigma"] - sigmas
+    launches = dict(fci_sigma.LAUNCHES)
+    launches_by_shape = {" ".join(map(str, k)): n for k, n in fci_sigma.LAUNCHES_BY_SHAPE.items()}
+    if not (launches.get("fci_sigma_gather") and launches.get("fci_sigma_scatter")):
+        raise RuntimeError(f"acetonitrile FCI: the warm request launched {launches}, not "
+                           f"both fci_sigma kernels")
+    result = driver2.huzinaga
+    _, h1, h2, occ = _embedded_hamiltonian(result["scf"], None)
+    nelec = (int(np.sum(occ[::2])), int(np.sum(occ[1::2])))
+    op = fci_direct.DirectFCI(h1, h2, h1.shape[0], nelec)
+    row = _sigma_row(op, "acetonitrile")
+    del op
+    (vals, _), fci_s = _timed(lambda: fci.run_fci(0.0, h1, h2, h1.shape[0], nelec))
+    h_sp = h1[::2, ::2].cpu().numpy()
+    chem = (2.0 * h2[::2, ::2, ::2, ::2]).permute(0, 3, 1, 2).cpu().numpy()
+    torch.cuda.empty_cache()
+    e_ref, ref_s = _timed(lambda: fci_energy_direct(h_sp, chem, *nelec, torch.float64, "cuda"))
+    row.update(n_spinorb=int(h1.shape[0]), nelec=list(nelec), dim=fci._sector_dim(
+        int(h1.shape[0]), nelec), e_fci=float(result["e_fci"]), e_ccsd=float(result["e_ccsd"]),
+        first_nbed_s=first_s, warm_nbed_s=warm_s, sigmas_warm=sigmas, launches_warm=launches,
+        launches_warm_by_shape=launches_by_shape, run_fci_s=fci_s,
+        post_fci_s=driver2.timings.get("post.fci"), reference_s=ref_s,
+        fci_vs_reference=float(abs(vals[0] - e_ref)),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        spans={k: round(v, 4) for k, v in driver2.timings.items() if k.startswith("fci.")})
+    print("fci_acetonitrile", json.dumps(row), flush=True)
+    if not row["fci_vs_reference"] <= 1e-9:
+        raise RuntimeError(f"acetonitrile FCI misses the reference by {row['fci_vs_reference']}")
+    return row
 
 
 @contextmanager
@@ -4039,6 +4226,12 @@ def main():
     t0 = time.perf_counter()
     fci_rows = check_fci_hamiltonian()
     phase_s["fci_hamiltonian_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check_fci_direct()
+    phase_s["fci_direct_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fci_acetonitrile = check_fci_acetonitrile()
+    phase_s["fci_acetonitrile"] = time.perf_counter() - t0
 
     # each pipeline is a cold run (its atoms' SAD SCFs included), with the
     # launch counts set to 0 just before it and read just after
@@ -4304,6 +4497,16 @@ def main():
         "plain_ms": row["oracle_ms"],
         **{k: row[k] for k in ("ms", "bound_ms", "bound_by", "ms_stream",
                                "kernel_device_us", "dim")},
+    })
+    # the matrix-free product's gather and scatter on acetonitrile's
+    # published 28-qubit sector (six blocks of 620 alpha rows); launches of
+    # one warm nbed() request, counted from 0
+    kernels.append({
+        "name": "fci_sigma", "route": "cuda", "source": "nbed_tpu_torch/csrc/fci_sigma.cu",
+        "replaces": None, "launches": fci_acetonitrile["launches_warm"],
+        "rel_err": fci_acetonitrile["rel_err"],
+        **{k: fci_acetonitrile[k] for k in ("sigma_ms", "gather_device_us",
+                                            "scatter_device_us", "dim", "block_rows")},
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,23 +4,33 @@
 Operates directly on interleaved spin-orbital tensors
 ``H = const + sum h1[p,q] a+_p a_q + sum h2[p,q,r,s] a+_p a+_q a_r a_s``
 (the :class:`nbed_tpu_torch.ham.HamiltonianBuilder` output). :func:`run_fci`
-takes one of two routes by the device its tensors lie on:
+takes one of three routes, by the device its tensors lie on and, on a card,
+by the sector's size:
 
-- "card": h1 on a CUDA device. The hand-written kernel
-  ``csrc/fci_hamiltonian.cu``
+- "card": h1 on a CUDA device and a sector of at most :data:`DENSE_MAX`
+  determinants. The hand-written kernel ``csrc/fci_hamiltonian.cu``
   (:func:`nbed_tpu_torch.ops.fci_hamiltonian.sector_matrix`) writes the
   dense sector matrix from h1 and h2 where they lie, and cuSOLVER's dense
   symmetric solver (``torch.linalg.eigvalsh``) diagonalises it; the lowest
-  k eigenvalues are the one host read. A sector whose dense matrix does not
-  fit in the card's free memory raises ``torch.OutOfMemoryError``: nothing
-  of a CUDA call moves to the host.
+  k eigenvalues are the one host read.
+- "matrix_free": h1 on a CUDA device and a larger sector, or one whose
+  dense matrix does not fit: :mod:`nbed_tpu_torch.solvers.fci_direct`, a
+  Davidson solve over sigma = H c in the alpha/beta string factorisation
+  (hand kernels ``csrc/fci_sigma.cu`` and cuBLAS), with nothing of the
+  sector's matrix stored. It takes spin-conserving terms only, so a larger
+  sector whose terms mix spins stays on the card route where its dense
+  matrix fits. A sector that neither route can run in the card's free
+  memory raises ``torch.OutOfMemoryError``: nothing of a CUDA call moves to
+  the host.
 - "host": h1 on the CPU (or a numpy array), as the reference does it:
   :func:`sector_hamiltonian` builds the sparse matrix with vectorised
   bitstring arithmetic over the determinant basis, one pass per nonzero
   term, and numpy (or ``eigsh`` above 600 determinants) diagonalises it.
 
 :data:`ROUTES` counts the calls by route; spans ``fci.build`` and
-``fci.eigh`` time the two steps of either.
+``fci.eigh`` time the two steps of the dense and host routes, ``fci.tables``,
+``fci.davidson`` and ``fci.sigma`` those of the matrix-free one, whose
+products :data:`SIGMAS` counts.
 """
 
 from collections import Counter
@@ -36,11 +46,22 @@ from scipy.sparse.linalg import eigsh
 from .._device import to_host
 from ..ops.fci_hamiltonian import sector_matrix
 from ..profiling import span
+from .fci_direct import (BLOCK_BYTES, SIGMAS, direct_bytes, product_bits, run_direct,
+                         spin_mixing)
 
-__all__ = ["run_fci", "sector_hamiltonian", "sector_basis", "ROUTES"]
+__all__ = ["run_fci", "sector_hamiltonian", "sector_basis", "ROUTES", "SIGMAS", "DENSE_MAX"]
 
-# run_fci calls in this process by route: "card" and "host"
+# run_fci calls in this process by route: "card", "matrix_free" and "host"
 ROUTES: Counter = Counter()
+
+# the largest sector the card route writes densely where it fits: above it
+# the matrix-free route is the faster. Lowest eigenvalue, seeded
+# spin-conserving terms (chip_smoke.spin_conserving_terms), H100 80GB HBM3
+# at 700 W, dense / matrix-free ms: D = 100 0.9 / 28-65, 441 4.5 / 61-152,
+# 1225 14.6 / 107, 3136 69 / 109, 3920 112-114 / 98-202, 7056 436 / 185,
+# 15876 3216 / 90: the dense route's D^3 meets the Davidson's ~50-100
+# products of 1-2 ms near D = 4000
+DENSE_MAX = 4096
 
 
 def sector_basis(n_spinorb: int, nelec: tuple) -> np.ndarray:
@@ -139,15 +160,26 @@ def _dense_bytes(dim: int) -> int:
     return 2 * dim * dim * 8
 
 
-def _check_fits(dim: int, free_bytes: int, device) -> None:
-    """Raise ``torch.OutOfMemoryError`` where the card route's dense sector
-    matrix of ``dim`` determinants needs more than ``free_bytes``."""
-    need = _dense_bytes(dim)
-    if need > free_bytes:
-        raise torch.OutOfMemoryError(
-            f"run_fci: a sector of {dim} determinants needs {need / 2**30:.2f} GiB on "
-            f"{device} as a dense matrix, {free_bytes / 2**30:.2f} GiB are free; "
-            f"pass the integrals on the CPU for the sparse host route")
+def _check_fits(n_spinorb: int, nelec: tuple, k: int, free_bytes: int, device,
+                mixes_spins: bool = False) -> str:
+    """The route of a CUDA call in the card's ``free_bytes``: "card" where
+    the dense matrix fits and the sector has at most :data:`DENSE_MAX`
+    determinants or terms that mix spins, else "matrix_free" where it fits
+    and the terms conserve spin; raises ``torch.OutOfMemoryError`` where
+    neither route can run."""
+    dim = _sector_dim(n_spinorb, nelec)
+    dense = _dense_bytes(dim)
+    if dense <= free_bytes and (dim <= DENSE_MAX or mixes_spins):
+        return "card"
+    direct = direct_bytes(n_spinorb // 2, nelec, k)
+    if direct <= free_bytes and not mixes_spins:
+        return "matrix_free"
+    why = ("its terms mix spins, which the matrix-free route does not take" if mixes_spins
+           else f"its matrix-free Davidson solve needs {direct / 2**30:.2f} GiB")
+    raise torch.OutOfMemoryError(
+        f"run_fci: a sector of {dim} determinants needs {dense / 2**30:.2f} GiB on {device} "
+        f"as a dense matrix (the card route) and {why}; {free_bytes / 2**30:.2f} GiB are "
+        f"free; the host route (integrals on the CPU) stores its sparse matrix, larger still")
 
 
 def _free_bytes(device: torch.device) -> int:
@@ -166,15 +198,33 @@ def _device_basis(n_spinorb: int, nelec: tuple, device: torch.device):
     return basis, on_device
 
 
+@lru_cache(maxsize=8)
+def _product_basis(n_spinorb: int, nelec: tuple) -> np.ndarray:
+    """:func:`sector_basis` (read-only) from the strings of each spin, made
+    once per sector: the matrix-free route's sectors are millions of
+    determinants."""
+    basis = np.sort(product_bits(n_spinorb // 2, nelec).ravel())
+    basis.setflags(write=False)
+    return basis
+
+
 def run_fci(constant, h1, h2, n_spinorb: int, nelec: tuple, k: int = 1):
     """Lowest-k eigenvalues of the sector Hamiltonian (ascending numpy) and
     the basis bitstrings (numpy); ``h2`` is the HamiltonianBuilder's
-    ``0.5*h2`` coefficient tensor. h1 on a CUDA device takes the card
-    route, h1 on the CPU the host route (module docstring)."""
+    ``0.5*h2`` coefficient tensor. h1 on a CUDA device takes the card or
+    the matrix-free route, h1 on the CPU the host route (module
+    docstring)."""
     nelec = (int(nelec[0]), int(nelec[1]))
     if isinstance(h1, torch.Tensor) and _card_route(h1.device):
-        _check_fits(_sector_dim(n_spinorb, nelec), _free_bytes(h1.device), h1.device)
-        ROUTES["card"] += 1
+        free = _free_bytes(h1.device)
+        mixes = _sector_dim(n_spinorb, nelec) > DENSE_MAX and any(spin_mixing(h1, h2))
+        route = _check_fits(n_spinorb, nelec, k, free, h1.device, mixes)
+        ROUTES[route] += 1
+        if route == "matrix_free":
+            # the blocks take at most what the card has beyond the route's least
+            block = min(BLOCK_BYTES, free - direct_bytes(n_spinorb // 2, nelec, k))
+            vals = run_direct(constant, h1, h2, n_spinorb, nelec, k, block)
+            return vals, _product_basis(n_spinorb, nelec)
         with span("fci.build"):
             basis, basis_dev = _device_basis(n_spinorb, nelec, h1.device)
             ham = sector_matrix(constant, h1, h2, basis_dev)

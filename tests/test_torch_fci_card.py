@@ -27,9 +27,10 @@ from nbed_tpu_torch import nbed
 from nbed_tpu_torch.chem import build_molecule
 from nbed_tpu_torch.driver import _embedded_hamiltonian, run_emb_fci
 from nbed_tpu_torch.ham import HamiltonianBuilder
-from nbed_tpu_torch.ops import fci_hamiltonian
+from nbed_tpu_torch.ops import fci_hamiltonian, fci_sigma
 from nbed_tpu_torch.scf import SCFEngine
-from nbed_tpu_torch.solvers import fci
+from nbed_tpu_torch.solvers import fci, fci_direct
+from test_torch_fci_direct import IDS as DIRECT_IDS, SECTORS as DIRECT_SECTORS, spin_conserving
 
 torch.set_num_threads(1)
 
@@ -218,17 +219,42 @@ def test_route_rule(device, card):
     assert fci._card_route(torch.device(device)) is card
 
 
-@pytest.mark.parametrize("dim,free_bytes,fits", [
-    (100, 10**6, True), (4096, 2**28, True), (4096, 2**28 - 1, False),
-    (15876, 80 * 10**9, True), (63504, 40 * 10**9, False)])
-def test_check_fits(dim, free_bytes, fits):
-    """A sector whose dense matrix and eigvalsh copy (2 D^2 float64) exceed
-    the card's free memory raises; nothing moves to the host."""
-    if fits:
-        fci._check_fits(dim, free_bytes, "cuda:0")
+@pytest.mark.parametrize("n,nelec,free_bytes,route", [
+    (10, (3, 3), 10**6, "card"), (16, (4, 3), 245_862_400, "card"),
+    (16, (4, 3), 245_862_399, "matrix_free"), (16, (4, 4), 80 * 10**9, "matrix_free"),
+    (18, (4, 4), 40 * 10**9, "matrix_free"), (28, (7, 7), 80 * 10**9, "matrix_free"),
+    (28, (7, 7), 5 * 2**30, None), (36, (9, 9), 80 * 10**9, None)])
+def test_check_fits(n, nelec, free_bytes, route):
+    """The dense card route up to DENSE_MAX determinants where its 2 D^2
+    float64 fit, else the matrix-free route where its vectors and blocks
+    fit; a sector that fits in neither raises, and nothing moves to the
+    host."""
+    if route is not None:
+        assert fci._check_fits(n, nelec, 1, free_bytes, "cuda:0") == route
     else:
-        with pytest.raises(torch.OutOfMemoryError, match="CPU"):
-            fci._check_fits(dim, free_bytes, "cuda:0")
+        with pytest.raises(torch.OutOfMemoryError, match="matrix-free"):
+            fci._check_fits(n, nelec, 1, free_bytes, "cuda:0")
+
+
+@pytest.mark.parametrize("n,nelec,free_bytes,route", [
+    (10, (3, 3), 10**6, "card"), (16, (4, 4), 80 * 10**9, "card"),
+    (18, (4, 4), 40 * 10**9, "card"), (18, (4, 4), 10**9, None),
+    (28, (7, 7), 80 * 10**9, None)])
+def test_check_fits_spin_mixing(n, nelec, free_bytes, route):
+    """Terms that mix spins keep a sector above DENSE_MAX on the dense card
+    route where its matrix fits, since the matrix-free route cannot take
+    them; where the dense matrix does not fit the call raises and says why."""
+    if route is not None:
+        assert fci._check_fits(n, nelec, 1, free_bytes, "cuda:0", True) == route
+    else:
+        with pytest.raises(torch.OutOfMemoryError, match="mix spins"):
+            fci._check_fits(n, nelec, 1, free_bytes, "cuda:0", True)
+
+
+def test_dense_max_keeps_water_dense():
+    """Water's embedded mu sector (100 determinants) stays on the dense
+    route; acetonitrile's published 28-qubit sector does not."""
+    assert fci._sector_dim(10, (3, 3)) <= fci.DENSE_MAX < fci._sector_dim(28, (7, 7))
 
 
 @pytest.mark.parametrize("n,nelec", [(4, (1, 1)), (10, (3, 3)), (14, (5, 4)), (9, (3, 2)),
@@ -302,3 +328,64 @@ def test_cuda_run_emb_fci_matches_host_route():
     assert fci.ROUTES["host"] == before.get("host", 0) + 1
     e_host = float(vals[0]) + e_shift + scf.energy_nuc()
     assert abs(e_card - e_host) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [None, 3], ids=["one-block", "3-row-blocks"])
+@pytest.mark.parametrize("n_orb,nelec,unrestricted", DIRECT_SECTORS, ids=DIRECT_IDS)
+def test_cuda_sigma_kernels_match_torch_sigma(n_orb, nelec, unrestricted, rows, monkeypatch):
+    """The matrix-free product through ``csrc/fci_sigma.cu`` against the
+    same product through the steps' plain versions, on the card."""
+    _cuda()
+    h1, h2 = spin_conserving(n_orb, n_orb, unrestricted, device="cuda")
+    op = fci_direct.DirectFCI(h1, h2, 2 * n_orb, nelec, block_bytes=fci_direct.BLOCK_BYTES
+                              if rows is None else rows * (n_orb ** 2 + 1) * 8 * 64)
+    c = torch.tensor(np.random.default_rng(3).standard_normal(op.diagonal.shape), device="cuda")
+    before = dict(fci_sigma.LAUNCHES)
+    ours = op.sigma(c)
+    blocks = -(-op.t.na // op.block)
+    assert fci_sigma.LAUNCHES["fci_sigma_gather"] == before.get("fci_sigma_gather", 0) + blocks
+    assert fci_sigma.LAUNCHES["fci_sigma_scatter"] == before.get("fci_sigma_scatter", 0) + blocks
+    monkeypatch.setattr(fci_sigma, "gather", fci_sigma.gather_reference)
+    monkeypatch.setattr(fci_sigma, "scatter", fci_sigma.scatter_reference)
+    plain = op.sigma(c)
+    assert float(torch.max(torch.abs(ours - plain))) <= 1e-12 * float(torch.max(torch.abs(plain)))
+
+
+@pytest.mark.cuda
+def test_cuda_route_by_sector_size(cases):
+    """Water's D = 100 takes the dense route; a sector above DENSE_MAX the
+    matrix-free one, counted in ROUTES and SIGMAS, with the dense matrix's
+    lowest eigenvalue, and the dense one again once a term mixes spins; one
+    that fits in neither raises before it runs."""
+    _cuda()
+    const, h1, h2, n, nelec = cases["water_mu"]
+    before = dict(fci.ROUTES)
+    fci.run_fci(const, h1.cuda(), h2.cuda(), n, nelec)
+    assert fci.ROUTES["card"] == before.get("card", 0) + 1
+    assert fci.ROUTES["matrix_free"] == before.get("matrix_free", 0)
+
+    h1, h2 = spin_conserving(8, 5, device="cuda")
+    assert fci._sector_dim(16, (4, 4)) > fci.DENSE_MAX
+    sigmas = fci_direct.SIGMAS["sigma"]
+    vals, basis = fci.run_fci(0.5, h1, h2, 16, (4, 4))
+    assert fci.ROUTES["matrix_free"] == before.get("matrix_free", 0) + 1
+    assert fci_direct.SIGMAS["sigma"] > sigmas
+    np.testing.assert_array_equal(basis, fci.sector_basis(16, (4, 4)))
+    dense = fci_hamiltonian.sector_matrix(0.5, h1, h2, _basis(16, (4, 4), "cuda"))
+    assert abs(vals[0] - float(torch.linalg.eigvalsh(dense)[0])) <= 1e-10
+
+    # a term that mixes spins: the same sector stays on the dense route
+    h1[0, 1] = h1[1, 0] = 0.05
+    routes = dict(fci.ROUTES)
+    vals, _ = fci.run_fci(0.5, h1, h2, 16, (4, 4))
+    assert fci.ROUTES["card"] == routes.get("card", 0) + 1
+    assert fci.ROUTES["matrix_free"] == routes.get("matrix_free", 0)
+    host, _ = fci.run_fci(0.5, h1.cpu(), h2.cpu(), 16, (4, 4))
+    assert abs(vals[0] - host[0]) <= 1e-10
+
+    zeros = torch.zeros((36, 36), dtype=torch.float64, device="cuda")
+    routes = dict(fci.ROUTES)
+    with pytest.raises(torch.OutOfMemoryError, match="matrix-free"):
+        fci.run_fci(0.0, zeros, zeros[:, :, None, None].expand(36, 36, 36, 36), 36, (9, 9))
+    assert dict(fci.ROUTES) == routes
