@@ -93,21 +93,23 @@ class NbedDriver:
                         self._DF_NAO_THRESHOLD)
         return auto
 
-    def _engine(self, xc, max_cycle, df_b=None) -> SCFEngine:
+    def _engine(self, xc, max_cycle, df_b=None, integrals_from=None) -> SCFEngine:
         return SCFEngine(self._mol, xc=xc, conv_tol=self.config.convergence,
                          max_cycle=max_cycle, device=self.device,
                          density_fitting=self._use_df, df_b=df_b,
+                         integrals_from=integrals_from,
                          max_memory_mb=float(self.config.max_ram_memory),
                          warmup_f32=self.config.warmup_f32)
 
     @cached_property
     def _hf_engine(self) -> SCFEngine:
-        # one DF factor for both engines: it depends only on the molecule
-        # and the auxiliary basis (the reference builds it twice). The KS
-        # engine's long-range factor stays with it: HF has no range
-        # separation
+        # one DF factor and one set of S, hcore and ERIs for both engines:
+        # they depend only on the molecule and the geometry (the reference
+        # builds them twice). The KS engine's long-range factor and ERIs
+        # stay with it: HF has no range separation
         df_b = self._ks_engine.df_factor() if self._use_df else None
-        return self._engine(None, self.config.max_hf_cycles, df_b)
+        return self._engine(None, self.config.max_hf_cycles, df_b,
+                            integrals_from=self._ks_engine)
 
     @cached_property
     def _ks_engine(self) -> SCFEngine:

@@ -8,11 +8,13 @@ engine, the same division of labour as ``nbed_tpu.native``
 (``nbed_tpu/native/__init__.py:143-253``). The three-centre integrals, the
 one host cost that grows with the molecule, run in blocks of auxiliary
 shells on a thread per core: ctypes releases the interpreter lock and the
-engine keeps its scratch in ``thread_local`` storage.
+engine keeps its scratch in ``thread_local`` storage. :data:`CALLS` counts
+the calls of each public function.
 """
 
 import ctypes
 import os
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from functools import lru_cache
@@ -21,7 +23,11 @@ import numpy as np
 
 from .._compile import native_integrals_library
 
-__all__ = ["one_electron", "eri", "eri_3c", "eri_2c"]
+__all__ = ["one_electron", "eri", "eri_3c", "eri_2c", "CALLS"]
+
+# calls of the public functions by kind ("one_electron", "eri", "eri_3c",
+# "eri_2c"), summed per process
+CALLS = Counter()
 
 _DPTR = ctypes.POINTER(ctypes.c_double)
 _IPTR = ctypes.POINTER(ctypes.c_int32)
@@ -81,6 +87,7 @@ def one_electron(mol, coords=None):
     molecule's MM charges when it has them: point charges, or Gaussian
     charges of exponent 1/mm_radii**2 when radii are given
     (``nbed_tpu/native/__init__.py:166-196``)."""
+    CALLS["one_electron"] += 1
     meta, exps, coefs, c2s = _pack(mol)
     coords = _coords(mol, coords)
     charges = np.asarray(mol.atom_charges, dtype=np.float64)
@@ -112,6 +119,7 @@ def eri(mol, coords=None, omega: float = 0.0):
     shell into ranges of about equal work, evaluated on one thread per
     available core into disjoint elements of the result; each integral is
     computed exactly as in one call."""
+    CALLS["eri"] += 1
     meta, exps, coefs, c2s = _pack(mol)
     coords = _coords(mol, coords)
     nao, n_sh = mol.nao, len(mol.shells)
@@ -168,6 +176,7 @@ def eri_3c(mol, aux, coords=None, omega: float = 0.0):
     ``omega > 0`` evaluates the long-range erf(omega*r12)/r12 kernel. The
     auxiliary shells are split into blocks evaluated on one thread per
     available core; each integral is computed exactly as in one call."""
+    CALLS["eri_3c"] += 1
     coords = _coords(mol, coords)
     n_threads = len(os.sched_getaffinity(0))
     out = np.empty((mol.nao, mol.nao, aux.nao))
@@ -187,6 +196,7 @@ def eri_2c(aux, coords=None, omega: float = 0.0):
     """Two-centre Coulomb metric (P|Q): (naux, naux) float64.
 
     ``omega > 0`` evaluates the long-range erf(omega*r12)/r12 kernel."""
+    CALLS["eri_2c"] += 1
     ameta, aexps, acoefs, ac2s = _pack(aux)
     coords = _coords(aux, coords)
     out = np.zeros((aux.nao, aux.nao))

@@ -467,6 +467,13 @@ class SCFEngine:
           molecule and ``df_beta``), so engines of one molecule share one;
           built at first use when None. A range-separated hybrid also
           builds ``df_b_lr``, its long-range factor, at first use.
+        integrals_from: another engine of the same molecule object, at the
+          same coordinates, integrals backend and device, whose S, hcore
+          and ERIs this engine takes (computed there once, at first use)
+          instead of computing its own, so engines of one molecule share
+          one set of integrals; anything else raises ``ValueError``. The
+          orthogonaliser, the J/K supermatrices, the long-range ERIs, the
+          grid and the programs stay the engine's own.
         max_memory_mb: memory budget scaling the DF-exchange chunk and the
           table/streaming XC switch from their 4000-MB calibration.
         rohf: restricted open shell (ROHF, or ROKS with ``xc``): both spins
@@ -532,6 +539,7 @@ class SCFEngine:
     df_beta: float = 1.8  # even-tempered auxiliary-basis ratio
     df_b: Optional[torch.Tensor] = field(default=None, repr=False)
     df_b_lr: Optional[torch.Tensor] = field(default=None, repr=False)
+    integrals_from: Optional["SCFEngine"] = field(default=None, repr=False)
     max_memory_mb: float = 4000.0
     rohf: bool = False
     restricted: bool = False
@@ -571,6 +579,13 @@ class SCFEngine:
             raise ValueError(f"dispatch_cycles must be >= 0, got {self.dispatch_cycles}")
         self.coords = np.asarray(self.mol.coords if self.coords is None else self.coords,
                                  dtype=np.float64)
+        other = self.integrals_from
+        if other is not None and not (
+                other.mol is self.mol and np.array_equal(other.coords, self.coords)
+                and other._torch_integrals == self._torch_integrals
+                and other.device == self.device):
+            raise ValueError("integrals_from must be an engine of the same molecule, "
+                             "coordinates, integrals backend and device")
 
     def _tensor(self, array):
         return torch.as_tensor(array, dtype=DTYPE, device=self.device)
@@ -583,11 +598,15 @@ class SCFEngine:
 
     @cached_property
     def _native_1e(self):
+        if self.integrals_from is not None:
+            return self.integrals_from._native_1e
         with span("integrals.native"):
             return native.one_electron(self.mol, self.coords)
 
     @cached_property
     def s(self):
+        if self.integrals_from is not None:
+            return self.integrals_from.s
         if self._torch_integrals:
             return overlap(self.mol, self.coords, device=self.device)
         return self._tensor(self._native_1e[0])
@@ -599,6 +618,8 @@ class SCFEngine:
 
     @cached_property
     def hcore(self):
+        if self.integrals_from is not None:
+            return self.integrals_from.hcore
         if self._torch_integrals:
             mol = self.mol
             h = (kinetic(mol, self.coords, device=self.device)
@@ -613,6 +634,8 @@ class SCFEngine:
 
     @cached_property
     def eri(self):
+        if self.integrals_from is not None:
+            return self.integrals_from.eri
         if self._torch_integrals:  # the "eri" program under jit_kernel
             return eri_program(self.mol, self._tensor(self.coords), jit_kernel=self.jit_kernel)
         with span("integrals.native"):

@@ -18,9 +18,12 @@ from nbed_tpu.ham.qubit import MAPPINGS as REF_MAPPINGS
 from nbed_tpu.ham.taper import taper_auto as ref_taper_auto
 from nbed_tpu.solvers.vqe import _encode_reference as ref_encode_reference
 from nbed_tpu_torch import NbedConfig, nbed
+from nbed_tpu_torch.chem import build_molecule
 from nbed_tpu_torch.driver import NbedDriver
 from nbed_tpu_torch.ham import MAPPINGS, pauli_ground_state
+from nbed_tpu_torch.integrals import native
 from nbed_tpu_torch.profiling import device_profile
+from nbed_tpu_torch.scf import SCFEngine
 
 # one torch thread per test process: under pytest-xdist the OpenMP threads
 # of several workers spin on the same cores and slow every worker many-fold
@@ -317,3 +320,57 @@ def test_slice_imports_neither_jax_nor_pydantic():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("clean")
+
+
+# the driver's two SCF engines share one set of host integrals: exact ERIs,
+# density fitting (no ERIs at all) and QM/MM water (MM charges in V)
+SHARED = {"exact": {},
+          "df": {"density_fitting": True},
+          "qmmm": {"mm_coords": [[0.0, 0.0, 3.0], [0.0, 0.0, 2.0428], [0.9266, 0.0, 3.2397]],
+                   "mm_charges": [-0.834, 0.417, 0.417], "mm_radii": [0.8, 0.4, 0.4]}}
+
+
+@pytest.mark.parametrize("case", list(SHARED))
+def test_driver_engines_share_one_set_of_integrals(nbed_args, case):
+    """The HF engine takes the KS engine's S, hcore and ERIs, the very
+    tensors, which are bitwise those of an engine built alone and are left
+    as they were by a whole embedding run."""
+    args = {**nbed_args, "run_ccsd_emb": False, "run_fci_emb": False, **SHARED[case]}
+    driver = NbedDriver(NbedConfig(**args), device="cpu")
+    ks, hf = driver._ks_engine, driver._hf_engine
+    names = ("s", "hcore") if case == "df" else ("s", "hcore", "eri")
+    for name in names:
+        assert getattr(hf, name) is getattr(ks, name)
+    alone = SCFEngine(driver._mol, device="cpu", density_fitting=driver._use_df)
+    for name in names:
+        assert torch.equal(getattr(ks, name), getattr(alone, name))
+    before = {name: getattr(ks, name).clone() for name in names}
+    driver.embed()
+    for name in names:
+        assert torch.equal(getattr(ks, name), before[name])
+        assert getattr(hf, name) is getattr(ks, name)
+    if case == "df":
+        assert "eri" not in ks.__dict__ and "eri" not in hf.__dict__
+    if case == "qmmm":
+        assert driver.run_qmmm and driver._mol.mm_coords is not None
+
+
+def test_warm_nbed_integrates_once(nbed_args):
+    """A warm water nbed() makes one host one-electron and one ERI call."""
+    args = {**nbed_args, "run_ccsd_emb": False, "run_fci_emb": False}
+    nbed(**args, device="cpu")  # the SAD guess's atoms integrate once per process
+    before = native.CALLS.copy()
+    nbed(**args, device="cpu")
+    added = native.CALLS - before
+    assert added == {"one_electron": 1, "eri": 1}
+
+
+@pytest.mark.parametrize("other", ["molecule", "coords", "backend"])
+def test_integrals_from_refuses_another_geometry(water_xyz, other):
+    mol = build_molecule(water_xyz, "sto-3g")
+    source = SCFEngine(mol, device="cpu")
+    kw = {"molecule": {"mol": build_molecule(water_xyz, "sto-3g")},
+          "coords": {"coords": mol.coords + 0.01},
+          "backend": {"integrals_backend": "torch"}}[other]
+    with pytest.raises(ValueError, match="integrals_from"):
+        SCFEngine(**{"mol": mol, **kw}, device="cpu", integrals_from=source)
