@@ -261,7 +261,10 @@ class _GraphedSCF:
         self.mixed = {}
 
     def _captured(self, fn, warmup=None):
-        return _Captured(fn, self.program.device, self.pool, warmup)
+        # the capture's warm-up call runs the body once: the program's
+        # state, in buffers fixed for its life, is restored after it
+        return _Captured(fn, self.program.device, self.pool, warmup,
+                         keep=self.program.buffers())
 
     def _variant(self, variant, k: int) -> _Captured:
         """The graph of ``k`` incremental cycles of ``variant``."""
@@ -276,20 +279,15 @@ class _GraphedSCF:
         return self.chunk.record.launches(LAUNCHES)
 
     def _ensure(self, captured: _Captured, stats: dict):
-        """Capture ``captured`` at its first use, keeping the program's
-        state: the capture's warm-up call runs the body once."""
+        """Capture ``captured`` at its first use."""
         if not captured.captures or captured.graph is not None:
             return
-        buffers = self.program.buffers()
-        saved = [t.clone() for t in buffers]
         with span("program.capture", {"kind": "scf"}) as capture:
             captured.capture()
         stats["capture_s"] += capture.seconds
         stats["captures"] += 1
         before, after = captured.reserved
         RUNS["scf_pool_gb"] += (after - before) / 1e9
-        for t, value in zip(buffers, saved):
-            t.copy_(value)
 
     def _replay(self, captured: _Captured, stats: dict):
         self._ensure(captured, stats)
@@ -523,9 +521,9 @@ class SCFEngine:
           the convergence flags after each; 0 (or K >= max_cycle) one
           replay of max_cycle cycles; None :data:`DISPATCH_CYCLES`. The
           DIIS history, density, energy and cycle count carry from one
-          replay to the next, so the graphed SCF gives the eager loop's
-          iterates whatever K is (the reference restarts DIIS at each
-          chunk, ``engine.py:1010-1033``).
+          replay to the next, so the graphed SCF gives the iterates of
+          the eager route, which runs the same cycle, whatever K is (the
+          reference restarts DIIS at each chunk, ``engine.py:1010-1033``).
     """
 
     mol: Molecule

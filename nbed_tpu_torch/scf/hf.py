@@ -39,10 +39,12 @@ cycle; :class:`SCFProgram` runs the same cycle on fixed buffers, K cycles
 at a time, which is what the engine captures as CUDA graphs
 (``SCFEngine(jit_kernel=...)`` and the lane programs of
 :func:`nbed_tpu_torch.scf.engine.lane_scf`, the port of the reference's
-compiled programs). A float64 single-geometry :func:`run_scf` keeps its own
-loop, whose rounding follows the reference's; a float32 or incremental one
-runs the lane loop over one lane, so that it takes the programs' iterates
-(float32 rounding compounds over the cycles).
+compiled programs). Every SCF of the port runs this one cycle: a
+single-geometry :func:`run_scf`, float64, float32 or incremental, eager or
+not, runs the lane loop over one lane, so that it takes the programs'
+iterates (float32 rounding compounds over the cycles). A one-lane DIIS
+solve drops its lane axis, so that one geometry rounds as the reference's
+single-geometry loop does (:func:`_diis_extrapolate`).
 
 ``grad_cycles`` (``nbed_tpu/scf/hf.py:431-455``) adds that many DIIS-free
 cycles, damped by 0.5, after a converged loop: a no-op on the converged
@@ -152,6 +154,13 @@ def _diis_extrapolate(hist_f, hist_e, nfill, eigh=torch.linalg.eigh, count=None)
     failed solves, where given).
     The coefficients come from the detached errors, so no derivative
     reaches them."""
+    if hist_e.ndim == 5 and hist_e.shape[0] == 1:
+        # one lane is solved without its lane axis, as the reference's
+        # single-geometry SCF solves it: the batched products round
+        # otherwise, and on water that rounding flips the signs of
+        # orbitals, which the Jacobi-sweep localizers follow (IBO's
+        # embedded energies moved by 7e-8 Ha)
+        return _diis_extrapolate(hist_f[0], hist_e[0], nfill, eigh, count)[None]
     hist_e = hist_e.detach()
     m = hist_e.shape[-4]
     lead = tuple(hist_e.shape[:-4])
@@ -212,8 +221,11 @@ def run_scf(
     Fock matrix: ``F_s = hcore + v_emb + J(D_tot) + Vxc_s - hyb*K(D_s)
     + Huz(F)``; energies follow the reference's embedded conventions (the
     Huzinaga term enters the one-body energy in full, ``v_emb`` is part of
-    the core Hamiltonian). The loop runs in the dtype of ``hcore``: float32
-    operators give the mixed-precision warm-up.
+    the core Hamiltonian). The loop runs in the dtype of the operators:
+    float32 operators give the mixed-precision warm-up. One geometry runs
+    as one lane of the lane loop (the cycle of :func:`_lane_ops`, which the
+    graphed programs run), and its result is returned without the lane
+    axis, ``e_elec`` a float, ``converged`` a bool and ``n_iter`` an int.
 
     J and K come from ``jk_fn``, or, where it is None, from the
     supermatrices ``eri_j`` and ``eri_k`` through the fused J/K kernel
@@ -251,143 +263,20 @@ def run_scf(
             dm_env_occ=dm_env_occ, dm_env_virt=dm_env_virt, dm0=dm0, conv_tol=conv_tol,
             dm_conv_tol=dm_conv_tol, max_cycle=max_cycle, diis_space=diis_space,
             level_shift=level_shift, use_diis=use_diis, grad_cycles=grad_cycles)
-    if jk_fn_fast is not None or xc_fn_fast is not None or hcore.dtype == torch.float32:
-        # the mixed-precision loops, one geometry as one lane: the graphed
-        # programs' cycle and eigh, so that a float32 loop, whose rounding
-        # compounds, runs the same iterates eagerly and graphed
-        def lane(t):
-            return None if t is None else t[None]
+    # one geometry runs as one lane of the cycle the graphed programs run,
+    # so that the eager and graphed SCFs take the same iterates (float32
+    # rounding compounds over the cycles)
+    def lane(t):
+        return None if t is None else t[None]
 
-        return _first_lane(_run_scf_lanes(
-            hcore=lane(hcore), s=s[None], nelec=nelec, jk_fn=_one_lane(jk_fn),
-            v_emb=lane(v_emb), xc_fn=_one_lane(xc_fn), hyb=hyb, dm_env_occ=lane(dm_env_occ),
-            dm_env_virt=lane(dm_env_virt), dm0=lane(dm0), conv_tol=conv_tol,
-            dm_conv_tol=dm_conv_tol, max_cycle=max_cycle, diis_space=diis_space,
-            level_shift=level_shift, use_diis=use_diis, grad_cycles=grad_cycles, rohf=rohf,
-            jk_fn_fast=_one_lane(jk_fn_fast), xc_fn_fast=_one_lane(xc_fn_fast),
-            rebase_every=rebase_every, xc_switch_tol=xc_switch_tol))
-    n = s.shape[-1]
-    if hcore.ndim == 2:
-        hcore = torch.stack([hcore, hcore])
-    if v_emb is None:
-        v_emb = torch.zeros((2, n, n), dtype=hcore.dtype, device=hcore.device)
-    elif v_emb.ndim == 2:
-        v_emb = torch.stack([v_emb, v_emb])
-    v_emb = v_emb.to(hcore.dtype)
-    x = lowdin_x(s)
-    h_eff = hcore + v_emb
-
-    use_huz = dm_env_occ is not None
-    if use_huz:
-        dm_occ_s = torch.einsum("sij,jk->sik", dm_env_occ, s)
-        if dm_env_virt is None:
-            dm_virt_s = torch.zeros_like(dm_occ_s)
-        else:
-            dm_virt_s = torch.einsum("sij,jk->sik", dm_env_virt, s)
-
-    na, nb = int(nelec[0]), int(nelec[1])
-    ar = torch.arange(n, device=s.device)
-    occ = torch.stack([(ar < na).to(s.dtype), (ar < nb).to(s.dtype)])
-
-    def assemble_fock(dm, j, k, xc=xc_fn):
-        """(F incl. huz, huz, e_elec of dm) from dm and its J/K pair."""
-        vhf = j[None] - hyb * k
-        if xc is not None:
-            exc, vxc = xc(dm)
-            vhf = vhf + vxc
-        else:
-            exc = 0.0
-        f0 = h_eff + vhf
-        if use_huz:
-            huz = huzinaga_operator(f0, dm_occ_s, dm_virt_s)
-            f = f0 + huz
-        else:
-            huz = torch.zeros_like(f0)
-            f = f0
-        e1 = torch.einsum("sij,sji->", h_eff + huz, dm)
-        ecoul = 0.5 * torch.einsum("ij,ji->", j, dm[0] + dm[1])
-        ex_hf = -0.5 * hyb * torch.einsum("sij,sji->", k, dm)
-        return f, huz, e1 + ecoul + ex_hf + exc
-
-    def eig_fock(f):
-        f_ortho = torch.einsum("pi,spq,qj->sij", x, f, x)
-        mo_e, c_ortho = torch.linalg.eigh(f_ortho)
-        return mo_e, torch.einsum("pi,sij->spj", x, c_ortho)
-
-    if dm0 is None:
-        # core-Hamiltonian guess (+projectors), as the reference's
-        # Huzinaga loop does
-        f_init = h_eff
-        if use_huz:
-            f_init = f_init + huzinaga_operator(f_init, dm_occ_s, dm_virt_s)
-        _, c0 = eig_fock(f_init)
-        dm0 = make_rdm1(c0, occ)
-
-    def step(dm, j, k, xc, damp: float = 0.0):
-        """(dm', e of dm, c, mo_e) of one DIIS-free cycle with ``dm``'s J/K,
-        ``dm`` mixed in by ``damp``: the tangent polish's step."""
-        f, _, e_cur = assemble_fock(dm, j, k, xc)
-        mo_e, c = eig_fock(f)
-        dm_new = make_rdm1(c, occ)
-        return (1.0 - damp) * dm_new + damp * dm, e_cur, c, mo_e
-
-    def loop(dm, e_prev, c, mo_e):
-        """SCF cycles from ``dm`` until convergence or ``max_cycle``, with a
-        fresh DIIS history; returns (dm, e, c, mo_e, converged, cycles)."""
-        m = diis_space
-        hist_f = torch.zeros((m, 2, n, n), dtype=dm.dtype, device=dm.device)
-        hist_e = torch.zeros_like(hist_f)
-        nfill = 0
-        conv = False
-        cycle = 0
-        while cycle < max_cycle and not conv:
-            j, k = jk_fn(dm)
-            f, _, e_cur = assemble_fock(dm, j, k)
-            if rohf:
-                # the per-spin error of F_eff covers every coupling block:
-                # D_beta tests closed-open and closed-virtual, D_alpha
-                # open-virtual
-                f = roothaan_effective(f, dm, s)
-            fds = torch.einsum("sij,sjk,kl->sil", f, dm, s)
-            err = torch.einsum("pi,spq,qj->sij", x, fds - fds.transpose(-1, -2), x)
-            slot = cycle % m
-            hist_f[slot] = f
-            hist_e[slot] = err
-            nfill = min(nfill + 1, m)
-            f_use = f
-            if cycle > 0 and use_diis:
-                f_use = _diis_extrapolate(hist_f, hist_e, nfill)
-            if level_shift:
-                # F' = F + lambda (S - S D_s S) shifts only the virtual
-                # eigenvalues, damping occupied<->virtual oscillation
-                sds = torch.einsum("ij,sjk,kl->sil", s, dm, s)
-                f_use = f_use + level_shift * (s[None] - sds)
-            mo_e, c = eig_fock(f_use)
-            dm_new = make_rdm1(c, occ)
-            e_cur = float(e_cur)
-            de = abs(e_cur - e_prev)
-            ddm = float(torch.max(torch.linalg.matrix_norm(dm_new - dm)))
-            conv = de < conv_tol and ddm < dm_conv_tol
-            e_prev = e_cur
-            dm = dm_new
-            cycle += 1
-        return dm, e_prev, c, mo_e, conv, cycle
-
-    dm = dm0.to(h_eff.dtype)
-    c = torch.zeros((2, n, n), dtype=dm.dtype, device=dm.device)
-    mo_e = torch.zeros((2, n), dtype=dm.dtype, device=dm.device)
-    dm, e_prev, c, mo_e, conv, cycles = loop(dm, float("inf"), c, mo_e)
-    if grad_cycles and conv:
-        for _ in range(grad_cycles):
-            j, k = jk_fn(dm)
-            dm, _, c, mo_e = step(dm, j, k, xc_fn, damp=0.5)
-
-    j, k = jk_fn(dm)
-    f_fin, huz_fin, e_fin = assemble_fock(dm, j, k)
-    return SCFResult(
-        mo_coeff=c, mo_energy=mo_e, mo_occ=occ, dm=dm, e_elec=float(e_fin),
-        converged=conv, fock=f_fin, huzinaga_op=huz_fin, n_iter=cycles,
-    )
+    return _first_lane(_run_scf_lanes(
+        hcore=lane(hcore), s=s[None], nelec=nelec, jk_fn=_one_lane(jk_fn),
+        v_emb=lane(v_emb), xc_fn=_one_lane(xc_fn), hyb=hyb, dm_env_occ=lane(dm_env_occ),
+        dm_env_virt=lane(dm_env_virt), dm0=lane(dm0), conv_tol=conv_tol,
+        dm_conv_tol=dm_conv_tol, max_cycle=max_cycle, diis_space=diis_space,
+        level_shift=level_shift, use_diis=use_diis, grad_cycles=grad_cycles, rohf=rohf,
+        jk_fn_fast=_one_lane(jk_fn_fast), xc_fn_fast=_one_lane(xc_fn_fast),
+        rebase_every=rebase_every, xc_switch_tol=xc_switch_tol))
 
 
 def _one_lane(fn):
@@ -554,8 +443,9 @@ def _lane_ops(*, h_eff, s, x, occ, jk_fn, xc_fn, hyb, dm_occ_s=None, dm_virt_s=N
             j, k = incremental_jk(st, variant[0])
             f, _, e_cur = assemble_fock(dm, j, k, incremental_xc(st, variant[1]))
         if rohf:
-            # the per-spin error of F_eff covers every coupling block (see
-            # run_scf)
+            # the per-spin error of F_eff covers every coupling block:
+            # D_beta tests closed-open and closed-virtual, D_alpha
+            # open-virtual
             f = roothaan_effective(f, dm, s)
         fds = torch.einsum("bsij,bsjk,bkl->bsil", f, dm, s)
         err = torch.einsum("bpi,bspq,bqj->bsij", x, fds - fds.transpose(-1, -2), x)
@@ -570,13 +460,15 @@ def _lane_ops(*, h_eff, s, x, occ, jk_fn, xc_fn, hyb, dm_occ_s=None, dm_virt_s=N
             f_use = torch.where(it > 0, _diis_extrapolate(
                 hist_f, hist_e, torch.clamp(it + 1, max=m), eigh, active), f)
         if level_shift:
+            # F' = F + lambda (S - S D_s S) shifts only the virtual
+            # eigenvalues, damping occupied<->virtual oscillation
             sds = torch.einsum("bij,bsjk,bkl->bsil", s, dm, s)
             f_use = f_use + level_shift * (s[:, None] - sds)
         mo_e_new, c_new = eig_fock(f_use, active)
         dm_new = make_rdm1(c_new, occ)
-        # the test in float64, as the single-geometry loop takes it on the
-        # host: float32 loops compare their energy and density changes in
-        # float64 too
+        # the test in float64, as the reference's single-geometry loop
+        # takes it: float32 loops compare their energy and density changes
+        # in float64 too
         e_cur = e_cur.to(st["e"].dtype)
         de = torch.abs(e_cur - st["e"])
         ddm = torch.amax(torch.linalg.matrix_norm(dm_new - dm), dim=-1).to(st["e"].dtype)
@@ -689,6 +581,8 @@ def _run_scf_lanes(*, hcore, s, nelec, jk_fn, v_emb, xc_fn, hyb, dm_env_occ, dm_
         rebase_every=rebase_every, xc_switch_tol=xc_switch_tol)
 
     if dm0 is None:
+        # core-Hamiltonian guess (+projectors), as the reference's
+        # Huzinaga loop does
         f_init = h_eff
         if dm_occ_s is not None:
             f_init = f_init + huzinaga_operator(f_init, dm_occ_s, dm_virt_s)

@@ -270,6 +270,8 @@ def test_run_scf_supermatrices_and_diis_space(mols, water_uhf_engine):
 
 
 ROUTES = {
+    "hf": ("water", dict(TIGHT)),
+    "b3lyp": ("water", dict(xc="b3lyp", **TIGHT)),
     "rohf": ("methyl", dict(rohf=True, **TIGHT)),
     "roks": ("methyl", dict(rohf=True, xc="b3lyp", **TIGHT)),
     "restricted": ("water", dict(restricted=True, xc="b3lyp", **TIGHT)),
@@ -279,12 +281,16 @@ ROUTES = {
     "warmup_f32": ("water", dict(xc="b3lyp", warmup_f32=True, **TIGHT)),
     "pbe": ("water", dict(xc="pbe", **TIGHT)),
 }
+# the routes whose eager run and program body are held bitwise equal: one
+# SCF cycle (scf.hf._lane_ops) runs both, one geometry as one lane
+ONE_CYCLE = ("hf", "b3lyp")
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_graphed_routes_match_eager(route, water_xyz):
     """Every route of the body against the eager loop: energy within 1e-10
-    Ha, the same cycles."""
+    Ha, the same cycles; on the routes of ``ONE_CYCLE`` the same energy and
+    density bitwise."""
     from pathlib import Path
 
     which, kw = ROUTES[route]
@@ -301,6 +307,9 @@ def test_graphed_routes_match_eager(route, water_xyz):
     assert abs(ours.e_tot - eager.e_tot) < 1e-10
     assert eng.last_run["cycles"] == eager_eng.last_run["cycles"]
     assert ours.mo_coeff.shape == eager.mo_coeff.shape
+    if route in ONE_CYCLE:
+        assert ours.e_tot == eager.e_tot
+        assert torch.equal(ours.make_rdm1(), eager.make_rdm1())
     if route == "streaming_xc":
         assert eng._xc_streams
     if route == "warmup_f32":
