@@ -3304,6 +3304,62 @@ def check_fci_acetonitrile() -> dict:
     return row
 
 
+# the ERI kernel's least time: its E . R . E contraction's operations
+# (ops.eri.operations) at the H100's float64 rate outside the tensor cores
+F64_SCALAR_FLOP_PER_S = 34e12
+
+
+def check_md_eri() -> list:
+    """The ERI kernel (``ops.eri``) on acetonitrile/STO-3G at B = 1 (the
+    publication geometry) and B = 36 (jittered by 0.02 bohr, the fleet's
+    conformers) against the host engine (``integrals.native.eri``, each
+    lane, within 1e-12) and in a second launch bitwise; times the kernel
+    (single call, back to back, device time of its two launches by the
+    profiler), the plain version (``integrals.eri.eri_torch`` eager on the
+    card) and the host engine (the lanes in turn); returns rows."""
+    from nbed_tpu_torch.chem import build_molecule
+    from nbed_tpu_torch.integrals import native
+    from nbed_tpu_torch.integrals.eri import _device_tables, eri_torch
+    from nbed_tpu_torch.ops import eri as md_eri
+
+    mol = build_molecule(ACETONITRILE, "sto-3g")
+    tab = md_eri.tables(mol)
+    rng = np.random.default_rng(24)
+    rows = []
+    for batch in (1, 36):
+        coords = (mol.coords[None] if batch == 1 else
+                  mol.coords + rng.normal(0.0, 0.02, (batch,) + mol.coords.shape))
+        x = torch.as_tensor(coords if batch > 1 else coords[0], device="cuda")
+        kernel = lambda: md_eri.eri(mol, x)  # noqa: E731
+        ours = kernel()
+        t0 = time.perf_counter()
+        refs = [native.eri(mol, c) for c in coords]
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        got = ours.reshape((batch,) + (mol.nao,) * 4).cpu().numpy()
+        err = max(float(np.abs(got[b] - refs[b]).max()) for b in range(batch))
+        if not err <= 1e-12:
+            raise RuntimeError(f"md_eri B={batch}: kernel misses the host engine by {err}")
+        if not torch.equal(kernel(), ours):
+            raise RuntimeError(f"md_eri B={batch}: two launches differ")
+        tables = _device_tables(mol, x.device)
+        plain = lambda: eri_torch(mol, x, tables, 2**22, None)  # noqa: E731
+        plain_err = float((plain() - ours).abs().max())
+        ops = md_eri.operations(tab, batch)
+        row = {"molecule": "acetonitrile", "basis": "sto-3g", "batch": batch, "nao": mol.nao,
+               "quartets": len(tab.quartets), "max_abs_err": err, "plain_max_abs_err": plain_err,
+               "ms": median_ms(kernel), "ms_stream": stream_ms(kernel, 20),
+               "pairs_device_us": device_us(kernel, "md_eri_pairs"),
+               "quartets_device_us": device_us(kernel, "md_eri_quartets"),
+               "plain_ms": median_ms(plain, 5, 1), "host_ms": host_ms,
+               "operations": ops, "bound_ms": 1e3 * ops / F64_SCALAR_FLOP_PER_S,
+               "bound_by": "float64 operations"}
+        row["kernel_device_us"] = row["pairs_device_us"] + row["quartets_device_us"]
+        row["roofline_pct"] = 100.0 * 1e3 * row["bound_ms"] / row["kernel_device_us"]
+        print("md_eri", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 @contextmanager
 def driver_engines(jit_kernel: str):
     """Inside the block, the engines that ``nbed()`` makes run with
@@ -4159,11 +4215,11 @@ def build_all():
     from concurrent.futures import ThreadPoolExecutor
 
     from nbed_tpu_torch._compile import native_integrals_library, qubit_terms_library
-    from nbed_tpu_torch.ops import eigh, fci_hamiltonian, jk
+    from nbed_tpu_torch.ops import eigh, eri, fci_hamiltonian, jk
 
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         futures = [pool.submit(f) for f in (jk.build_kernels, eigh.build_library,
-                                            fci_hamiltonian.build_library,
+                                            fci_hamiltonian.build_library, eri.build_library,
                                             native_integrals_library, qubit_terms_library)]
         for f in futures:
             f.result()
@@ -4201,6 +4257,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False")
     from nbed_tpu_torch.ops import eigh, fci_hamiltonian, jk
+    from nbed_tpu_torch.ops import eri as md_eri
     from nbed_tpu_torch.scf import engine
     from nbed_tpu_torch.scf.engine import _atomic_density
 
@@ -4232,6 +4289,9 @@ def main():
     t0 = time.perf_counter()
     fci_acetonitrile = check_fci_acetonitrile()
     phase_s["fci_acetonitrile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eri_rows = check_md_eri()
+    phase_s["md_eri_check"] = time.perf_counter() - t0
 
     # each pipeline is a cold run (its atoms' SAD SCFs included), with the
     # launch counts set to 0 just before it and read just after
@@ -4240,7 +4300,7 @@ def main():
 
     def count(name):
         per_phase[name] = {**jk.LAUNCHES, **eigh.LAUNCHES, **fci_hamiltonian.LAUNCHES,
-                           "lanes": lane_launches()}
+                           **md_eri.LAUNCHES, "lanes": lane_launches()}
         runs[name] = dict(engine.RUNS)
         for (key, m, r, b), n in jk.LAUNCHES_BY_SHAPE.items():
             by_m[f"{key} M={m}"] = by_m.get(f"{key} M={m}", 0) + n
@@ -4252,6 +4312,7 @@ def main():
         jk.LAUNCHES_BY_SHAPE.clear()
         eigh.LAUNCHES.clear()
         fci_hamiltonian.LAUNCHES.clear()
+        md_eri.LAUNCHES.clear()
         engine.RUNS.clear()
 
     def remember(name, driver):
@@ -4508,6 +4569,18 @@ def main():
         **{k: fci_acetonitrile[k] for k in ("sigma_ms", "gather_device_us",
                                             "scatter_device_us", "dim", "block_rows")},
     })
+    # the ERI tensor of one acetonitrile request and of the fleet's 36 lanes;
+    # launches summed over the phases
+    for row in eri_rows:
+        kernels.append({
+            "name": f"md_eri B={row['batch']}", "route": "cuda",
+            "source": "nbed_tpu_torch/csrc/md_eri.cu", "replaces": None,
+            "launches": sum(c.get("md_eri", 0) for c in per_phase.values()),
+            "library_ms": None,
+            **{k: row[k] for k in ("ms", "plain_ms", "host_ms", "bound_ms", "bound_by",
+                                   "ms_stream", "kernel_device_us", "roofline_pct",
+                                   "max_abs_err", "nao", "batch", "quartets")},
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,13 @@ torch's ``index_put`` backward would send it to every update and double the
 gradient. With the gather each element has exactly one source, and the
 backward (an index-add over the elements) sums the cotangents of all images
 of a value, which is the derivative. Everything is torch arithmetic on the
-coordinates, so autograd passes through; the SCF engine keeps the host C++
-engine for its own ERIs.
+coordinates, so autograd passes through.
+
+On a CUDA device, coordinates that neither require grad nor carry a
+forward-mode tangent take the hand-written kernel instead
+(:func:`nbed_tpu_torch.ops.eri.eri`, shells up to d): one launch for all
+lanes, where the classes' chunks are thousands of small ones. The derivative
+routes and the CPU keep the torch arithmetic.
 """
 
 from functools import lru_cache
@@ -30,6 +35,7 @@ import torch
 
 from .._device import DTYPE, resolve_device
 from ..chem.molecule import Molecule
+from ..ops import eri as md_eri
 from .core import _coords, _e3_tensor
 from .md import hermite_r_cross
 
@@ -176,17 +182,38 @@ def eri_tensor(mol: Molecule, coords=None, chunk_elems: int = 2**22, omega=None,
     Coordinates of shape (B, natm, 3) give (B, nao, nao, nao, nao): the B
     lanes ride through each class's chunks in one computation, and a
     chunk holds chunk_elems / B rows, so its memory is the single
-    geometry's.
+    geometry's. Where :func:`takes_kernel` (a card, no derivative), the
+    kernel computes all lanes in one call and ``chunk_elems`` is unused.
     """
     c = _coords(mol, coords, resolve_device(device))
-    return _eri_of(mol, c, _device_tables(mol, c.device), chunk_elems,
-                   None if omega is None else float(omega))
+    omega = None if omega is None else float(omega)
+    if takes_kernel(mol, c):
+        return md_eri.eri(mol, c, omega)
+    return eri_torch(mol, c, _device_tables(mol, c.device), chunk_elems, omega)
+
+
+def takes_kernel(mol: Molecule, c) -> bool:
+    """Whether the ERIs at coordinates ``c`` come from the card's kernel:
+    ``c`` on a CUDA device, carrying no derivative (``requires_grad`` or a
+    forward-mode tangent), and every shell of ``mol`` within the kernel's."""
+    from ..scf.hf import carries_derivative
+
+    return c.device.type == "cuda" and not carries_derivative(c) and md_eri.covers(mol)
 
 
 def _eri_of(mol: Molecule, c, device_tables, chunk_elems: int, omega):
-    """:func:`eri_tensor` at coordinates ``c`` (a tensor) over the
-    :func:`_device_tables` of ``mol``: tensors only, so a CUDA graph
+    """:func:`eri_tensor` at coordinates ``c`` (a tensor): the kernel where
+    :func:`takes_kernel`, else :func:`eri_torch` over ``device_tables``
+    (:func:`_device_tables` of ``mol``): tensors only, so a CUDA graph
     captures it."""
+    if takes_kernel(mol, c):
+        return md_eri.eri(mol, c, omega)
+    return eri_torch(mol, c, device_tables, chunk_elems, omega)
+
+
+def eri_torch(mol: Molecule, c, device_tables, chunk_elems: int, omega):
+    """The torch arithmetic of :func:`eri_tensor` at ``c`` on any device,
+    over the :func:`_device_tables` of ``mol``: the kernel's plain version."""
     lead = tuple(c.shape[:-2])
     lanes = int(np.prod(lead))
     classes, tables, source = device_tables
@@ -239,7 +266,10 @@ def eri_program(mol: Molecule, coords, omega=None, chunk_elems: int = 2**22,
 
     def build(device, pool):
         x = torch.zeros(shape, dtype=DTYPE, device=device)
-        tables = _device_tables(mol, device)
+        # the body's tables: the kernel's, which the graph reads by address,
+        # where the primal program takes the kernel
+        kernel = not tangent and takes_kernel(mol, x)
+        tables = md_eri.device_tables(mol, device) if kernel else _device_tables(mol, device)
         if tangent:
             return TangentProgram(kind, {"x": x},
                                   lambda x: {"eri": _eri_of(mol, x, tables, chunk_elems, omega)},

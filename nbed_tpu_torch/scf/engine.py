@@ -80,6 +80,7 @@ from ..grids.grid import ao_views, grid_constants, grid_points, shell_tables
 from ..integrals import kinetic, native, nuclear_attraction, overlap, point_charge_attraction
 from ..integrals.eri import eri_program
 from ..ops import eigh as eigh_ops
+from ..ops import eri as md_eri
 from ..ops.jk import LAUNCHES, prepare_jk
 from ..ops.programs import RUNS, cached_program, has_tangent, replay, takes_program
 from ..ops.programs import Captured as _Captured
@@ -498,11 +499,14 @@ class SCFEngine:
           float32 XC on coarse cycles and a float64 polish at the end;
           ``"off"`` or ``"auto"`` (the reference turns "auto" on only on
           a TPU): plain float64.
-        integrals_backend: ``"auto"`` or ``"native"``: S, hcore and the
-          ERIs from the host C++ engine; ``"torch"`` (or ``"jax"``, the
-          reference's name for its device integrals): from the port's
-          torch integrals (:mod:`nbed_tpu_torch.integrals`) on the
-          engine's device. The DF factor is built on the host either way.
+        integrals_backend: ``"native"``: S, hcore and the ERIs from the
+          host C++ engine; ``"auto"``: the same, but the ERIs from the
+          card's kernel (:func:`nbed_tpu_torch.ops.eri.eri`) on a CUDA
+          device where every shell is within it (up to d); ``"torch"``
+          (or ``"jax"``, the reference's name for its device integrals):
+          from the port's torch integrals (:mod:`nbed_tpu_torch.integrals`)
+          on the engine's device. The DF factor is built on the host
+          either way.
         jit_kernel: how ``kernel()``, ``get_veff`` and
           ``subsystem_decomposition`` run. ``"on"``: as graphed programs
           (:class:`nbed_tpu_torch.scf.hf.SCFProgram`): on CUDA captured as
@@ -594,6 +598,13 @@ class SCFEngine:
         """Whether S, hcore and the ERIs come from the torch integrals."""
         return self.integrals_backend in ("torch", "jax")
 
+    @property
+    def _card_eri(self) -> bool:
+        """Whether the ERIs come from the card's kernel: backend "auto" on a
+        CUDA device, every shell within the kernel's."""
+        return (self.integrals_backend == "auto" and self.device.type == "cuda"
+                and md_eri.covers(self.mol))
+
     @cached_property
     def _native_1e(self):
         if self.integrals_from is not None:
@@ -636,6 +647,9 @@ class SCFEngine:
             return self.integrals_from.eri
         if self._torch_integrals:  # the "eri" program under jit_kernel
             return eri_program(self.mol, self._tensor(self.coords), jit_kernel=self.jit_kernel)
+        if self._card_eri:
+            with span("integrals.card"):
+                return md_eri.eri(self.mol, self._tensor(self.coords))
         with span("integrals.native"):
             return self._tensor(native.eri(self.mol, self.coords))
 
@@ -646,6 +660,9 @@ class SCFEngine:
         if self._torch_integrals:
             return eri_program(self.mol, self._tensor(self.coords), omega=omega,
                                jit_kernel=self.jit_kernel)
+        if self._card_eri:
+            with span("integrals.card"):
+                return md_eri.eri(self.mol, self._tensor(self.coords), omega)
         with span("integrals.native"):
             return self._tensor(native.eri(self.mol, self.coords, omega=omega))
 
